@@ -1,0 +1,56 @@
+"""Architecture registry + builder.
+
+`build_network(opt)` dispatches on the same `type:` names as
+`image_restoration_tpu/archs/__init__.py` and initialises the parameters
+from a seeded `torch.Generator`, on the CPU (move the net afterwards).
+"""
+
+from copy import deepcopy
+
+import torch
+
+from ..utils.registry import ARCH_REGISTRY
+from . import stylegan2_arch  # noqa: F401
+from . import gfpgan_ocr_arch  # noqa: F401
+
+_DTYPE_ALIASES = {
+    "bf16": torch.bfloat16, "bfloat16": torch.bfloat16,
+    "f32": torch.float32, "float32": torch.float32, "fp32": torch.float32,
+    "f16": torch.float16, "float16": torch.float16, "fp16": torch.float16,
+}
+
+
+@torch.no_grad()
+def init_weights(net: torch.nn.Module, generator: torch.Generator) -> None:
+    """Draw every parameter from `generator` (CPU) with each layer's init."""
+    for m in net.modules():
+        if hasattr(m, "reset_parameters"):
+            m.reset_parameters(generator)
+
+
+def build_network(opt, generator: torch.Generator | None = None):
+    """Instantiate a module from a config dict with a `type:` key.
+
+    Accepts the square `out_size` spelling for the rectangle-aware archs and
+    dtype strings ("bf16", "float32", ...). Parameters are drawn from
+    `generator`, or from a generator seeded with 0.
+    """
+    opt = deepcopy(opt)
+    network_type = opt.pop("type")
+    cls = ARCH_REGISTRY.get(network_type)
+    if "out_size" in opt:
+        size = opt.pop("out_size")
+        opt.setdefault("input_width", size)
+        opt.setdefault("input_height", size)
+    if isinstance(opt.get("dtype"), str):
+        try:
+            opt["dtype"] = _DTYPE_ALIASES[opt["dtype"]]
+        except KeyError:
+            raise ValueError(
+                f"unknown dtype {opt['dtype']!r} for network type "
+                f"{network_type!r}; valid spellings: "
+                f"{sorted(_DTYPE_ALIASES)}") from None
+    opt = {k: tuple(v) if isinstance(v, list) else v for k, v in opt.items()}
+    net = cls(**opt)
+    init_weights(net, generator or torch.Generator().manual_seed(0))
+    return net

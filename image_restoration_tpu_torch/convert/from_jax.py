@@ -1,0 +1,124 @@
+"""JAX (flax) params → the port's `state_dict`.
+
+The port's parameters carry the reference checkpoint's names and layouts, so
+this is the inverse of the JAX package's `convert/torch_import.py`
+`import_network`: each port key is resolved against the flax tree with the
+same rules (`list.N` → `list_N`, a ConvLayer's Sequential index is skipped or
+becomes `layerN`, `activate`/`activation` is skipped, a fused activation's
+`bias` is flax's `act_bias`), and each array is laid out as the port holds it:
+
+    conv HWIO                  → OIHW
+    modulated conv HWIO        → (1, O, I, k, k)
+    linear (in, out)           → (out, in), with final_linear's input
+                                 features reordered from (H, W, C) to (C, H, W)
+    constant input (1, H, W, C) → (1, C, H, W)
+
+Strict both ways: every port key must resolve and every flax leaf be used.
+"""
+
+from __future__ import annotations
+
+import re
+from collections import OrderedDict
+from typing import Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+
+def _resolve(tree: Dict, tokens: List[str]) -> Optional[Tuple[str, ...]]:
+    path: List[str] = []
+    node = tree
+    i = 0
+    while i < len(tokens):
+        tok = tokens[i]
+        if i == len(tokens) - 1:
+            if tok in node and not isinstance(node[tok], dict):
+                return tuple(path + [tok])
+            if tok == "bias" and "act_bias" in node:
+                return tuple(path + ["act_bias"])
+            return None
+        merged = f"{tok}_{tokens[i + 1]}"
+        if isinstance(node.get(merged), dict):
+            path.append(merged)
+            node = node[merged]
+            i += 2
+            continue
+        if isinstance(node.get(tok), dict):
+            path.append(tok)
+            node = node[tok]
+            i += 1
+            continue
+        if tok.isdigit():
+            if isinstance(node.get(f"layer{tok}"), dict):
+                path.append(f"layer{tok}")
+                node = node[f"layer{tok}"]
+            i += 1  # a bare Sequential index (ConvLayer) is skipped
+            continue
+        if tok in ("activate", "activation"):
+            i += 1
+            continue
+        return None
+    return None
+
+
+def _leaves(tree: Dict, prefix=()) -> Dict[Tuple[str, ...], np.ndarray]:
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(_leaves(v, prefix + (k,)))
+        else:
+            out[prefix + (k,)] = np.asarray(v)
+    return out
+
+
+def _flatten_fixes(net) -> Dict[str, Tuple[int, int, int]]:
+    """Linears fed by a flattened feature map: key prefix → (C, H, W)."""
+    if type(net).__name__ == "GFPGANv1OCR":
+        c4 = net.final_conv[0].weight.shape[0]
+        return {"final_linear.": (c4, 4, 4 * net.ratio)}
+    return {}
+
+
+def _fit(key: str, a: np.ndarray, shape: Tuple[int, ...],
+         flat_chw: Optional[Tuple[int, int, int]]) -> np.ndarray:
+    if key.endswith("constant_input.weight"):
+        a = a.transpose(0, 3, 1, 2)
+    elif a.ndim == 4:  # HWIO → OIHW (a modulated weight adds a leading 1)
+        a = a.transpose(3, 2, 0, 1)
+    elif a.ndim == 2:  # (in, out) → (out, in)
+        a = a.T
+        if flat_chw is not None:
+            c, h, w = flat_chw
+            a = a.reshape(a.shape[0], h, w, c).transpose(0, 3, 1, 2)
+    a = np.ascontiguousarray(a)
+    if a.size != int(np.prod(shape)):
+        raise ValueError(f"{key}: flax array of {a.size} values cannot fill "
+                         f"the port's {tuple(shape)}")
+    return a.reshape(shape)
+
+
+def state_dict_from_jax(net: torch.nn.Module, flax_params: Dict) -> OrderedDict:
+    """The `state_dict` of port module `net` holding the JAX package's
+    `flax_params` (a nested dict of arrays, the `params` collection)."""
+    leaves = _leaves(flax_params)
+    fixes = _flatten_fixes(net)
+    used = set()
+    out = OrderedDict()
+    for key, ref in net.state_dict().items():
+        k = re.sub(r"style_mlp\.(\d+)",
+                   lambda m: f"style_mlp_{int(m.group(1)) - 1}", key)
+        path = _resolve(flax_params, k.split("."))
+        if path is None or path not in leaves:
+            raise KeyError(f"port key {key!r} has no flax counterpart")
+        if path in used:
+            raise KeyError(f"flax leaf {'/'.join(path)} matched twice")
+        used.add(path)
+        flat = next((chw for p, chw in fixes.items() if key.startswith(p)),
+                    None)
+        arr = _fit(key, leaves[path], tuple(ref.shape), flat)
+        out[key] = torch.from_numpy(arr.astype(np.float32))
+    unused = sorted("/".join(p) for p in set(leaves) - used)
+    if unused:
+        raise KeyError(f"{len(unused)} flax params unused: {unused[:10]}")
+    return out

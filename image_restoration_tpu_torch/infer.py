@@ -1,0 +1,164 @@
+"""Single-image / batch restoration inference on the GPU.
+
+Port of `image_restoration_tpu/infer.py:27-273`: `PRODUCTION_GFPGAN`, the
+`Restorer` (float path `restore_batch`/`__call__`, device-IO path
+`restore_batch_u8`) and the `--arch gfpgan_ocr` CLI. Not ported yet:
+`quant="dyn-int8"`, `data_parallel`, `restore_tiled(_u8)` and the other
+`--arch` choices; they raise NotImplementedError.
+"""
+
+from __future__ import annotations
+
+import argparse
+import glob
+import os
+import time
+from typing import Optional
+
+import numpy as np
+import torch
+
+from .archs import build_network
+from .convert.pth import load_pth
+from .ops.resize import resize
+from .utils.device import resolve_device
+from .utils.img_util import imread, imwrite, tensor2img
+
+PRODUCTION_GFPGAN = dict(
+    type="GFPGANv1OCR", input_width=256, input_height=256,
+    num_style_feat=256, channel_multiplier=0.5, num_mlp=4,
+    input_is_latent=True, different_w=True, narrow=1, sft_half=True)
+
+
+class Restorer:
+    """Restoration wrapper around GFPGANv1OCR (the one arch ported so
+    far), on one device.
+
+    Without `ckpt_path` the weights are drawn from a generator seeded with
+    `seed`. `device=None` means "cuda" and raises without a GPU.
+    """
+
+    def __init__(self, network_opt: dict, ckpt_path: Optional[str] = None,
+                 param_key: str = "params_ema", dtype=None,
+                 mean=(0.5, 0.5, 0.5), std=(0.5, 0.5, 0.5),
+                 out_min_max=(-1, 1), quant: Optional[str] = None,
+                 data_parallel: Optional[int] = None, device=None,
+                 seed: int = 0):
+        if quant is not None:
+            raise NotImplementedError(
+                f"quant={quant!r} is not ported yet (needs an int8 conv "
+                "kernel; PyTorch has none on CUDA)")
+        if data_parallel:
+            raise NotImplementedError("data_parallel is not ported yet")
+        self.device = resolve_device(device)
+        opt = dict(network_opt)
+        if dtype is not None:
+            opt["dtype"] = dtype
+        if opt["type"] != "GFPGANv1OCR":
+            raise NotImplementedError(f"Restorer({opt['type']}) is not "
+                                      "ported yet")
+        self.net = build_network(opt, torch.Generator().manual_seed(seed))
+        if ckpt_path:
+            sd = load_pth(ckpt_path, param_key,
+                          input_is_latent=opt.get("input_is_latent", False))
+            self.net.load_state_dict(sd, strict=True)
+        self.net.to(self.device).eval().requires_grad_(False)
+        self.mean = np.asarray(mean, np.float32)
+        self.std = np.asarray(std, np.float32)
+        self._mean_t = torch.as_tensor(self.mean, device=self.device)
+        self._std_t = torch.as_tensor(self.std, device=self.device)
+        self.out_min_max = out_min_max
+        self.input_size = (opt.get("input_height"), opt.get("input_width"))
+
+    def _resize_in(self, x: torch.Tensor) -> torch.Tensor:
+        if self.input_size[0] is not None and (
+                x.shape[1] != self.input_size[0]
+                or x.shape[2] != self.input_size[1]):
+            x = resize(x, self.input_size, "bilinear")
+        return x
+
+    @torch.inference_mode()
+    def _fwd(self, x: torch.Tensor) -> torch.Tensor:
+        image, _ = self.net(self._resize_in(x), return_rgb=False)
+        return image
+
+    def _to_device(self, arr: np.ndarray) -> torch.Tensor:
+        return torch.from_numpy(np.ascontiguousarray(arr)).to(self.device)
+
+    def restore_batch(self, imgs: np.ndarray) -> np.ndarray:
+        """(N,H,W,3) RGB float [0,1] → (N,H',W',3) BGR uint8, normalized on
+        the host (the reference-exact path)."""
+        x = self._to_device(((imgs - self.mean) / self.std).astype(np.float32))
+        out_np = self._fwd(x).float().cpu().numpy()
+        return np.stack([tensor2img(out_np[i:i + 1], min_max=self.out_min_max)
+                         for i in range(out_np.shape[0])])
+
+    @torch.inference_mode()
+    def restore_batch_u8(self, imgs: np.ndarray) -> np.ndarray:
+        """(N,H,W,3) RGB uint8 → (N,H',W',3) BGR uint8 with uint8 on the
+        wire both ways: /255, normalize, clip, rescale, BGR flip and rounding
+        run on the device. Within 1 LSB of `restore_batch(imgs / 255)`."""
+        if imgs.dtype != np.uint8:
+            raise TypeError(f"restore_batch_u8 expects uint8, got "
+                            f"{imgs.dtype}")
+        x = self._to_device(imgs).float() / 255.0
+        x = (x - self._mean_t) / self._std_t
+        out = self._fwd(x)
+        lo, hi = self.out_min_max
+        y = torch.clamp(out.float(), lo, hi)
+        y = (y - lo) / (hi - lo)
+        y = torch.flip(y, dims=(-1,))  # rgb2bgr, as tensor2img does
+        return torch.round(y * 255.0).to(torch.uint8).cpu().numpy()
+
+    def __call__(self, img: np.ndarray) -> np.ndarray:
+        """HWC RGB float [0,1] → HWC BGR uint8 restored."""
+        x = self._to_device(((img - self.mean) / self.std)
+                            .astype(np.float32)[None])
+        return tensor2img(self._fwd(x), min_max=self.out_min_max)
+
+    def restore_tiled(self, *args, **kwargs):
+        raise NotImplementedError("restore_tiled is not ported yet")
+
+    def restore_tiled_u8(self, *args, **kwargs):
+        raise NotImplementedError("restore_tiled_u8 is not ported yet")
+
+
+def main(argv=None):
+    parser = argparse.ArgumentParser(description="Restore plate/car images")
+    parser.add_argument("--input", type=str, required=True,
+                        help="image file or glob")
+    parser.add_argument("--output", type=str, default="results")
+    parser.add_argument("--ckpt", type=str, default=None,
+                        help="reference .pth checkpoint to load")
+    parser.add_argument("--arch", type=str, default="gfpgan_ocr",
+                        choices=["gfpgan_ocr", "rrdbnet", "srvgg"])
+    parser.add_argument("--tile", type=int, default=0,
+                        help=">0 enables halo-tiled inference (not ported)")
+    parser.add_argument("--bf16", action="store_true")
+    parser.add_argument("--device", type=str, default=None,
+                        help="torch device (default cuda)")
+    args = parser.parse_args(argv)
+
+    if args.arch != "gfpgan_ocr":
+        raise NotImplementedError(f"--arch {args.arch} is not ported yet")
+    if args.tile:
+        raise NotImplementedError("--tile is not ported yet")
+    restorer = Restorer(PRODUCTION_GFPGAN, args.ckpt,
+                        dtype=torch.bfloat16 if args.bf16 else None,
+                        device=args.device)
+    os.makedirs(args.output, exist_ok=True)
+    paths = sorted(glob.glob(args.input))
+    if not paths:
+        raise FileNotFoundError(args.input)
+    for path in paths:
+        img = imread(path)
+        t0 = time.time()
+        out = restorer(img)
+        name = os.path.splitext(os.path.basename(path))[0]
+        dst = os.path.join(args.output, f"{name}_restored.png")
+        imwrite(out, dst)
+        print(f"{path} -> {dst}  ({time.time() - t0:.2f}s)")
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,141 @@
+"""Fused bias + LeakyReLU × scale — kernel K1 and its plain version.
+
+Port of `image_restoration_tpu/ops/fused_act.py:23-40` and of the Pallas
+kernel `ops/pallas/fused_act_kernel.py` `fused_bias_lrelu_pallas`, which
+computes ``scale * leaky_relu(x + bias)`` over a channel-last (M, C) view.
+
+`fused_leaky_relu` takes the plain PyTorch version for a tensor on the CPU
+and launches the hand-written CUDA kernel (`csrc/fused_bias_act.cu`) for a
+tensor on the GPU; it never falls back from one to the other. Both compute in
+float32 and round once to x's dtype, so they agree bit for bit up to the
+order of float32 operations, which is the same.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+import threading
+
+import torch
+from torch import nn
+
+SQRT2 = math.sqrt(2.0)
+
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_lib = None
+_lib_lock = threading.Lock()
+_count_lock = threading.Lock()
+
+
+def fused_leaky_relu_plain(x: torch.Tensor, bias: torch.Tensor | None = None,
+                           negative_slope: float = 0.2,
+                           scale: float = SQRT2) -> torch.Tensor:
+    """scale * leaky_relu(x + bias) in plain PyTorch; bias over the last axis.
+
+    The arithmetic is the kernel's: float32 throughout, one rounding to
+    x's dtype at the end.
+    """
+    v = x.float()
+    if bias is not None:
+        v = v + bias.to(x.dtype).float()
+    v = torch.where(v >= 0, v, v * negative_slope) * scale
+    return v.to(x.dtype)
+
+
+def scaled_leaky_relu(x: torch.Tensor, negative_slope: float = 0.2) -> torch.Tensor:
+    """ScaledLeakyReLU: lrelu(x)·√2 (no bias)."""
+    return torch.where(x >= 0, x, x * negative_slope) * SQRT2
+
+
+def _kernel_lib() -> ctypes.CDLL:
+    global _lib
+    with _lib_lock:
+        if _lib is None:
+            from ._build import load
+            lib = load("fused_bias_act")
+            lib.fused_bias_lrelu.argtypes = [
+                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                ctypes.c_longlong, ctypes.c_int, ctypes.c_float,
+                ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+            lib.fused_bias_lrelu.restype = ctypes.c_int
+            lib.fused_bias_lrelu_error_string.argtypes = [ctypes.c_int]
+            lib.fused_bias_lrelu_error_string.restype = ctypes.c_char_p
+            _lib = lib
+        return _lib
+
+
+def fused_leaky_relu(x: torch.Tensor, bias: torch.Tensor | None = None,
+                     negative_slope: float = 0.2,
+                     scale: float = SQRT2) -> torch.Tensor:
+    """scale * leaky_relu(x + bias) over a channel-last tensor (..., C).
+
+    CPU tensor → `fused_leaky_relu_plain`. CUDA tensor → kernel K1, which
+    needs a contiguous float32 or bfloat16 x and a bias of shape (C,) on the
+    same device (cast to x's dtype, as the TPU kernel does); anything else
+    raises. `fused_leaky_relu.launches` counts the kernel's launches.
+    """
+    if x.device.type == "cpu":
+        return fused_leaky_relu_plain(x, bias, negative_slope, scale)
+    if x.device.type != "cuda":
+        raise ValueError(f"fused_leaky_relu: unsupported device {x.device}")
+    if x.dtype not in _DTYPE_CODES:
+        raise TypeError(f"fused_leaky_relu kernel takes float32 or bfloat16, "
+                        f"got {x.dtype}")
+    if not x.is_contiguous():
+        raise ValueError("fused_leaky_relu kernel needs a contiguous "
+                         "channel-last tensor")
+    c = x.shape[-1] if x.dim() else 1
+    if bias is not None:
+        if bias.shape != (c,):
+            raise ValueError(f"bias shape {tuple(bias.shape)} != ({c},)")
+        if bias.device != x.device:
+            raise ValueError(f"bias on {bias.device}, x on {x.device}")
+        bias = bias.to(x.dtype)
+        if not bias.is_contiguous():
+            raise ValueError("bias must be contiguous")
+    out = torch.empty_like(x)
+    if x.numel() == 0:
+        return out
+    lib = _kernel_lib()
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = lib.fused_bias_lrelu(
+            x.data_ptr(), None if bias is None else bias.data_ptr(),
+            out.data_ptr(), x.numel(), c, negative_slope, scale,
+            _DTYPE_CODES[x.dtype], stream)
+    if err != 0:
+        msg = lib.fused_bias_lrelu_error_string(err).decode()
+        raise RuntimeError(f"fused_bias_lrelu launch failed: {msg} ({err})")
+    with _count_lock:
+        fused_leaky_relu.launches += 1
+    return out
+
+
+fused_leaky_relu.launches = 0
+
+
+class FusedLeakyReLU(nn.Module):
+    """Activation with its own per-channel bias (the reference module that
+    holds `…activate.bias` / `…activation.bias` / ConvLayer's `N.bias`)."""
+
+    def __init__(self, channels: int, negative_slope: float = 0.2,
+                 scale: float = SQRT2):
+        super().__init__()
+        self.bias = nn.Parameter(torch.zeros(channels))
+        self.negative_slope = negative_slope
+        self.scale = scale
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return fused_leaky_relu(x, self.bias, self.negative_slope, self.scale)
+
+
+class ScaledLeakyReLU(nn.Module):
+    """Bias-free lrelu·√2 (reference `ScaledLeakyReLU`)."""
+
+    def __init__(self, negative_slope: float = 0.2):
+        super().__init__()
+        self.negative_slope = negative_slope
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return scaled_leaky_relu(x, self.negative_slope)
