@@ -3,24 +3,49 @@
 
     python3 chip_smoke.py [--out report.json]
 
-Drives the port's main path — GFPGANv1OCR at PRODUCTION_GFPGAN (256²) behind
-`Restorer.restore_batch_u8` and the stdlib restore server — with random
-weights made from a seed, and fails loudly if any phase fails:
+Drives the port's two main paths with random weights made from a seed, and
+fails loudly if any phase fails:
 
   1. device: the card's name and power limit (nvidia-smi);
-  2. build: every hand-written kernel of the path, from csrc/, with nvcc;
-  3. kernels: each kernel against its plain PyTorch version on the card at
-     every (M, C) shape the main path gives it (batch 1 and 16, plus a
-     ragged and a scalar-path shape), f32 and bf16, with its device time
-     (calls back to back), its plain version's, the least time the card
-     could take, and both as the host issues them;
+  2. build: every hand-written kernel (K1 and K2), from csrc/, one nvcc per
+     source, all started together, with ptxas's register report.
+
+Path 1, the restore server: GFPGANv1OCR at PRODUCTION_GFPGAN (256²) behind
+`Restorer.restore_batch_u8` and `/Restore/`, `/RestoreConcat/`:
+
+  3. K1 against its plain PyTorch version on the card at every (M, C) shape
+     the path gives it (batch 1 and 16, plus a ragged and a scalar-path
+     shape), f32 and bf16, with its device time (calls back to back), its
+     plain version's, the least time the card could take, and both as the
+     host issues them;
   4. main path: launch counts set to 0, then one restore at batch 1, 4 and
-     16 and four HTTP requests to /Restore/ and /RestoreConcat/; K1 must
-     launch exactly 39 times per forward;
+     16 and HTTP requests; K1 must launch exactly 39 times per forward;
   5. correctness: the net with K1 against the same net on K1's plain
      version (TF32 off, ≤1 LSB), and the card against the CPU on one image;
   6. throughput (imgs/s per batch, PyTorch's default TF32 settings) and a
      profiler breakdown of one batch-16 forward.
+
+Path 2, the ×4 SR tile engine: SRVGGNetCompact (64 features, 32 convs),
+int8 PTQ with pack-2 block-diagonal weights, tiles of 512 with a halo of 8,
+8 tiles per engine call, behind `EngineRestorer` and `/SRx4/`:
+
+  7. K2 against its plain version at each layer shape of an engine call
+     (4 packed images of 528², Cin→Cout 6→128, 128→128, 128→96) in both
+     epilogue modes, plus ragged shapes: integer-exact; device times of the
+     kernel and the plain version, the bound, and two library yardsticks
+     (torch._int_mm on the im2col matrix, and the cuDNN bf16 conv of the
+     packed bf16 path at the same shape);
+  8. main path: counts set to 0, then `EngineRestorer` on a 1024×768 image
+     and one POST to /SRx4/; K2 must launch exactly 34 times per engine
+     chunk and K1 never;
+  9. correctness (TF32 off): the chain on K2 against the chain on K2's
+     plain version (int8 activations equal at every layer, bf16 output
+     bit-equal), int8 against the packed bf16 path (span-normalized PSNR
+     ≥ 30 dB), tiled against untiled for the float net (interior), and the
+     card against the CPU on one pair of 64² tiles;
+ 10. throughput: ms per engine call and tiles/s for the int8 engine and the
+     packed bf16 path, peak device memory, and a profiler breakdown of one
+     int8 engine call.
 
 The last line of stdout is {"ok": true, "device": {...}}; the line before it
 lists the kernels as JSON. Without a GPU, or without the port beside this
@@ -44,7 +69,13 @@ import torch
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM, NVIDIA data sheet
 FP32_OPS_PER_S = 67e12      # H100 SXM, CUDA cores, dense
+INT8_OPS_PER_S = 1979e12    # H100 SXM, int8 tensor cores, dense
 K1_LAUNCHES_PER_FORWARD = 39
+# the SR engine at the JAX exporter's defaults (scripts/export_restorer.py)
+SR = dict(num_feat=64, num_conv=32, upscale=4, tile=512, halo=8, batch=8)
+K2_LAUNCHES_PER_CALL = SR["num_conv"] + 2
+SR_GATE_DB = 30.0           # int8 vs packed bf16, bench.py's serving gate
+RECEPTIVE_RADIUS = SR["num_conv"] + 2  # 3×3 convs, in input pixels
 K1_OPS_PER_ELEMENT = 4      # add, compare, two multiplies
 # device_time_ms: calls per window (at most 6 launches each, well inside the
 # CUDA launch queue) and the sleep that holds the stream meanwhile (about
@@ -79,6 +110,30 @@ def plate_image(h, w, seed):
     img = cv2.GaussianBlur(img, (0, 0), 1.2)
     noise = rng.normal(0, 8, img.shape)
     return np.clip(img + noise, 0, 255).astype(np.uint8)
+
+
+def scene_image(h, w, seed):
+    """A synthetic RGB uint8 street-like scene: a smooth colour field, a few
+    flat shapes with hard edges, a licence plate, blur and sensor noise."""
+    import cv2
+    rng = np.random.default_rng(seed)
+    img = cv2.resize(rng.random((h // 64 + 2, w // 64 + 2, 3)).astype(
+        np.float32), (w, h), interpolation=cv2.INTER_CUBIC)
+    img = np.clip(img * 200 + 30, 0, 255).astype(np.uint8)
+    for _ in range(12):
+        x0, y0 = int(rng.integers(0, w)), int(rng.integers(0, h))
+        color = tuple(int(c) for c in rng.integers(0, 256, 3))
+        size = int(rng.integers(h // 16, h // 4))
+        if rng.random() < 0.5:
+            cv2.rectangle(img, (x0, y0), (x0 + size, y0 + size // 2), color,
+                          -1)
+        else:
+            cv2.circle(img, (x0, y0), size // 2, color, -1)
+    ph, pw = h // 6, h // 2
+    y0, x0 = h // 2, w // 3
+    img[y0:y0 + ph, x0:x0 + pw] = plate_image(ph, pw, seed)
+    img = cv2.GaussianBlur(img, (0, 0), 1.0)
+    return np.clip(img + rng.normal(0, 4, img.shape), 0, 255).astype(np.uint8)
 
 
 def _warm_up(fn, arg_sets):
@@ -184,12 +239,13 @@ def phase_device():
 def phase_build():
     from image_restoration_tpu_torch.ops import _build
     t0 = time.perf_counter()
-    builds = _build.build_all(["fused_bias_act"])
+    builds = _build.build_all(["fused_bias_act", "int8_conv3x3"])
     total = time.perf_counter() - t0
     for b in builds:
         log(f"build {b.name}: nvcc {b.seconds:.2f} s -> {b.path.name}")
         for ln in b.log.splitlines():
-            if "ptxas info" in ln and ("Used" in ln or "Compiling" in ln):
+            if "spill" in ln or ("ptxas info" in ln
+                                 and ("Used" in ln or "Compiling" in ln)):
                 log(f"  {ln.strip()}")
     log(f"build total {total:.2f} s")
     return {b.name: b.seconds for b in builds}
@@ -477,6 +533,436 @@ def phase_profile(restorer, u8):
                      for t, n, name in kernels[:25]])
 
 
+# ----------------------------------------------------- path 2: SR engine
+
+def k2_bound_ms(n, h, w, cin, cout):
+    """Least time for one SAME-padded launch: 2·MACs (the block-diagonal
+    zeros included, as the kernel computes them) over the int8 tensor-core
+    peak, or x, weights and out once over the memory rate, the larger."""
+    ops = 2 * n * h * w * cout * 9 * cin
+    nbytes = n * h * w * (cin + cout) + cout * 9 * cin + 3 * cout * 2
+    return max(ops / INT8_OPS_PER_S, nbytes / HBM_BYTES_PER_S) * 1e3, (
+        "operations" if ops / INT8_OPS_PER_S >= nbytes / HBM_BYTES_PER_S
+        else "bytes")
+
+
+def k2_layer_shapes():
+    """(name, Cin, Cout, launches per engine call, PReLU) of the chain."""
+    f, oc = SR["num_feat"] * 2, 3 * SR["upscale"] ** 2 * 2
+    return [("body_0", 6, f, 1, True),
+            (f"body_1..{SR['num_conv']}", f, f, SR["num_conv"], True),
+            ("conv_last", f, oc, 1, False)]
+
+
+def k2_inputs(gen, n, h, w, cin, cout, epilogue, prelu):
+    """Random int8 x and weights, and epilogue vectors that spread |acc·deq|
+    to about 100, so rounding and the ±127 clip both matter."""
+    from image_restoration_tpu_torch.ops.int8_conv import EPILOGUES
+    pdt = EPILOGUES[epilogue][1]
+    x = torch.randint(-127, 128, (n, h, w, cin), generator=gen,
+                      device="cuda", dtype=torch.int8)
+    wt = torch.randint(-127, 128, (cout, 3, 3, cin), generator=gen,
+                       device="cuda", dtype=torch.int8)
+    scale = 100.0 / (math.sqrt(9 * cin) * 127 ** 2 / 3)
+    deq = (torch.rand(cout, generator=gen, device="cuda") * scale).to(pdt)
+    b = (torch.randn(cout, generator=gen, device="cuda") * 5).to(pdt)
+    a = torch.rand(cout, generator=gen, device="cuda").to(pdt)
+    return x, wt, deq, b, (a if prelu else None)
+
+
+def im2col(x, cin_to):
+    """(N, H, W, C) int8 → (N·H·W, 9·cin_to), taps major, channels minor:
+    the A of the SAME conv as one matrix product (the weights' (Cout, 3, 3,
+    Cin) reshaped is B)."""
+    n, h, w, c = x.shape
+    xp = torch.nn.functional.pad(x, (0, cin_to - c, 1, 1, 1, 1))
+    return torch.cat([xp[:, dy:dy + h, dx:dx + w] for dy in range(3)
+                      for dx in range(3)], dim=-1).reshape(n * h * w,
+                                                           9 * cin_to)
+
+
+def phase_k2_kernels():
+    """K2 against its plain version at each layer shape of an engine call,
+    both epilogues (integer-exact), with times and yardsticks; then ragged
+    shapes, exactness only."""
+    import torch.nn.functional as F
+    from image_restoration_tpu_torch.ops.int8_conv import (
+        int8_conv3x3_requant, int8_conv3x3_requant_plain)
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    n = SR["batch"] // 2
+    s = SR["tile"] + 2 * SR["halo"]
+    rows = []
+    log("K2 vs plain, tolerance: integer-exact (max|d| == 0); times are "
+        "device ms per launch at the engine's shapes (N=4 packed images of "
+        f"{s}²)")
+    for name, cin, cout, per_call, prelu in k2_layer_shapes():
+        bound, bound_by = k2_bound_ms(n, s, s, cin, cout)
+        for epilogue in ("bf16", "f32"):
+            x, wt, deq, b, a = k2_inputs(gen, n, s, s, cin, cout, epilogue,
+                                         prelu)
+            got = int8_conv3x3_requant(x, wt, deq, b, a, 64.0,
+                                       epilogue=epilogue)
+            want = int8_conv3x3_requant_plain(x, wt, deq, b, a, 64.0,
+                                              epilogue=epilogue)
+            torch.cuda.synchronize()
+            err = (got.int() - want.int()).abs().max().item()
+            clipped = (got.abs() == 127).float().mean().item()
+            require(err == 0, f"K2 {name} {epilogue}: max|d| {err}")
+            del got, want
+            row = dict(layer=name, epilogue=epilogue, N=n, H=s, W=s,
+                       Cin=cin, Cout=cout, per_call=per_call,
+                       max_abs_err=err, share_clipped=clipped,
+                       bound_ms=bound, bound_by=bound_by)
+            row["ms"] = device_time_ms(
+                lambda t: int8_conv3x3_requant(t, wt, deq, b, a, 64.0,
+                                               epilogue=epilogue),
+                [(x,)], 20)
+            row["plain_ms"] = device_time_ms(
+                lambda t: int8_conv3x3_requant_plain(t, wt, deq, b, a, 64.0,
+                                                     epilogue=epilogue),
+                [(x,)], 3)
+            if epilogue == "bf16":
+                cpad = -(-cin // 8) * 8
+                a_mat = im2col(x, cpad)
+                b_mat = F.pad(wt, (0, cpad - cin)).reshape(cout, 9 * cpad).t()
+                acc = torch._int_mm(a_mat, b_mat)
+                ref = F.conv2d(x.permute(0, 3, 1, 2).double(),
+                               wt.permute(0, 3, 1, 2).double(), padding=1)
+                require(torch.equal(acc.double(), ref.permute(0, 2, 3, 1)
+                                    .reshape(-1, cout)),
+                        f"_int_mm yardstick differs from the conv ({name})")
+                del acc, ref
+                row["int_mm_ms"] = device_time_ms(
+                    lambda t: torch._int_mm(t, b_mat), [(a_mat,)], 20)
+                del a_mat
+                xb = x.permute(0, 3, 1, 2).bfloat16()  # channels_last memory
+                wb = wt.permute(0, 3, 1, 2).bfloat16().contiguous(
+                    memory_format=torch.channels_last)
+                row["cudnn_bf16_ms"] = device_time_ms(
+                    lambda t: F.conv2d(t, wb, padding=1), [(xb,)], 20)
+                del xb, wb
+            rows.append(row)
+            log(f"K2 {name:10s} {epilogue:4s} {cin:3d}->{cout:3d} "
+                f"x{per_call}/call  ms={row['ms']:.4f}  "
+                f"plain_ms={row['plain_ms']:.4f}  bound_ms={bound:.4f} "
+                f"({bound_by})  int_mm_ms={row.get('int_mm_ms', 0):.4f}  "
+                f"cudnn_bf16_ms={row.get('cudnn_bf16_ms', 0):.4f}  "
+                f"clipped={clipped:.4f}  max|d|={err}")
+            del x
+            torch.cuda.empty_cache()
+    for n_, h, w, cin, cout, pad in [(3, 37, 45, 10, 24, 1),
+                                     (3, 37, 45, 10, 24, 0),
+                                     (1, 5, 3, 6, 128, 1)]:
+        for epilogue in ("bf16", "f32"):
+            for prelu in (True, False):
+                x, wt, deq, b, a = k2_inputs(gen, n_, h, w, cin, cout,
+                                             epilogue, prelu)
+                got = int8_conv3x3_requant(x, wt, deq, b, a, 64.0, pad=pad,
+                                           epilogue=epilogue)
+                want = int8_conv3x3_requant_plain(x, wt, deq, b, a, 64.0,
+                                                  pad=pad, epilogue=epilogue)
+                torch.cuda.synchronize()
+                require(torch.equal(got, want),
+                        f"K2 ragged {(n_, h, w, cin, cout, pad)} {epilogue} "
+                        f"prelu={prelu}")
+    log("K2 ragged shapes (odd H and W, Cin 10 and 6, pad 0 and 1, with and "
+        "without PReLU, both epilogues): integer-exact")
+    per_call = {k: sum(r[k] * r["per_call"] for r in rows
+                       if r["epilogue"] == "bf16")
+                for k in ("ms", "plain_ms", "bound_ms", "int_mm_ms",
+                          "cudnn_bf16_ms")}
+    log(f"K2 per engine call ({K2_LAUNCHES_PER_CALL} launches, bf16 "
+        "epilogue): "
+        + "  ".join(f"{k}={v:.4f}" for k, v in per_call.items()))
+    return rows, per_call
+
+
+def sr_calib():
+    """Two 128² float crops of a seeded synthetic scene (the exporter's
+    calibration batch size)."""
+    img = scene_image(384, 512, seed=7).astype(np.float32) / 255.0
+    return np.stack([img[40:168, 60:188], img[200:328, 300:428]])
+
+
+def build_sr(int8=True):
+    from image_restoration_tpu_torch.serve.engine_restorer import (
+        EngineRestorer)
+    return EngineRestorer.build(int8=int8, calib=sr_calib(), seed=0,
+                                device="cuda", **SR)
+
+
+def phase_sr_main_path(restorer, engine):
+    """Counts at 0, then the SR path: EngineRestorer on a 1024×768 image and
+    one POST to /SRx4/. Returns K2's launch count over the run."""
+    import cv2
+    from image_restoration_tpu_torch.ops.fused_act import fused_leaky_relu
+    from image_restoration_tpu_torch.ops.int8_conv import int8_conv3x3_requant
+    from image_restoration_tpu_torch.serve.api import ServiceCore, make_server
+
+    def chunks(h, w):
+        tiles = math.ceil(h / SR["tile"]) * math.ceil(w / SR["tile"])
+        return math.ceil(tiles / SR["batch"])
+
+    fused_leaky_relu.launches = 0
+    int8_conv3x3_requant.launches = 0
+    img = scene_image(768, 1024, seed=21)
+    t0 = time.perf_counter()
+    out = engine(img)
+    dt = (time.perf_counter() - t0) * 1e3
+    n = int8_conv3x3_requant.launches
+    require(out.dtype == np.uint8 and out.shape == (3072, 4096, 3),
+            f"EngineRestorer: {out.dtype} {out.shape}")
+    require(n == K2_LAUNCHES_PER_CALL * chunks(768, 1024),
+            f"EngineRestorer: K2 launched {n} times")
+    log(f"EngineRestorer 1024x768 -> {out.shape[1]}x{out.shape[0]} uint8 in "
+        f"{dt:.1f} ms (first call), {chunks(768, 1024)} engine chunk(s), "
+        f"K2 launches {n}")
+    expected = n
+    core = ServiceCore(restorer, engine)
+    server = make_server(core, "127.0.0.1", 0)
+    port = server.server_address[1]
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    req_ms = []
+    try:
+        bgr = np.ascontiguousarray(scene_image(360, 640, seed=22)[..., ::-1])
+        ok, buf = cv2.imencode(".png", bgr)
+        require(ok, "PNG encode")
+        for i in range(2):
+            before = int8_conv3x3_requant.launches
+            t0 = time.perf_counter()
+            status, media, body = post(port, "/SRx4/", buf.tobytes())
+            req_ms.append((time.perf_counter() - t0) * 1e3)
+            got = cv2.imdecode(np.frombuffer(body, np.uint8),
+                               cv2.IMREAD_COLOR)
+            require(status == 200 and media == "image/png",
+                    f"/SRx4/: {status} {media}")
+            require(got is not None and got.shape == (1440, 2560, 3),
+                    f"/SRx4/: decoded {None if got is None else got.shape}")
+            n = int8_conv3x3_requant.launches - before
+            require(n == K2_LAUNCHES_PER_CALL * chunks(360, 640),
+                    f"/SRx4/: K2 launched {n} times")
+            expected += n
+            log(f"POST /SRx4/ 640x360 png -> 200 image/png 2560x1440  "
+                f"{req_ms[-1]:.1f} ms, K2 launches {n}")
+        t0 = time.perf_counter()
+        direct = engine(np.ascontiguousarray(bgr[..., ::-1]))[..., ::-1]
+        t1 = time.perf_counter()
+        ok, _ = cv2.imencode(".png", np.ascontiguousarray(direct))
+        t2 = time.perf_counter()
+        expected += K2_LAUNCHES_PER_CALL * chunks(360, 640)
+        require(np.array_equal(got, direct),
+                "/SRx4/ answer differs from the engine's own output")
+        log(f"/SRx4/ 640x360 split: EngineRestorer {(t1 - t0) * 1e3:.1f} ms, "
+            f"PNG encode of the 2560x1440 answer {(t2 - t1) * 1e3:.1f} ms")
+    finally:
+        server.shutdown()
+        server.server_close()
+        core.close()
+        thread.join(timeout=30)
+    require(not thread.is_alive(), "server thread did not stop")
+    launches = int8_conv3x3_requant.launches
+    require(launches == expected, f"K2 count {launches} != {expected}")
+    require(fused_leaky_relu.launches == 0,
+            f"K1 launched {fused_leaky_relu.launches} times on the SR path")
+    log(f"SR main path: K2 launches {launches} "
+        f"({K2_LAUNCHES_PER_CALL} per engine chunk), K1 launches 0")
+    return launches, req_ms
+
+
+def span_psnr(ref, got):
+    ref, got = ref.float(), got.float()
+    mse = ((ref - got) ** 2).mean().item()
+    span = (ref.max() - ref.min()).item() or 1.0
+    return 10 * math.log10(span ** 2 / max(mse, 1e-12))
+
+
+def phase_sr_correctness():
+    """TF32 off: chain on K2 vs chain on plain K2 (every layer), int8 vs
+    packed bf16 (≥30 dB), tiled vs untiled float net, card vs CPU."""
+    from unittest import mock as _mock
+    from image_restoration_tpu_torch.infer import SR_MEAN_STD, SRVGG_X4
+    from image_restoration_tpu_torch.infer import Restorer
+    from image_restoration_tpu_torch.ops import int8_conv
+    from image_restoration_tpu_torch.ops import quantized_inference as qi
+    from image_restoration_tpu_torch.ops.packed_inference import (
+        pack_srvgg_params, packed_srvgg_forward)
+    from image_restoration_tpu_torch.parallel.tiling import tiled_apply
+    from image_restoration_tpu_torch.serve.sr_engine import build_srvgg
+
+    nc, up = SR["num_conv"], SR["upscale"]
+    res = {}
+    tf32 = (torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        net = build_srvgg(SR["num_feat"], nc, up, seed=0, device="cuda")
+        calib = torch.from_numpy(sr_calib()).cuda()
+        scales = qi.calibrate_srvgg_act_scales(net, calib)
+        net_cpu = build_srvgg(SR["num_feat"], nc, up, seed=0, device="cpu")
+        cs = qi.calibrate_srvgg_act_scales(net_cpu, calib[:1, :64, :64].cpu())
+        gs = qi.calibrate_srvgg_act_scales(net, calib[:1, :64, :64])
+        rel = ((gs.cpu() - cs).abs() / cs).max().item()
+        # tolerance: f32 convs sum in another order on each device, over
+        # 34 layers
+        log(f"calibration maxima, card vs CPU on one 64² crop (TF32 off): "
+            f"max rel |d| {rel:.3g} (tolerance 1e-4)")
+        require(rel <= 1e-4, f"calibration card vs CPU: {rel}")
+        q = qi.quantize_srvgg_params(net, scales.tolist(), pack=2)
+        log("calibration scales: " + " ".join(f"{v:.4g}" for v in
+                                               scales.tolist()))
+
+        s = SR["tile"] + 2 * SR["halo"]
+        big = scene_image(2 * s, 4 * s, seed=23)
+        tiles = np.stack([big[i * s:(i + 1) * s, j * s:(j + 1) * s]
+                          for i in range(2) for j in range(4)])
+        x = (torch.from_numpy(tiles).cuda().to(torch.bfloat16) / 255.0)
+
+        acts = []
+        real = int8_conv.int8_conv3x3_requant
+
+        def record(*a, **k):
+            out = real(*a, **k)
+            acts.append(out)
+            return out
+
+        with _mock.patch.object(qi, "int8_conv3x3_requant", record):
+            got = qi.quantized_srvgg_forward(q, x, nc, up, pack=2)
+        torch.cuda.synchronize()
+        require(len(acts) == K2_LAUNCHES_PER_CALL, f"{len(acts)} K2 calls")
+        layer = iter(range(len(acts)))
+        worst = 0
+
+        def compare(*a, **k):
+            out = int8_conv.int8_conv3x3_requant_plain(*a, **k)
+            i = next(layer)
+            d = (out.int() - acts[i].int()).abs().max().item()
+            nonlocal worst
+            worst = max(worst, d)
+            require(d == 0, f"chain layer {i}: K2 vs plain max|d| {d}")
+            acts[i] = None
+            return out
+
+        with _mock.patch.object(qi, "int8_conv3x3_requant", compare):
+            want = qi.quantized_srvgg_forward(q, x, nc, up, pack=2)
+        torch.cuda.synchronize()
+        require(torch.equal(got, want), "chain output: K2 vs plain differ")
+        log(f"int8 chain on K2 vs on plain K2 (8 tiles of {s}², TF32 off): "
+            f"{len(acts)} int8 activations equal (max|d| {worst}), bf16 "
+            "output bit-equal")
+        res["chain_k2_vs_plain_max_abs"] = worst
+        del acts
+
+        packed = pack_srvgg_params(net)
+        ref = packed_srvgg_forward(packed, x, nc, up)
+        db = span_psnr(ref, got)
+        log(f"int8 vs packed bf16 at {s}² (8 synthetic-scene tiles): "
+            f"span-normalized PSNR {db:.2f} dB (gate >= {SR_GATE_DB})")
+        require(db >= SR_GATE_DB, f"int8 vs bf16 {db:.2f} dB")
+        res["int8_vs_bf16_db"] = db
+        del ref, packed
+
+        sr = Restorer(SRVGG_X4, device="cuda", seed=0, **SR_MEAN_STD)
+        img = torch.from_numpy(scene_image(300, 400, seed=24)).cuda()
+        xf = img[None].float() / 255.0
+        untiled = sr._fwd(xf)[0]
+        halo = RECEPTIVE_RADIUS + 6
+        tiled = tiled_apply(sr._fwd, xf, tile=128, halo=halo, scale=up,
+                            tile_batch=4)[0]
+        b = RECEPTIVE_RADIUS * up
+        d = (tiled[b:-b, b:-b] - untiled[b:-b, b:-b]).abs().max().item()
+        span = (untiled.max() - untiled.min()).item()
+        # tolerance: cuDNN may pick another f32 algorithm (summation order)
+        # for the tile shape than for the whole image
+        log(f"float net tiled (tile 128, halo {halo}) vs untiled, 400x300, "
+            f"interior ({b} px from the border): max|d| {d:.3g} over a span "
+            f"of {span:.3g} (tolerance 1e-4 of the span)")
+        require(d <= 1e-4 * max(1.0, span), f"tiled vs untiled: {d}")
+        res["tiled_vs_untiled_max_abs"] = d
+        del sr, untiled, tiled
+
+        pair = x[:2, :64, :64].contiguous()
+        q_cpu = {k: v.cpu() for k, v in q.items()}
+        cpu = qi.quantized_srvgg_forward(q_cpu, pair.cpu(), nc, up, pack=2)
+        card = qi.quantized_srvgg_forward(q, pair, nc, up, pack=2)
+        dc = (card.cpu().float() - cpu.float()).abs().max().item()
+        log(f"int8 chain, card vs CPU (two 64² tiles, full width and depth): "
+            f"max|d| {dc}")
+        require(dc == 0, f"card vs CPU: {dc}")
+        res["card_vs_cpu_max_abs"] = dc
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = tf32
+    torch.cuda.empty_cache()
+    return res
+
+
+def median_ms(fn, iters):
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(iters):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(times)), min(times), max(times)
+
+
+def phase_sr_throughput(engine_int8, engine_bf16):
+    log(f"timed runs: cudnn.allow_tf32={torch.backends.cudnn.allow_tf32} "
+        "(PyTorch default)")
+    s = SR["tile"] + 2 * SR["halo"]
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    x = torch.randint(0, 256, (SR["batch"], s, s, 3), generator=gen,
+                      device="cuda", dtype=torch.uint8)
+    img = scene_image(768, 1024, seed=21)
+    out = {}
+    for mode, eng in (("int8", engine_int8), ("bf16", engine_bf16)):
+        med, lo, hi = median_ms(lambda: eng.serve(x), 10)
+        e2e, e_lo, e_hi = median_ms(lambda: eng(img), 3)
+        out[mode] = dict(ms_per_call=med, ms_min=lo, ms_max=hi,
+                         tiles_per_s=SR["batch"] / med * 1e3,
+                         image_1024x768_ms=e2e)
+        log(f"SR engine {mode}: {med:.3f} ms per call of {SR['batch']} "
+            f"tiles (min {lo:.3f}, max {hi:.3f}) = "
+            f"{out[mode]['tiles_per_s']:.2f} tiles/s (512² in, 2048² out); "
+            f"EngineRestorer 1024x768: {e2e:.2f} ms (min {e_lo:.2f})")
+    torch.cuda.reset_peak_memory_stats()
+    engine_int8.serve(x)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 20
+    log(f"peak device memory, one int8 engine call: {peak:.1f} MiB")
+
+    from torch.profiler import ProfilerActivity, profile
+    out["peak_mib"] = peak
+    for mode, eng in (("int8", engine_int8), ("bf16", engine_bf16)):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            eng.serve(x)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+        kernels = _kernel_events(prof)
+        busy = sum(k[0] for k in kernels)
+        k2 = [k for k in kernels if "int8_conv3x3" in k[2]]
+        k2_ms, k2_n = sum(k[0] for k in k2), sum(k[1] for k in k2)
+        log(f"profile of one {mode} engine call: wall {wall:.3f} ms, device "
+            f"busy {busy:.3f} ms ({100 * busy / wall:.1f}%), K2 {k2_ms:.3f} "
+            f"ms over {k2_n} launches")
+        for t, n, name in kernels[:12]:
+            log(f"  {t:9.4f} ms  x{n:<4d} {name[:110]}")
+        want = K2_LAUNCHES_PER_CALL if mode == "int8" else 0
+        require(k2_n == want, f"profiler saw {k2_n} K2 launches ({mode})")
+        out[f"profile_{mode}"] = dict(
+            wall_ms=wall, busy_ms=busy, k2_device_ms=k2_ms,
+            top=[dict(ms=t, count=n, name=name[:200])
+                 for t, n, name in kernels[:20]])
+    return out
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", default=None,
@@ -505,6 +991,13 @@ def main(argv=None):
     thr, peak = phase_throughput(restorer, batches)
     prof = phase_profile(restorer, batches[16])
 
+    k2_rows, k2_call = phase_k2_kernels()
+    engine = build_sr(int8=True)
+    log(f"SR engine: {engine.meta}")
+    k2_launches, sr_req_ms = phase_sr_main_path(restorer, engine)
+    sr_check = phase_sr_correctness()
+    sr_thr = phase_sr_throughput(engine, build_sr(int8=False))
+
     a = agg[("float32", 16)]
     kernels = [{
         "name": "fused_bias_lrelu",
@@ -518,6 +1011,18 @@ def main(argv=None):
         "bound_ms": a["bound_ms"],
         "bound_by": "bytes",
         "library_ms": None,
+    }, {
+        "name": "int8_conv3x3_requant",
+        "route": "cuda",
+        "source": "image_restoration_tpu_torch/csrc/int8_conv3x3.cu",
+        "replaces": "image_restoration_tpu/ops/pallas/int8_conv.py:65",
+        "launches": k2_launches,
+        "max_abs_err": max(r["max_abs_err"] for r in k2_rows),
+        "ms": k2_call["ms"],
+        "plain_ms": k2_call["plain_ms"],
+        "bound_ms": k2_call["bound_ms"],
+        "bound_by": "operations",
+        "library_ms": k2_call["int_mm_ms"],
     }]
     report = dict(
         smi=smi, build_s=build, k1_rows=rows,
@@ -526,10 +1031,15 @@ def main(argv=None):
         main_path_launches=launches, request_ms=req_ms,
         net_k1_vs_plain_lsb=lsb, net_k1_vs_plain_float=dfloat,
         card_vs_cpu_lsb=cpu_lsb, throughput=thr, peak_mib_bs16=peak,
-        profile=prof, seconds=time.perf_counter() - t_start,
+        profile=prof, k2_rows=k2_rows, k2_per_engine_call=k2_call,
+        sr_engine=engine.meta, sr_main_path_launches=k2_launches,
+        sr_request_ms=sr_req_ms, sr_correctness=sr_check,
+        sr_throughput=sr_thr, seconds=time.perf_counter() - t_start,
         note="kernels[].ms/plain_ms/bound_ms: device time (calls back to "
              "back, CUDA events) and bound, summed over the 39 K1 launches "
-             "of one batch-16 f32 forward")
+             "of one batch-16 f32 forward, and over the 34 K2 launches of "
+             "one SR engine call (bf16 epilogue); K2's library_ms is "
+             "torch._int_mm on the im2col matrix, the contraction alone")
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as f:

@@ -13,6 +13,9 @@ becomes `layerN`, `activate`/`activation` is skipped, a fused activation's
                                  features reordered from (H, W, C) to (C, H, W)
     constant input (1, H, W, C) → (1, C, H, W)
 
+SRVGGNetCompact's Real-ESRGAN `body.N` keys map to flax's `body_i`,
+`prelu_i` and `conv_last` first (the JAX importer's rule, inverted).
+
 Strict both ways: every port key must resolve and every flax leaf be used.
 """
 
@@ -80,6 +83,24 @@ def _flatten_fixes(net) -> Dict[str, Tuple[int, int, int]]:
     return {}
 
 
+def _flax_key(net, key: str) -> str:
+    """The port key rewritten into the flax tree's spelling."""
+    if type(net).__name__ == "SRVGGNetCompact":
+        # Real-ESRGAN's body.N: conv i at 2i, its PReLU at 2i+1, conv_last
+        # at 2(num_conv+1); flax names them body_i, prelu_i, conv_last
+        idx, leaf = key.split(".")[1:]
+        i = int(idx)
+        if i == 2 * (net.num_conv + 1):
+            name = "conv_last"
+        elif i % 2:
+            return f"prelu_{i // 2}"
+        else:
+            name = f"body_{i // 2}"
+        return f"{name}.{'kernel' if leaf == 'weight' else leaf}"
+    return re.sub(r"style_mlp\.(\d+)",
+                  lambda m: f"style_mlp_{int(m.group(1)) - 1}", key)
+
+
 def _fit(key: str, a: np.ndarray, shape: Tuple[int, ...],
          flat_chw: Optional[Tuple[int, int, int]]) -> np.ndarray:
     if key.endswith("constant_input.weight"):
@@ -106,9 +127,7 @@ def state_dict_from_jax(net: torch.nn.Module, flax_params: Dict) -> OrderedDict:
     used = set()
     out = OrderedDict()
     for key, ref in net.state_dict().items():
-        k = re.sub(r"style_mlp\.(\d+)",
-                   lambda m: f"style_mlp_{int(m.group(1)) - 1}", key)
-        path = _resolve(flax_params, k.split("."))
+        path = _resolve(flax_params, _flax_key(net, key).split("."))
         if path is None or path not in leaves:
             raise KeyError(f"port key {key!r} has no flax counterpart")
         if path in used:

@@ -19,13 +19,16 @@ _DROP_ALWAYS = (r"^(stylegan_decoder\.)?noises\.",)
 def load_pth(path: str, param_key: Optional[str] = "params",
              input_is_latent: bool = False) -> dict:
     """Load a checkpoint dict of tensors ({'params', 'params_ema'} or a bare
-    state_dict) and return the state_dict the port's net loads strictly."""
+    state_dict) and return the state_dict the port's net loads strictly.
+    Asked for one of params/params_ema, a checkpoint holding only the other
+    gives that one."""
     ckpt = torch.load(path, map_location="cpu", weights_only=True)
     if isinstance(ckpt, dict):
+        other = {"params": "params_ema", "params_ema": "params"}
         if param_key is not None and param_key in ckpt:
             ckpt = ckpt[param_key]
-        elif "params_ema" in ckpt and param_key == "params":
-            ckpt = ckpt["params_ema"]
+        elif other.get(param_key) in ckpt:  # Real-ESRGAN ships only one
+            ckpt = ckpt[other[param_key]]
         elif "state_dict" in ckpt:
             ckpt = ckpt["state_dict"]
     drop = list(_DROP_ALWAYS)

@@ -1,10 +1,11 @@
 """Single-image / batch restoration inference on the GPU.
 
 Port of `image_restoration_tpu/infer.py:27-273`: `PRODUCTION_GFPGAN`, the
-`Restorer` (float path `restore_batch`/`__call__`, device-IO path
-`restore_batch_u8`) and the `--arch gfpgan_ocr` CLI. Not ported yet:
-`quant="dyn-int8"`, `data_parallel`, `restore_tiled(_u8)` and the other
-`--arch` choices; they raise NotImplementedError.
+`Restorer` over GFPGANv1OCR or SRVGGNetCompact (float path
+`restore_batch`/`__call__`, device-IO path `restore_batch_u8`, halo-tiled
+`restore_tiled`/`restore_tiled_u8`) and the `--arch gfpgan_ocr|srvgg
+[--tile N]` CLI. Not ported yet: `quant="dyn-int8"`, `data_parallel` and
+`--arch rrdbnet`; they raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -21,6 +22,7 @@ import torch
 from .archs import build_network
 from .convert.pth import load_pth
 from .ops.resize import resize
+from .parallel.tiling import tiled_apply
 from .utils.device import resolve_device
 from .utils.img_util import imread, imwrite, tensor2img
 
@@ -28,11 +30,14 @@ PRODUCTION_GFPGAN = dict(
     type="GFPGANv1OCR", input_width=256, input_height=256,
     num_style_feat=256, channel_multiplier=0.5, num_mlp=4,
     input_is_latent=True, different_w=True, narrow=1, sft_half=True)
+SRVGG_X4 = dict(type="SRVGGNetCompact", num_feat=64, num_conv=32, upscale=4)
+SR_MEAN_STD = dict(mean=(0, 0, 0), std=(1, 1, 1), out_min_max=(0, 1))
+_PORTED_ARCHS = ("GFPGANv1OCR", "SRVGGNetCompact")
 
 
 class Restorer:
-    """Restoration wrapper around GFPGANv1OCR (the one arch ported so
-    far), on one device.
+    """Restoration wrapper around GFPGANv1OCR or SRVGGNetCompact (the
+    archs ported so far), on one device.
 
     Without `ckpt_path` the weights are drawn from a generator seeded with
     `seed`. `device=None` means "cuda" and raises without a GPU.
@@ -54,9 +59,10 @@ class Restorer:
         opt = dict(network_opt)
         if dtype is not None:
             opt["dtype"] = dtype
-        if opt["type"] != "GFPGANv1OCR":
+        if opt["type"] not in _PORTED_ARCHS:
             raise NotImplementedError(f"Restorer({opt['type']}) is not "
                                       "ported yet")
+        self.arch = opt["type"]
         self.net = build_network(opt, torch.Generator().manual_seed(seed))
         if ckpt_path:
             sd = load_pth(ckpt_path, param_key,
@@ -79,8 +85,22 @@ class Restorer:
 
     @torch.inference_mode()
     def _fwd(self, x: torch.Tensor) -> torch.Tensor:
-        image, _ = self.net(self._resize_in(x), return_rgb=False)
-        return image
+        if self.arch == "GFPGANv1OCR":
+            return self.net(self._resize_in(x), return_rgb=False)[0]
+        return self.net(self._resize_in(x))
+
+    @torch.inference_mode()
+    def _fwd_u8(self, x_u8: torch.Tensor) -> torch.Tensor:
+        """uint8 RGB (N,H,W,3) on the device → uint8 BGR: /255, normalize,
+        forward, clip, rescale, BGR flip and rounding, all on the device."""
+        x = x_u8.float() / 255.0
+        x = (x - self._mean_t) / self._std_t
+        out = self._fwd(x)
+        lo, hi = self.out_min_max
+        y = torch.clamp(out.float(), lo, hi)
+        y = (y - lo) / (hi - lo)
+        y = torch.flip(y, dims=(-1,))  # rgb2bgr, as tensor2img does
+        return torch.round(y * 255.0).to(torch.uint8)
 
     def _to_device(self, arr: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(arr)).to(self.device)
@@ -93,7 +113,6 @@ class Restorer:
         return np.stack([tensor2img(out_np[i:i + 1], min_max=self.out_min_max)
                          for i in range(out_np.shape[0])])
 
-    @torch.inference_mode()
     def restore_batch_u8(self, imgs: np.ndarray) -> np.ndarray:
         """(N,H,W,3) RGB uint8 → (N,H',W',3) BGR uint8 with uint8 on the
         wire both ways: /255, normalize, clip, rescale, BGR flip and rounding
@@ -101,14 +120,7 @@ class Restorer:
         if imgs.dtype != np.uint8:
             raise TypeError(f"restore_batch_u8 expects uint8, got "
                             f"{imgs.dtype}")
-        x = self._to_device(imgs).float() / 255.0
-        x = (x - self._mean_t) / self._std_t
-        out = self._fwd(x)
-        lo, hi = self.out_min_max
-        y = torch.clamp(out.float(), lo, hi)
-        y = (y - lo) / (hi - lo)
-        y = torch.flip(y, dims=(-1,))  # rgb2bgr, as tensor2img does
-        return torch.round(y * 255.0).to(torch.uint8).cpu().numpy()
+        return self._fwd_u8(self._to_device(imgs)).cpu().numpy()
 
     def __call__(self, img: np.ndarray) -> np.ndarray:
         """HWC RGB float [0,1] → HWC BGR uint8 restored."""
@@ -116,11 +128,30 @@ class Restorer:
                             .astype(np.float32)[None])
         return tensor2img(self._fwd(x), min_max=self.out_min_max)
 
-    def restore_tiled(self, *args, **kwargs):
-        raise NotImplementedError("restore_tiled is not ported yet")
+    def restore_tiled(self, img: np.ndarray, tile: int = 512, halo: int = 16,
+                      scale: int = 4, tile_batch: int = 4) -> np.ndarray:
+        """Halo-tiled large-image restore: (H,W,3) RGB float [0,1] →
+        (H·scale, W·scale, 3) BGR uint8, the tiles run `tile_batch` at a
+        time (`parallel/tiling.py`)."""
+        x = self._to_device(((img - self.mean) / self.std)
+                            .astype(np.float32)[None])
+        out = tiled_apply(self._fwd, x, tile=tile, halo=halo, scale=scale,
+                          tile_batch=tile_batch)
+        return tensor2img(out, min_max=self.out_min_max)
 
-    def restore_tiled_u8(self, *args, **kwargs):
-        raise NotImplementedError("restore_tiled_u8 is not ported yet")
+    def restore_tiled_u8(self, img: np.ndarray, tile: int = 512,
+                         halo: int = 16, scale: int = 4,
+                         tile_batch: int = 4) -> np.ndarray:
+        """Device-IO tiled restore: (H,W,3) RGB uint8 → (H·s,W·s,3) BGR
+        uint8, with the conversions of `restore_batch_u8` inside each
+        chunk; within 1 LSB of `restore_tiled(img / 255)`."""
+        if img.dtype != np.uint8:
+            raise TypeError(f"restore_tiled_u8 expects uint8, got "
+                            f"{img.dtype}")
+        out = tiled_apply(self._fwd_u8, self._to_device(img)[None],
+                          tile=tile, halo=halo, scale=scale,
+                          tile_batch=tile_batch)
+        return out[0].cpu().numpy()
 
 
 def main(argv=None):
@@ -133,19 +164,21 @@ def main(argv=None):
     parser.add_argument("--arch", type=str, default="gfpgan_ocr",
                         choices=["gfpgan_ocr", "rrdbnet", "srvgg"])
     parser.add_argument("--tile", type=int, default=0,
-                        help=">0 enables halo-tiled inference (not ported)")
+                        help=">0 enables halo-tiled inference")
     parser.add_argument("--bf16", action="store_true")
     parser.add_argument("--device", type=str, default=None,
                         help="torch device (default cuda)")
     args = parser.parse_args(argv)
 
-    if args.arch != "gfpgan_ocr":
+    if args.arch == "gfpgan_ocr":
+        net_opt, mean_std = PRODUCTION_GFPGAN, {}
+    elif args.arch == "srvgg":
+        net_opt, mean_std = SRVGG_X4, SR_MEAN_STD
+    else:
         raise NotImplementedError(f"--arch {args.arch} is not ported yet")
-    if args.tile:
-        raise NotImplementedError("--tile is not ported yet")
-    restorer = Restorer(PRODUCTION_GFPGAN, args.ckpt,
+    restorer = Restorer(net_opt, args.ckpt,
                         dtype=torch.bfloat16 if args.bf16 else None,
-                        device=args.device)
+                        device=args.device, **mean_std)
     os.makedirs(args.output, exist_ok=True)
     paths = sorted(glob.glob(args.input))
     if not paths:
@@ -153,7 +186,8 @@ def main(argv=None):
     for path in paths:
         img = imread(path)
         t0 = time.time()
-        out = restorer(img)
+        out = (restorer.restore_tiled(img, tile=args.tile) if args.tile
+               else restorer(img))
         name = os.path.splitext(os.path.basename(path))[0]
         dst = os.path.join(args.output, f"{name}_restored.png")
         imwrite(out, dst)

@@ -1,15 +1,17 @@
-"""Restoration server on the GPU — `/Restore/` and `/RestoreConcat/`.
+"""Restoration server on the GPU — `/Restore/`, `/RestoreConcat/`, `/SRx4/`.
 
-Port of `image_restoration_tpu/serve/api.py:32-290` for the restore-only
+Port of `image_restoration_tpu/serve/api.py:32-290` for the restore and SR
 endpoints: the stdlib HTTP handler in front of a `ServiceCore` that holds one
-`Restorer`. `/Vehicle_Resolution_GFPGAN/` (the detect → crop → restore →
-paste pipeline) and `/SRx4/` (tiled SR engine) are not ported yet; they
-answer with the reference's 500 error envelope. Requests are restored one by
-one (the micro-batcher is not ported yet), all on one worker thread: PyTorch
-caches cuDNN's execution plans per thread, so restoring on the server's
+`Restorer` and, optionally, the ×4 SR tile engine (`EngineRestorer`).
+`/Vehicle_Resolution_GFPGAN/` (the detect → crop → restore → paste pipeline)
+is not ported yet; it answers with the reference's 500 error envelope, as
+`/SRx4/` does when no engine is set. Requests run one by one (the
+micro-batcher is not ported yet), all on one worker thread: PyTorch caches
+cuDNN's execution plans per thread, so running on the server's
 thread-per-request would plan every conv anew for each request.
 
-    python -m image_restoration_tpu_torch.serve.api [--port 8000] [--ckpt X.pth]
+    python -m image_restoration_tpu_torch.serve.api [--port 8000] \
+        [--ckpt X.pth] [--sr [--sr-pth realesr.pth]]
 """
 
 from __future__ import annotations
@@ -45,21 +47,29 @@ def _decode_request_image(body: bytes, content_type: str = "") -> np.ndarray:
     return img
 
 
-def _jpeg(img_bgr: np.ndarray) -> bytes:
-    ok, buf = cv2.imencode(".jpg", img_bgr)
+def _encode(img_bgr: np.ndarray, ext: str) -> bytes:
+    ok, buf = cv2.imencode(ext, img_bgr)
     if not ok:
-        raise RuntimeError("JPEG encoding failed")
+        raise RuntimeError(f"{ext} encoding failed")
     return buf.tobytes()
 
 
-class ServiceCore:
-    """Endpoint logic behind the HTTP handler, over one `Restorer`."""
+def _jpeg(img_bgr: np.ndarray) -> bytes:
+    return _encode(img_bgr, ".jpg")
 
-    def __init__(self, restorer, device_io: bool = True):
+
+class ServiceCore:
+    """Endpoint logic behind the HTTP handler, over one `Restorer` and an
+    optional SR engine."""
+
+    def __init__(self, restorer, sr_engine=None, device_io: bool = True):
         """device_io routes restores through `Restorer.restore_batch_u8`
         (uint8 on the wire, normalization on the device, ≤1 LSB from the
-        host float path); False uses the reference-exact float path."""
+        host float path); False uses the reference-exact float path.
+        sr_engine: an `EngineRestorer` (or any RGB uint8 → RGB uint8
+        callable) behind `/SRx4/`."""
         self.restorer = restorer
+        self.sr_engine = sr_engine
         self.device_io = device_io and hasattr(restorer, "restore_batch_u8")
         self._worker = concurrent.futures.ThreadPoolExecutor(
             max_workers=1, thread_name_prefix="restore")
@@ -104,8 +114,15 @@ class ServiceCore:
             "detector and the pipeline)")
 
     def sr_x4(self, img_bgr: np.ndarray) -> bytes:
-        raise NotImplementedError(
-            "/SRx4/ is not ported yet (needs the tiled SR engine)")
+        """Tiled ×upscale SR of an image of any size through the SR engine
+        (no resize: the tiler handles the size), PNG."""
+        if self.sr_engine is None:
+            raise RuntimeError(
+                "no SR engine configured: build one with "
+                "EngineRestorer.build() (serve.api --sr)")
+        rgb = np.ascontiguousarray(img_bgr[..., ::-1])
+        out = self._worker.submit(self.sr_engine, rgb).result()
+        return _encode(np.ascontiguousarray(out[..., ::-1]), ".png")
 
 
 ROUTES = {
@@ -186,10 +203,22 @@ def main(argv=None):
     ap.add_argument("--host-io", action="store_true",
                     help="normalize/convert on the host (reference-exact) "
                          "instead of on the device")
+    ap.add_argument("--sr", action="store_true",
+                    help="serve /SRx4/ with the int8 ×4 SRVGG tile engine "
+                         "(kernel K2), tile 512, halo 8, 8 tiles per call")
+    ap.add_argument("--sr-pth", default=None,
+                    help="Real-ESRGAN SRVGGNetCompact .pth for --sr "
+                         "(default: random weights from --seed)")
     a = ap.parse_args(argv)
     restorer = Restorer(PRODUCTION_GFPGAN, a.ckpt, device=a.device,
                         seed=a.seed)
-    run_server(ServiceCore(restorer, device_io=not a.host_io), a.host, a.port)
+    sr_engine = None
+    if a.sr:
+        from .engine_restorer import EngineRestorer
+        sr_engine = EngineRestorer.build(pth=a.sr_pth, seed=a.seed,
+                                         device=a.device)
+    run_server(ServiceCore(restorer, sr_engine, device_io=not a.host_io),
+               a.host, a.port)
 
 
 if __name__ == "__main__":

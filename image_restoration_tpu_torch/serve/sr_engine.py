@@ -1,0 +1,89 @@
+"""The ×4 SR tile engine: SRVGGNetCompact, int8 PTQ, pack 2, uint8 IO.
+
+Port of `build_engine` in `scripts/export_restorer.py:29-153`, built in
+process: a random (seeded) or `.pth` SRVGGNetCompact is calibrated on a
+seeded batch, quantized per output channel with pack-2 block-diagonal
+weights and an int8 sink on conv_last, and returned as a `serve` function
+from uint8 tiles of (batch, tile + 2·halo, tile + 2·halo, 3) to uint8 tiles
+×upscale, on the device (the exporter's `--u8-io`). Each call of `serve` on
+an int8 engine is 34 launches of kernel K2 at the defaults (num_conv 32).
+
+Not ported yet: serializing the engine (`jax.export` there; `torch.export`
+is later work) and building from a quantization-aware-training checkpoint.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Optional, Tuple
+
+import numpy as np
+import torch
+
+from ..archs import build_network
+from ..convert.pth import load_pth
+from ..ops.packed_inference import pack_srvgg_params, packed_srvgg_forward
+from ..ops.quantized_inference import (calibrate_srvgg_act_scales,
+                                       quantize_srvgg_params,
+                                       quantized_srvgg_forward)
+from ..utils.device import resolve_device
+
+
+def build_srvgg(num_feat: int = 64, num_conv: int = 32, upscale: int = 4,
+                pth: Optional[str] = None, seed: int = 0, device=None):
+    """The engine's float SRVGGNetCompact (PReLU), on `device`: weights
+    from a Real-ESRGAN `.pth`, or drawn from a generator seeded with
+    `seed`."""
+    net = build_network(dict(type="SRVGGNetCompact", num_feat=num_feat,
+                             num_conv=num_conv, upscale=upscale),
+                        torch.Generator().manual_seed(seed))
+    if pth:
+        net.load_state_dict(load_pth(pth), strict=True)
+    return net.to(resolve_device(device)).eval().requires_grad_(False)
+
+
+def build_engine(num_feat: int = 64, num_conv: int = 32, upscale: int = 4,
+                 tile: int = 512, halo: int = 8, batch: int = 8,
+                 pth: Optional[str] = None, int8: bool = True,
+                 calib: Optional[np.ndarray] = None, seed: int = 0,
+                 device=None) -> Tuple[Callable, dict]:
+    """Returns (serve, meta).
+
+    calib: (N, H, W, 3) float [0, 1] calibration images; by default the
+    same seeded uniform batch as the JAX package's exporter (2 × 128²).
+    serve takes uint8 [0, 255] tiles and returns uint8, with the /255 and
+    the clip and round inside. int8=False serves the packed bf16 path
+    instead of the int8 one.
+    """
+    device = resolve_device(device)
+    net = build_srvgg(num_feat, num_conv, upscale, pth, seed, device)
+    if int8:
+        if calib is None:
+            rng = np.random.default_rng(seed)
+            rng.random((1, 64, 64, 3), np.float32)  # the exporter's init input
+            calib = rng.random((2, 128, 128, 3), np.float32)
+        scales = calibrate_srvgg_act_scales(
+            net, torch.from_numpy(np.asarray(calib, np.float32)).to(device))
+        q = quantize_srvgg_params(net, scales.tolist(), pack=2)
+
+        def inner(x):
+            return quantized_srvgg_forward(q, x, num_conv, upscale, pack=2)
+    else:
+        packed = pack_srvgg_params(net)
+
+        def inner(x):
+            return packed_srvgg_forward(packed, x, num_conv, upscale)
+
+    @torch.inference_mode()
+    def serve(x_u8):
+        y = inner(x_u8.to(torch.bfloat16) / 255.0)
+        y = torch.clamp(y.float(), 0.0, 1.0)
+        return torch.round(y * 255.0).to(torch.uint8)
+
+    size = tile + 2 * halo
+    meta = {"model": "SRVGGNetCompact", "num_feat": num_feat,
+            "num_conv": num_conv, "upscale": upscale, "tile": tile,
+            "halo": halo, "batch": batch, "mode": "int8" if int8 else "bf16",
+            "io": "u8", "input_shape": [batch, size, size, 3],
+            "input_dtype": "uint8",
+            "qat": False, "device": str(device)}
+    return serve, meta

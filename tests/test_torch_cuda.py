@@ -57,3 +57,95 @@ def test_fused_bias_lrelu_wrapper_rejects_bad_inputs(cuda_device):
         fused_leaky_relu(x, torch.zeros(4, device=cuda_device))
     with pytest.raises(ValueError):
         fused_leaky_relu(x, torch.zeros(8))  # bias on the CPU
+
+
+def _k2_inputs(rng, n, h, w, cin, cout, epilogue, device):
+    from image_restoration_tpu_torch.ops.int8_conv import EPILOGUES
+    pdt = EPILOGUES[epilogue][1]
+    x = torch.from_numpy(rng.integers(-127, 128, (n, h, w, cin)).astype(
+        np.int8)).to(device)
+    wt = torch.from_numpy(rng.integers(-127, 128, (cout, 3, 3, cin)).astype(
+        np.int8)).to(device)
+    # acc has a spread of about sqrt(9·Cin)·127²/3: |acc·deq| reaches ~100,
+    # so the bf16 epilogue (and f32 at s_out 64) both clip some values
+    scale = 100.0 / (np.sqrt(9 * cin) * 127 ** 2 / 3)
+    deq = torch.from_numpy(rng.random(cout).astype(np.float32) * scale)
+    b = torch.from_numpy(rng.standard_normal(cout).astype(np.float32) * 5)
+    a = torch.from_numpy(rng.random(cout).astype(np.float32))
+    return x, wt, *(t.to(device, pdt) for t in (deq, b, a))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("epilogue", ["f32", "bf16"])
+@pytest.mark.parametrize("n,h,w,cin,cout,pad", [
+    (2, 37, 45, 6, 128, 1),    # body_0 (Cin padded to 8), ragged tile edges
+    (1, 20, 33, 128, 128, 1),  # body layer
+    (1, 12, 70, 128, 96, 1),   # conv_last (two out-channel blocks, 64 + 32)
+    (3, 17, 19, 10, 24, 0),    # VALID over a pre-padded input; Cout % 8 != 0
+    (1, 5, 3, 4, 3, 1),        # one block, scalar stores
+])
+def test_int8_conv3x3_kernel_matches_plain(cuda_device, epilogue, n, h, w,
+                                           cin, cout, pad):
+    """K2 against its plain version on the card: integer-exact."""
+    from image_restoration_tpu_torch.ops.int8_conv import (
+        int8_conv3x3_requant, int8_conv3x3_requant_plain)
+    rng = np.random.default_rng(cin * 1000 + cout)
+    x, wt, deq, b, a = _k2_inputs(rng, n, h, w, cin, cout, epilogue,
+                                  cuda_device)
+    for alpha in (a, None):
+        before = int8_conv3x3_requant.launches
+        got = int8_conv3x3_requant(x, wt, deq, b, alpha, 64.0, pad=pad,
+                                   epilogue=epilogue)
+        torch.cuda.synchronize()
+        assert int8_conv3x3_requant.launches == before + 1
+        want = int8_conv3x3_requant_plain(x, wt, deq, b, alpha, 64.0,
+                                          pad=pad, epilogue=epilogue)
+        assert got.shape == want.shape == (n, h + 2 * pad - 2,
+                                           w + 2 * pad - 2, cout)
+        assert torch.equal(got, want)
+        if got.numel() > 1000:  # the clip is exercised
+            assert got.abs().max().item() == 127
+
+
+@pytest.mark.cuda
+def test_int8_conv3x3_wrapper_rejects_bad_inputs(cuda_device):
+    from image_restoration_tpu_torch.ops.int8_conv import int8_conv3x3_requant
+    x = torch.zeros((1, 8, 8, 16), dtype=torch.int8, device=cuda_device)
+    wt = torch.zeros((16, 3, 3, 16), dtype=torch.int8, device=cuda_device)
+    p = torch.ones(16, device=cuda_device)
+    with pytest.raises(TypeError):
+        int8_conv3x3_requant(x.float(), wt, p, p)
+    with pytest.raises(ValueError):
+        int8_conv3x3_requant(x.transpose(1, 2), wt, p, p)
+    with pytest.raises(ValueError):
+        int8_conv3x3_requant(x, wt, p, p.cpu())
+    with pytest.raises(ValueError):
+        int8_conv3x3_requant(x, wt, p, p, epilogue="f32")  # no s_out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("crop_halo", [0, 3])
+def test_int8_chain_on_card_matches_cpu(cuda_device, crop_halo):
+    """The int8 SRVGG chain (pack 2, int8 sink) with K2 on the card equals
+    the same chain on K2's plain version on the CPU, bit for bit; one K2
+    launch per conv."""
+    from image_restoration_tpu_torch.ops import quantized_inference as tq
+    from image_restoration_tpu_torch.ops.int8_conv import int8_conv3x3_requant
+    from image_restoration_tpu_torch.serve.sr_engine import build_srvgg
+    num_conv = 4
+    net = build_srvgg(num_feat=16, num_conv=num_conv, upscale=4, seed=3,
+                      device="cpu")
+    rng = np.random.default_rng(4)
+    calib = torch.from_numpy(rng.random((2, 32, 32, 3)).astype(np.float32))
+    scales = tq.calibrate_srvgg_act_scales(net, calib)
+    q = tq.quantize_srvgg_params(net, scales.tolist(), pack=2)
+    x = torch.from_numpy(rng.random((4, 21, 19, 3)).astype(
+        np.float32)).bfloat16()
+    want = tq.quantized_srvgg_forward(q, x, num_conv, 4, crop_halo=crop_halo)
+    before = int8_conv3x3_requant.launches
+    got = tq.quantized_srvgg_forward(
+        {k: v.to(cuda_device) for k, v in q.items()}, x.to(cuda_device),
+        num_conv, 4, crop_halo=crop_halo)
+    torch.cuda.synchronize()
+    assert int8_conv3x3_requant.launches == before + num_conv + 2
+    assert torch.equal(got.cpu(), want)

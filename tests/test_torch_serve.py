@@ -147,7 +147,8 @@ def test_restorer_unported_modes_raise(kwargs):
 
 def test_cli_unported_arch_raises():
     with pytest.raises(NotImplementedError):
-        tinfer.main(["--input", "x.png", "--arch", "srvgg", "--device", "cpu"])
+        tinfer.main(["--input", "x.png", "--arch", "rrdbnet", "--device",
+                     "cpu"])
 
 
 def _post(port, route, body):
@@ -179,13 +180,14 @@ def test_http_restore_endpoints(restorers, rng):
         small = cv2.resize(img, (64, 64))[..., ::-1]
         assert _lsb(core._restore_one(np.ascontiguousarray(small)),
                     jr.restore_batch_u8(small[None])[0]) <= 1
-        for route in ("/Vehicle_Resolution_GFPGAN/", "/SRx4/"):
+        for route, msg in [("/Vehicle_Resolution_GFPGAN/", "not ported yet"),
+                           ("/SRx4/", "no SR engine configured")]:
             with pytest.raises(urllib.error.HTTPError) as e:
                 _post(port, route, buf.tobytes())
             assert e.value.code == 500
             env = json.loads(e.value.read())
             assert env["is_success"] is False
-            assert "not ported yet" in env["results"]
+            assert msg in env["results"]
         with pytest.raises(urllib.error.HTTPError) as e:
             _post(port, "/Restore/", b"not an image")
         assert e.value.code == 500
