@@ -7,8 +7,8 @@ Drives the port's two main paths with random weights made from a seed, and
 fails loudly if any phase fails:
 
   1. device: the card's name and power limit (nvidia-smi);
-  2. build: every hand-written kernel (K1 and K2), from csrc/, one nvcc per
-     source, all started together, with ptxas's register report.
+  2. build: every hand-written kernel (K1, K2 and K3), from csrc/, one nvcc
+     per source, all started together, with ptxas's register report.
 
 Path 1, the restore server: GFPGANv1OCR at PRODUCTION_GFPGAN (256²) behind
 `Restorer.restore_batch_u8` and `/Restore/`, `/RestoreConcat/`:
@@ -47,6 +47,28 @@ int8 PTQ with pack-2 block-diagonal weights, tiles of 512 with a halo of 8,
      packed bf16 path, peak device memory, and a profiler breakdown of one
      int8 engine call.
 
+Path 3, ESRGAN ×4: RRDBNet at RRDBNET_X4 (64 features, 23 blocks, grow 32)
+behind `infer --arch rrdbnet --tile 512` and `Restorer.restore_tiled_u8`, its
+packed, widened and int8 forms, and K3 behind the stage-conv probe:
+
+ 11. K3 against its plain version at the five widened stage shapes at 528²
+     (bf16 and float32 out) and a ragged shape, with device times, the bound
+     and cuDNN's bf16 conv; then `probe_conv.main()`, K3's entry point, with
+     the counts set to 0 before it and read after;
+ 12. K2's "bf16_deq" epilogue against its plain version at the five RRDB
+     stage shapes at 528², one image and the ladder's batch of 4,
+     bit-equal, with device times for one image;
+ 13. main path: counts set to 0, then `infer.main(["--arch", "rrdbnet",
+     "--tile", "512", ...])` on a 1024×768 PNG (4 tiles of 544²) and
+     `restore_tiled_u8` on the same image, timed; the card against the CPU
+     at full width and depth on a 64×48 image (TF32 off, ≤1 LSB);
+ 14. the `scripts/bench_rrdb.py` ladder at 528², 23 blocks: plain bf16,
+     packed g=4, widened g=1/2/4 and widened int8 (K2, 345 launches per
+     forward), tiles/s and peak memory, and a profile of the int8 forward;
+ 15. the int8 chain at 2 blocks: on K2 against K2's plain version at 528²
+     (every stage input equal, output bit-equal), and against the float32
+     forward at 256² (≥30 dB); the 23-block PSNR is printed.
+
 The last line of stdout is {"ok": true, "device": {...}}; the line before it
 lists the kernels as JSON. Without a GPU, or without the port beside this
 file, it exits non-zero before printing a result.
@@ -69,6 +91,7 @@ import torch
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM, NVIDIA data sheet
 FP32_OPS_PER_S = 67e12      # H100 SXM, CUDA cores, dense
+BF16_OPS_PER_S = 989e12     # H100 SXM, bf16 tensor cores, dense
 INT8_OPS_PER_S = 1979e12    # H100 SXM, int8 tensor cores, dense
 K1_LAUNCHES_PER_FORWARD = 39
 # the SR engine at the JAX exporter's defaults (scripts/export_restorer.py)
@@ -134,6 +157,11 @@ def scene_image(h, w, seed):
     img[y0:y0 + ph, x0:x0 + pw] = plate_image(ph, pw, seed)
     img = cv2.GaussianBlur(img, (0, 0), 1.0)
     return np.clip(img + rng.normal(0, 4, img.shape), 0, 255).astype(np.uint8)
+
+
+def bf16_ulp(v):
+    """One bf16 ulp of each value of v (float32)."""
+    return torch.exp2(torch.floor(torch.log2(v.abs().clamp_min(1e-30))) - 7)
 
 
 def _warm_up(fn, arg_sets):
@@ -239,7 +267,8 @@ def phase_device():
 def phase_build():
     from image_restoration_tpu_torch.ops import _build
     t0 = time.perf_counter()
-    builds = _build.build_all(["fused_bias_act", "int8_conv3x3"])
+    builds = _build.build_all(["fused_bias_act", "int8_conv3x3",
+                               "conv3x3_im2col"])
     total = time.perf_counter() - t0
     for b in builds:
         log(f"build {b.name}: nvcc {b.seconds:.2f} s -> {b.path.name}")
@@ -292,9 +321,7 @@ def phase_kernels(shapes_bs1):
                 tol = 1e-6 * max(1.0, want.abs().max().item())
                 ok = err.max().item() <= tol
             else:  # one bf16 ulp of the plain value
-                ulp = torch.exp2(torch.floor(torch.log2(
-                    want.float().abs().clamp_min(1e-30))) - 7)
-                ok = bool((err <= ulp).all())
+                ok = bool((err <= bf16_ulp(want.float())).all())
             max_err = err.max().item()
             require(ok, f"K1 {dtype} M={m} C={c}: max|d|={max_err}")
             worst = max(worst, max_err)
@@ -963,6 +990,398 @@ def phase_sr_throughput(engine_int8, engine_bf16):
     return out
 
 
+# ------------------------------------------------------ path 3: ESRGAN ×4
+
+RRDB_SIZE = 528             # the served tile, 512 + 2·8 halo (bench_rrdb.py)
+RRDB_GATE_DB = 30.0         # int8 vs the float32 forward, at 2 blocks
+RRDB_STAGES = [(64, 192), (32, 160), (32, 128), (32, 96), (32, 64)]
+K2_STAGE_LAUNCHES = 15      # per RRDB block: 3 dense blocks × 5 stages
+
+
+def k3_bound_ms(n, h, w, cin, cout):
+    """Least time for one launch, bf16 in and out: x (pre-padded), the
+    weights and out once over the memory rate, or 2·MACs over the bf16
+    tensor-core peak, the larger."""
+    ops = 2 * n * h * w * cout * 9 * cin
+    nbytes = 2 * (n * (h + 2) * (w + 2) * cin + 9 * cin * cout
+                  + n * h * w * cout)
+    t_ops, t_bytes = ops / BF16_OPS_PER_S, nbytes / HBM_BYTES_PER_S
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes
+                                       else "bytes")
+
+
+def phase_k3_kernels():
+    """K3 against its plain version at the probe's five stage shapes at
+    528² and a ragged shape; device times, bound, cuDNN; then the probe."""
+    import torch.nn.functional as F
+    from image_restoration_tpu_torch.ops.im2col_conv import (
+        conv3x3_im2col, conv3x3_im2col_plain)
+    from image_restoration_tpu_torch.scripts import probe_conv
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    s = RRDB_SIZE
+    log("K3 vs plain, tolerance: float32 out max|d| <= 1e-5 * max|plain|; "
+        "bf16 out |d| <= 1 bf16 ulp of the plain value + 1e-5 * max|plain| "
+        "(sums that cancel to near zero)")
+    rows, worst = [], 0.0
+    cases = [(1, s, s, cin, cout, 4 if cin == 64 else 8)
+             for cin, cout in RRDB_STAGES] + [(2, 37, 45, 24, 36, 1)]
+    for n, h, w, cin, cout, bh in cases:
+        x = torch.randn((n, h + 2, w + 2, cin), generator=gen,
+                        device="cuda").bfloat16()
+        wt = (torch.randn((3, 3, cin, cout), generator=gen, device="cuda")
+              * 0.05).bfloat16()
+        for out_dtype in (torch.float32, torch.bfloat16):
+            got = conv3x3_im2col(x, wt, bh=bh, out_dtype=out_dtype)
+            want = conv3x3_im2col_plain(x, wt, bh=bh, out_dtype=out_dtype)
+            torch.cuda.synchronize()
+            err = (got.float() - want.float()).abs()
+            tol = 1e-5 * want.abs().max().item()
+            if out_dtype == torch.float32:
+                ok = err.max().item() <= tol
+            else:
+                ok = bool((err <= bf16_ulp(want.float()) + tol).all())
+                worst = max(worst, err.max().item())
+            require(ok, f"K3 {(n, h, w, cin, cout)} {out_dtype}: max|d| "
+                        f"{err.max().item()}")
+            del got, want, err
+        if h != s:
+            continue
+        bound, bound_by = k3_bound_ms(n, h, w, cin, cout)
+        xc = x.permute(0, 3, 1, 2)
+        wc = wt.permute(3, 2, 0, 1).contiguous(
+            memory_format=torch.channels_last)
+        row = dict(Cin=cin, Cout=cout, N=n, H=h, W=w, bound_ms=bound,
+                   bound_by=bound_by,
+                   ms=device_time_ms(
+                       lambda t: conv3x3_im2col(t, wt, bh=bh), [(x,)], 40),
+                   plain_ms=device_time_ms(
+                       lambda t: conv3x3_im2col_plain(t, wt, bh=bh),
+                       [(x,)], 5),
+                   cudnn_bf16_ms=device_time_ms(
+                       lambda t: F.conv2d(t, wc), [(xc,)], 40))
+        rows.append(row)
+        log(f"K3 {cin:3d}->{cout:3d} {s}²  ms={row['ms']:.5f}  "
+            f"plain_ms={row['plain_ms']:.5f}  bound_ms={bound:.5f} "
+            f"({bound_by})  cudnn_bf16_ms={row['cudnn_bf16_ms']:.5f}  "
+            f"TFLOP/s={2 * 9 * cin * cout * s * s / row['ms'] / 1e9:.1f}")
+        del x, xc
+    log("K3 ragged shape (2 images, 37x45, Cin 24 padded to 32, Cout 36, "
+        "bh 1), both out dtypes: within tolerance")
+    per_pass = {k: sum(r[k] for r in rows)
+                for k in ("ms", "plain_ms", "bound_ms", "cudnn_bf16_ms")}
+    log("K3 per pass over the five stages: "
+        + "  ".join(f"{k}={v:.5f}" for k, v in per_pass.items()))
+    torch.cuda.empty_cache()
+
+    conv3x3_im2col.launches = 0
+    probe = probe_conv.main([])
+    k3_launches = conv3x3_im2col.launches
+    require(k3_launches > 0, "probe_conv.main launched K3 no time")
+    log(f"probe_conv.main: K3 launches {k3_launches}")
+    return rows, per_pass, worst, probe, k3_launches
+
+
+def phase_k2_deq():
+    """K2's bf16_deq epilogue against its plain version at the five RRDB
+    stage shapes at 528² (SAME padding), for one image and for the ladder's
+    batch of 4: bit-equal; times for one image."""
+    from image_restoration_tpu_torch.ops.int8_conv import (
+        int8_conv3x3_requant, int8_conv3x3_requant_plain)
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    s = RRDB_SIZE
+    rows = []
+    for st, (cin, cout) in enumerate(RRDB_STAGES):
+        for n in (4, 1):  # the 1-image inputs stay for the timing below
+            x, wt, deq, b, _ = k2_inputs(gen, n, s, s, cin, cout, "bf16_deq",
+                                         False)
+            bias = b if st == 0 else None  # only stage 0 adds the biases
+            got = int8_conv3x3_requant(x, wt, deq, bias, epilogue="bf16_deq")
+            want = int8_conv3x3_requant_plain(x, wt, deq, bias,
+                                              epilogue="bf16_deq")
+            torch.cuda.synchronize()
+            require(got.dtype == torch.bfloat16 and torch.equal(got, want),
+                    f"K2 bf16_deq N={n} {cin}->{cout}: max|d| "
+                    f"{(got.float() - want.float()).abs().max().item()}")
+            del got, want
+        ops = 2 * s * s * cout * 9 * cin
+        nbytes = s * s * (cin + 2 * cout) + cout * 9 * cin
+        row = dict(Cin=cin, Cout=cout, bias=bias is not None,
+                   bound_ms=max(ops / INT8_OPS_PER_S,
+                                nbytes / HBM_BYTES_PER_S) * 1e3,
+                   ms=device_time_ms(lambda t: int8_conv3x3_requant(
+                       t, wt, deq, bias, epilogue="bf16_deq"), [(x,)], 20),
+                   plain_ms=device_time_ms(
+                       lambda t: int8_conv3x3_requant_plain(
+                           t, wt, deq, bias, epilogue="bf16_deq"),
+                       [(x,)], 3))
+        rows.append(row)
+        log(f"K2 bf16_deq {cin:3d}->{cout:3d} {s}²  ms={row['ms']:.4f}  "
+            f"plain_ms={row['plain_ms']:.4f}  bound_ms={row['bound_ms']:.5f}"
+            "  bit-equal at N=1 and N=4")
+        del x
+    per_fwd = {k: 3 * 23 * sum(r[k] for r in rows)
+               for k in ("ms", "plain_ms", "bound_ms")}
+    log("K2 bf16_deq per RRDBNet-23 forward of one 528² tile (345 launches): "
+        + "  ".join(f"{k}={v:.3f}" for k, v in per_fwd.items()))
+    torch.cuda.empty_cache()
+    return rows, per_fwd
+
+
+def _counts_zero():
+    from image_restoration_tpu_torch.ops.fused_act import fused_leaky_relu
+    from image_restoration_tpu_torch.ops.im2col_conv import conv3x3_im2col
+    from image_restoration_tpu_torch.ops.int8_conv import int8_conv3x3_requant
+    kernels = (fused_leaky_relu, int8_conv3x3_requant, conv3x3_im2col)
+    for k in kernels:
+        k.launches = 0
+    return kernels
+
+
+def phase_rrdb_main_path():
+    """Counts at 0; `infer --arch rrdbnet --tile 512` on a 1024×768 PNG and
+    `restore_tiled_u8` on the same image (cuDNN convs: no kernel of the
+    port launches); then card vs CPU at full width and depth."""
+    import tempfile
+    import cv2
+    from image_restoration_tpu_torch import infer
+    img = scene_image(768, 1024, seed=31)
+    kernels = _counts_zero()
+    with tempfile.TemporaryDirectory() as tmp:
+        src = os.path.join(tmp, "street.png")
+        cv2.imwrite(src, img[..., ::-1])
+        t0 = time.perf_counter()
+        infer.main(["--input", src, "--output", os.path.join(tmp, "out"),
+                    "--arch", "rrdbnet", "--tile", "512"])
+        cli_s = time.perf_counter() - t0
+        out = cv2.imread(os.path.join(tmp, "out", "street_restored.png"))
+    require(out is not None and out.shape == (3072, 4096, 3),
+            f"--arch rrdbnet wrote {None if out is None else out.shape}")
+    require(float(out.std()) > 1.0, "constant --arch rrdbnet output")
+    log(f"infer --arch rrdbnet --tile 512, 1024x768 PNG -> 4096x3072 PNG in "
+        f"{cli_s:.2f} s (first call: weights, cuDNN plans, PNG IO)")
+    restorer = infer.Restorer(infer.RRDBNET_X4, device="cuda", seed=0,
+                              **infer.SR_MEAN_STD)
+    first = restorer.restore_tiled_u8(img, tile=512)
+    med, lo, hi = median_ms(lambda: restorer.restore_tiled_u8(img, tile=512),
+                            3)
+    require(first.shape == (3072, 4096, 3) and first.dtype == np.uint8,
+            f"restore_tiled_u8: {first.shape}")
+    launches = [k.launches for k in kernels]
+    log(f"Restorer(RRDBNET_X4).restore_tiled_u8 1024x768 (4 tiles of 544², "
+        f"float32, TF32 on): median {med:.1f} ms (min {lo:.1f}, max "
+        f"{hi:.1f}); launches K1/K2/K3 on this path: {launches}")
+
+    tf32 = (torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        small = img[300:348, 400:464][None].copy()
+        cpu = infer.Restorer(infer.RRDBNET_X4, device="cpu", seed=0,
+                             **infer.SR_MEAN_STD)
+        t0 = time.perf_counter()
+        ref = cpu.restore_batch_u8(small)
+        cpu_s = time.perf_counter() - t0
+        gpu = restorer.restore_batch_u8(small)
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = tf32
+    dc = np.abs(ref.astype(np.int16) - gpu.astype(np.int16))
+    log(f"RRDBNet-23 card vs CPU, 64x48 -> 256x192 (TF32 off): uint8 max "
+        f"{dc.max()} LSB, mean {dc.mean():.5f} (CPU {cpu_s:.1f} s)")
+    require(dc.max() <= 1, f"RRDBNet card vs CPU: {dc.max()} LSB")
+    del restorer
+    torch.cuda.empty_cache()
+    return dict(cli_s=cli_s, restore_tiled_u8_ms=med, card_vs_cpu_lsb=int(
+        dc.max()), launches=launches)
+
+
+def rrdb_calib(size=160):
+    """Two crops of a seeded synthetic scene (bench_rrdb.py calibrates on
+    two 160² tiles)."""
+    img = scene_image(384, 512, seed=33).astype(np.float32) / 255.0
+    return np.stack([img[20:20 + size, 40:40 + size],
+                     img[200:200 + size, 300:300 + size]])
+
+
+def phase_rrdb_ladder():
+    """bench_rrdb.py's ladder at 528², RRDBNet-23: tiles/s, peak memory,
+    and a profile of one int8 forward."""
+    from torch.profiler import ProfilerActivity, profile
+    from image_restoration_tpu_torch.archs import build_network
+    from image_restoration_tpu_torch.infer import RRDBNET_X4
+    from image_restoration_tpu_torch.ops import packed_inference as pk
+    from image_restoration_tpu_torch.ops import rrdb_quant as rq
+    from image_restoration_tpu_torch.ops import rrdb_widened as wd
+    from image_restoration_tpu_torch.ops.int8_conv import int8_conv3x3_requant
+    s, nb = RRDB_SIZE, RRDBNET_X4["num_block"]
+    net = build_network(dict(RRDBNET_X4, dtype="bf16"),
+                        torch.Generator().manual_seed(0)).cuda().eval()
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    xs = {bs: torch.rand((bs, s, s, 3), generator=gen, device="cuda")
+          for bs in (1, 2, 4)}
+    q = rq.quantize_rrdb_params(net, rq.calibrate_rrdb_act_scales(
+        net, torch.from_numpy(rrdb_calib()).cuda()))
+    ladder = [
+        ("plain-bf16", 1, net, None),
+        ("packed-g4-bf16", 4, pk.pack_rrdbnet_params(net, g=4),
+         lambda p, x: pk.packed_rrdbnet_forward(p, x, nb, 4, g=4)),
+        ("widened-bf16", 1, wd.widen_rrdbnet_params(net, g=1),
+         lambda p, x: wd.widened_rrdbnet_forward(p, x, nb)),
+        ("widened-bf16", 4, None, None),
+        ("widened-g2-bf16", 2, wd.widen_rrdbnet_params(net, g=2),
+         lambda p, x: wd.widened_rrdbnet_forward(p, x, nb, g=2)),
+        ("widened-g4-bf16", 4, wd.widen_rrdbnet_params(net, g=4),
+         lambda p, x: wd.widened_rrdbnet_forward(p, x, nb, g=4)),
+        ("widened-int8", 1, q, lambda p, x: rq.quantized_rrdb_forward(
+            p, x, nb)),
+        ("widened-int8", 4, None, None),
+    ]
+    rows, prev = [], None
+    log(f"RRDBNet-23 x4 ladder at {s}² (random input; cudnn TF32 setting "
+        "irrelevant: bf16 and int8)")
+    for name, bs, params, fn in ladder:
+        if params is None:
+            params, fn = prev
+        prev = (params, fn)
+        x = xs[bs]
+
+        @torch.inference_mode()
+        def call():
+            return net(x) if fn is None else fn(params, x)
+
+        is_int8 = name.endswith("int8")
+        if is_int8:
+            int8_conv3x3_requant.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        out = call()
+        torch.cuda.synchronize()
+        require(out.shape == (bs, 4 * s, 4 * s, 3)
+                and bool(torch.isfinite(out.float()).all()),
+                f"{name} bs={bs}: {tuple(out.shape)}")
+        peak = torch.cuda.max_memory_allocated() / 2 ** 20
+        del out
+        med, lo, hi = median_ms(call, 3 if is_int8 else 5)
+        row = dict(mode=name, bs=bs, ms=med, ms_min=lo, ms_max=hi,
+                   tiles_per_s=bs / med * 1e3, peak_mib=peak)
+        if is_int8:
+            calls = 1 + 2 + 3  # checked call, median_ms's warm-up and runs
+            row["k2_launches"] = int8_conv3x3_requant.launches
+            require(row["k2_launches"] == calls * K2_STAGE_LAUNCHES * nb,
+                    f"{name} bs={bs}: K2 launched {row['k2_launches']} "
+                    f"times in {calls} forwards")
+        rows.append(row)
+        log(f"RRDB-23 {name} bs={bs}: {med:.2f} ms (min {lo:.2f}, max "
+            f"{hi:.2f}) -> {row['tiles_per_s']:.3f} tiles/s, peak "
+            f"{peak:.1f} MiB" + (f", K2 launches {row['k2_launches']}"
+                                 if is_int8 else ""))
+    x = xs[1]
+    rq.quantized_rrdb_forward(q, x, nb)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        rq.quantized_rrdb_forward(q, x, nb)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    kernels = _kernel_events(prof)
+    busy = sum(k[0] for k in kernels)
+    k2 = [k for k in kernels if "int8_conv3x3" in k[2]]
+    k2_ms, k2_n = sum(k[0] for k in k2), sum(k[1] for k in k2)
+    log(f"profile of one int8 RRDB-23 forward (bs 1, {s}²): wall "
+        f"{wall:.2f} ms, device busy {busy:.2f} ms "
+        f"({100 * busy / wall:.1f}%), K2 {k2_ms:.2f} ms over {k2_n} "
+        f"launches ({100 * k2_ms / max(busy, 1e-9):.1f}% of device time)")
+    for t, n, name in kernels[:10]:
+        log(f"  {t:9.4f} ms  x{n:<4d} {name[:110]}")
+    require(k2_n == K2_STAGE_LAUNCHES * nb, f"profiler saw {k2_n} K2 "
+            "launches in one int8 forward")
+    prof_row = dict(wall_ms=wall, busy_ms=busy, k2_device_ms=k2_ms,
+                    k2_launches=k2_n, top=[dict(ms=t, count=n, name=name[:200])
+                                           for t, n, name in kernels[:15]])
+    del xs, ladder, prev
+    torch.cuda.empty_cache()
+    return rows, prof_row, net, q
+
+
+def phase_rrdb_int8_check(net23, q23):
+    """TF32 off. At 2 blocks: the chain on K2 against the chain on K2's
+    plain version at 528² (stage inputs and outputs equal), and int8 against
+    the float32 forward at 256² (≥30 dB). The 23-block PSNR is printed."""
+    from unittest import mock as _mock
+    from image_restoration_tpu_torch.archs import build_network
+    from image_restoration_tpu_torch.infer import RRDBNET_X4
+    from image_restoration_tpu_torch.ops import int8_conv
+    from image_restoration_tpu_torch.ops import rrdb_quant as rq
+    res = {}
+    tf32 = (torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        net = build_network(dict(RRDBNET_X4, num_block=2),
+                            torch.Generator().manual_seed(0)).cuda().eval()
+        q = rq.quantize_rrdb_params(net, rq.calibrate_rrdb_act_scales(
+            net, torch.from_numpy(rrdb_calib()).cuda()))
+        s = RRDB_SIZE
+        x = torch.from_numpy(scene_image(s, s, seed=34)).cuda().float() / 255
+        x = x[None]
+        seen = []
+        real = int8_conv.int8_conv3x3_requant
+
+        def record(t, *a, **k):
+            out = real(t, *a, **k)
+            seen.append((t, out))
+            return out
+
+        with _mock.patch.object(rq, "int8_conv3x3_requant", record):
+            got = rq.quantized_rrdb_forward(q, x, 2)
+        torch.cuda.synchronize()
+        require(len(seen) == 2 * K2_STAGE_LAUNCHES, f"{len(seen)} K2 calls")
+        stage = iter(range(len(seen)))
+
+        def compare(t, *a, **k):
+            i = next(stage)
+            require(torch.equal(t, seen[i][0]), f"stage input {i} differs")
+            out = int8_conv.int8_conv3x3_requant_plain(t, *a, **k)
+            require(torch.equal(out, seen[i][1]),
+                    f"stage {i}: K2 vs plain output differs")
+            seen[i] = None
+            return out
+
+        with _mock.patch.object(rq, "int8_conv3x3_requant", compare):
+            want = rq.quantized_rrdb_forward(q, x, 2)
+        torch.cuda.synchronize()
+        require(torch.equal(got, want), "int8 RRDB output: K2 vs plain")
+        log(f"int8 RRDB chain (2 blocks, {s}², TF32 off) on K2 vs on plain "
+            "K2: 30 stage inputs and outputs equal, bf16 output bit-equal")
+        del seen, got, want
+
+        y = torch.from_numpy(scene_image(256, 256, seed=35)).cuda()
+        y = y[None].float() / 255
+        for name, nt, qq, nb in (("2 blocks", net, q, 2),
+                                 ("23 blocks", net23, q23, 23)):
+            dtype, nt.dtype = nt.dtype, None  # the float32 forward
+            try:
+                with torch.no_grad():
+                    ref = nt(y)
+            finally:
+                nt.dtype = dtype
+            db = span_psnr(ref, rq.quantized_rrdb_forward(qq, y, nb))
+            log(f"int8 RRDB ({name}) vs the float32 forward, 256² synthetic "
+                f"scene: span-normalized PSNR {db:.2f} dB"
+                + (f" (gate >= {RRDB_GATE_DB})" if nb == 2 else
+                   " (no gate)"))
+            res[f"int8_vs_f32_db_{nb}"] = db
+        require(res["int8_vs_f32_db_2"] >= RRDB_GATE_DB,
+                f"int8 RRDB vs f32: {res['int8_vs_f32_db_2']:.2f} dB")
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = tf32
+    torch.cuda.empty_cache()
+    return res
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", default=None,
@@ -997,6 +1416,16 @@ def main(argv=None):
     k2_launches, sr_req_ms = phase_sr_main_path(restorer, engine)
     sr_check = phase_sr_correctness()
     sr_thr = phase_sr_throughput(engine, build_sr(int8=False))
+    sr_meta = engine.meta
+    del engine
+    torch.cuda.empty_cache()
+
+    k3_rows, k3_pass, k3_err, probe, k3_launches = phase_k3_kernels()
+    deq_rows, deq_fwd = phase_k2_deq()
+    rrdb_main = phase_rrdb_main_path()
+    ladder, rrdb_prof, net23, q23 = phase_rrdb_ladder()
+    rrdb_check = phase_rrdb_int8_check(net23, q23)
+    del net23, q23
 
     a = agg[("float32", 16)]
     kernels = [{
@@ -1023,6 +1452,19 @@ def main(argv=None):
         "bound_ms": k2_call["bound_ms"],
         "bound_by": "operations",
         "library_ms": k2_call["int_mm_ms"],
+    }, {
+        "name": "conv3x3_im2col",
+        "route": "cuda",
+        "source": "image_restoration_tpu_torch/csrc/conv3x3_im2col.cu",
+        "replaces": "image_restoration_tpu/ops/pallas/im2col_conv.py:76",
+        "launches": k3_launches,
+        "max_abs_err": k3_err,
+        "ms": k3_pass["ms"],
+        "plain_ms": k3_pass["plain_ms"],
+        "bound_ms": k3_pass["bound_ms"],
+        "bound_by": max(("bytes", "operations"), key=lambda b: sum(
+            r["bound_ms"] for r in k3_rows if r["bound_by"] == b)),
+        "library_ms": k3_pass["cudnn_bf16_ms"],
     }]
     report = dict(
         smi=smi, build_s=build, k1_rows=rows,
@@ -1032,14 +1474,21 @@ def main(argv=None):
         net_k1_vs_plain_lsb=lsb, net_k1_vs_plain_float=dfloat,
         card_vs_cpu_lsb=cpu_lsb, throughput=thr, peak_mib_bs16=peak,
         profile=prof, k2_rows=k2_rows, k2_per_engine_call=k2_call,
-        sr_engine=engine.meta, sr_main_path_launches=k2_launches,
+        sr_engine=sr_meta, sr_main_path_launches=k2_launches,
         sr_request_ms=sr_req_ms, sr_correctness=sr_check,
-        sr_throughput=sr_thr, seconds=time.perf_counter() - t_start,
+        sr_throughput=sr_thr, k3_rows=k3_rows, k3_per_pass=k3_pass,
+        k3_probe=probe, k3_probe_launches=k3_launches,
+        k2_bf16_deq_rows=deq_rows, k2_bf16_deq_per_rrdb23_forward=deq_fwd,
+        rrdb_main_path=rrdb_main, rrdb_ladder=ladder, rrdb_profile=rrdb_prof,
+        rrdb_int8=rrdb_check, seconds=time.perf_counter() - t_start,
         note="kernels[].ms/plain_ms/bound_ms: device time (calls back to "
              "back, CUDA events) and bound, summed over the 39 K1 launches "
-             "of one batch-16 f32 forward, and over the 34 K2 launches of "
-             "one SR engine call (bf16 epilogue); K2's library_ms is "
-             "torch._int_mm on the im2col matrix, the contraction alone")
+             "of one batch-16 f32 forward, over the 34 K2 launches of "
+             "one SR engine call (bf16 epilogue), and over K3's five "
+             "launches of one pass over the widened stage shapes at 528² "
+             "(bf16 out); K2's library_ms is torch._int_mm on the im2col "
+             "matrix, the contraction alone; K3's is cuDNN's bf16 conv; "
+             "K3's launches are those of probe_conv.main()")
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as f:

@@ -13,33 +13,12 @@ its activation (PReLU holds `weight`, ReLU/LeakyReLU hold nothing) and
 
 from __future__ import annotations
 
-import math
-
 import torch
-import torch.nn.functional as F
 from torch import nn
 
 from ..ops.pixel_ops import pixel_shuffle
 from ..utils.registry import ARCH_REGISTRY
-
-
-class _Conv3x3(nn.Conv2d):
-    """3×3 SAME conv over NHWC, with the JAX package's init (Kaiming normal,
-    fan-in, gain √2; zero bias)."""
-
-    def __init__(self, cin: int, cout: int):
-        super().__init__(cin, cout, 3, padding=1)
-
-    def reset_parameters(self, generator=None):
-        std = math.sqrt(2.0 / (self.in_channels * 9))
-        with torch.no_grad():
-            self.weight.normal_(0.0, std, generator=generator)
-            self.bias.zero_()
-
-    def forward(self, x):
-        y = F.conv2d(x.permute(0, 3, 1, 2), self.weight.to(x.dtype),
-                     self.bias.to(x.dtype), padding=1)
-        return y.permute(0, 2, 3, 1)
+from .arch_util import Conv3x3
 
 
 class _PReLU(nn.PReLU):
@@ -79,10 +58,11 @@ class SRVGGNetCompact(nn.Module):
         self.dtype = dtype
         layers = []
         for i in range(num_conv + 1):
-            layers.append(_Conv3x3(num_in_ch if i == 0 else num_feat, num_feat))
+            layers.append(Conv3x3(num_in_ch if i == 0 else num_feat,
+                                  num_feat))
             layers.append(_PReLU(num_feat) if act_type == "prelu"
                           else _Act(act_type))
-        layers.append(_Conv3x3(num_feat, num_out_ch * upscale * upscale))
+        layers.append(Conv3x3(num_feat, num_out_ch * upscale * upscale))
         self.body = nn.ModuleList(layers)
 
     def conv_layers(self):

@@ -15,6 +15,8 @@ becomes `layerN`, `activate`/`activation` is skipped, a fused activation's
 
 SRVGGNetCompact's Real-ESRGAN `body.N` keys map to flax's `body_i`,
 `prelu_i` and `conv_last` first (the JAX importer's rule, inverted).
+RRDBNet's `body.i.rdbK.convJ.weight` becomes flax's `body_i/rdbK/convJ/kernel`
+(flax's Conv names its weight `kernel`).
 
 Strict both ways: every port key must resolve and every flax leaf be used.
 """
@@ -97,6 +99,9 @@ def _flax_key(net, key: str) -> str:
         else:
             name = f"body_{i // 2}"
         return f"{name}.{'kernel' if leaf == 'weight' else leaf}"
+    if type(net).__name__ == "RRDBNet":
+        # flax's nn.Conv names the weight `kernel`; body.i → body_i
+        return re.sub(r"\.weight$", ".kernel", key)
     return re.sub(r"style_mlp\.(\d+)",
                   lambda m: f"style_mlp_{int(m.group(1)) - 1}", key)
 

@@ -15,7 +15,7 @@
 // pre-padded input (its border need not be zero); pad = 1 is the SAME conv of
 // the chain with an implied zero border, so no padded copy is made.
 //
-// Two epilogue modes, both fused:
+// Three epilogue modes, all fused:
 //   mode 0 (f32), the Pallas formula: f32 multiply and add with no FMA
 //     contraction (__fmul_rn/__fadd_rn), PReLU, h * (127 / s_out) with the
 //     ratio divided once in f32, round half to even, clip.
@@ -25,6 +25,12 @@
 //     rounded with __float2bfloat16_rn; then round half to even and clip.
 //     (deq and b carry the folded 127 / s_out; s_out is unused.)
 // alpha == NULL means no PReLU (alpha = 1, conv_last's int8 sink).
+//   mode 2 (bf16_deq), the int8 RRDB chain's stage conv
+//     (image_restoration_tpu/ops/rrdb_quant.py:153-169): out is bf16,
+//     acc -> f32 -> bf16, x deq, + b when bias is not NULL, each rounded to
+//     bf16; no activation, no round, no clip. 345 launches per RRDBNet-23
+//     forward (23 blocks x 3 dense blocks x 5 stages, Cin 64 -> Cout 192 and
+//     Cin 32 -> Cout 160, 128, 96, 64). bias is NULL except at stage 0.
 //
 // Bound: operations. A packed body layer at the served shape is 1.64e11
 // int8 multiply-adds against 2.9e8 bytes of input, weights and output, about
@@ -84,6 +90,15 @@ __device__ __forceinline__ int8_t requant_f32(int acc, float deq, float b, float
   return clip_to_int8(rintf(__fmul_rn(h, ratio)));
 }
 
+// mode 2: the RRDB chain's dequantization, rounded to bf16 after each step.
+__device__ __forceinline__ __nv_bfloat16 dequant_bf16(int acc, float deq, float b,
+                                                      bool has_bias) {
+  float h = round_bf16(__int2float_rn(acc));
+  h = round_bf16(__fmul_rn(h, deq));
+  if (has_bias) h = __fadd_rn(h, b);
+  return __float2bfloat16_rn(h);
+}
+
 // mode 1: the chain's bf16 epilogue, rounded to bf16 after every operation.
 __device__ __forceinline__ int8_t requant_bf16(int acc, float deq, float b, float a,
                                                bool prelu) {
@@ -94,12 +109,12 @@ __device__ __forceinline__ int8_t requant_bf16(int acc, float deq, float b, floa
   return clip_to_int8(rintf(h));
 }
 
-template <typename P, bool kBf16>
+template <typename P, int kMode>
 __global__ void __launch_bounds__(kThreads)
 int8_conv3x3_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
                     const P* __restrict__ deq, const P* __restrict__ bias,
                     const P* __restrict__ alpha, float s_out,
-                    int8_t* __restrict__ out, int hin, int win, int cin, int cout,
+                    void* __restrict__ out, int hin, int win, int cin, int cout,
                     int hout, int wout, int pad, int co_blocks, bool vec_store) {
   __shared__ int s_in[kInRows * kKW * kInCols];            // [row][word][col]
   __shared__ __align__(16) int s_w[9 * kKW * kCO];         // [tap][word][out]
@@ -176,7 +191,7 @@ int8_conv3x3_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
   for (int m = 0; m < kOCT; ++m) {
     const int o = min(ob + m, cout - 1);
     pd[m] = load_param(deq, o);
-    pb[m] = load_param(bias, o);
+    pb[m] = bias != nullptr ? load_param(bias, o) : 0.f;
     pa[m] = alpha != nullptr ? load_param(alpha, o) : 1.f;
   }
   const bool prelu = alpha != nullptr;
@@ -186,12 +201,28 @@ int8_conv3x3_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
   for (int j = 0; j < kTH; ++j) {
     const int yo = y0 + j;
     if (yo >= hout || xo >= wout) continue;
+    const int64_t at = (((int64_t)n * hout + yo) * wout + xo) * cout + ob;
+    if constexpr (kMode == 2) {
+      __align__(16) __nv_bfloat16 v[kOCT];
+#pragma unroll
+      for (int m = 0; m < kOCT; ++m)
+        v[m] = dequant_bf16(acc[j][m], pd[m], pb[m], bias != nullptr);
+      __nv_bfloat16* dst = static_cast<__nv_bfloat16*>(out) + at;
+      if (vec_store && ob + kOCT <= cout) {
+        *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(v);
+      } else {
+#pragma unroll
+        for (int m = 0; m < kOCT; ++m)
+          if (ob + m < cout) dst[m] = v[m];
+      }
+      continue;
+    }
     int8_t q[kOCT];
 #pragma unroll
     for (int m = 0; m < kOCT; ++m)
-      q[m] = kBf16 ? requant_bf16(acc[j][m], pd[m], pb[m], pa[m], prelu)
-                   : requant_f32(acc[j][m], pd[m], pb[m], pa[m], prelu, ratio);
-    int8_t* dst = out + (((int64_t)n * hout + yo) * wout + xo) * cout + ob;
+      q[m] = kMode == 1 ? requant_bf16(acc[j][m], pd[m], pb[m], pa[m], prelu)
+                        : requant_f32(acc[j][m], pd[m], pb[m], pa[m], prelu, ratio);
+    int8_t* dst = static_cast<int8_t*>(out) + at;
     if (vec_store && ob + kOCT <= cout) {
       uint2 v;
       v.x = (uint32_t)(uint8_t)q[0] | ((uint32_t)(uint8_t)q[1] << 8) |
@@ -209,8 +240,10 @@ int8_conv3x3_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
 
 }  // namespace
 
-// mode: 0 = f32 epilogue (deq/bias/alpha float32, s_out used),
-//       1 = bf16 epilogue (deq/bias/alpha bfloat16, s_out unused).
+// mode: 0 = f32 epilogue (deq/bias/alpha float32, s_out used), int8 out;
+//       1 = bf16 epilogue (deq/bias/alpha bfloat16, s_out unused), int8 out;
+//       2 = bf16_deq (deq/bias bfloat16, bias may be NULL, alpha must be
+//           NULL, s_out unused), bf16 out.
 // alpha may be NULL (no PReLU). pad is 0 or 1.
 extern "C" int int8_conv3x3_requant(const void* x, const void* w, const void* deq,
                                     const void* bias, const void* alpha, float s_out,
@@ -218,30 +251,36 @@ extern "C" int int8_conv3x3_requant(const void* x, const void* w, const void* de
                                     int cout, int pad, int mode, void* stream) {
   const int hout = hin + 2 * pad - 2, wout = win + 2 * pad - 2;
   if (n <= 0 || cin <= 0 || cin % 4 != 0 || cout <= 0 || (pad != 0 && pad != 1) ||
-      hout <= 0 || wout <= 0 || (mode != 0 && mode != 1) ||
+      hout <= 0 || wout <= 0 || mode < 0 || mode > 2 ||
+      (mode != 2 && bias == nullptr) || (mode == 2 && alpha != nullptr) ||
       (reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(w)) % 4 != 0)
     return (int)cudaErrorInvalidValue;
   const int co_blocks = (cout + kCO - 1) / kCO;
   const long long gy = (hout + kTH - 1) / kTH, gz = (long long)n * co_blocks;
   if (gy > 65535 || gz > 65535) return (int)cudaErrorInvalidValue;
   const dim3 grid((wout + kTW - 1) / kTW, (unsigned)gy, (unsigned)gz);
-  const bool vec_store =
-      cout % kOCT == 0 && reinterpret_cast<uintptr_t>(out) % 8 == 0;
+  // 8 channels per store: 8 bytes of int8, 16 bytes of bf16
+  const bool vec_store = cout % kOCT == 0 &&
+      reinterpret_cast<uintptr_t>(out) % (mode == 2 ? 16 : 8) == 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int8_t* xi = static_cast<const int8_t*>(x);
   const int8_t* wi = static_cast<const int8_t*>(w);
-  int8_t* oi = static_cast<int8_t*>(out);
+  const __nv_bfloat16* db = static_cast<const __nv_bfloat16*>(deq);
+  const __nv_bfloat16* bb = static_cast<const __nv_bfloat16*>(bias);
+  const __nv_bfloat16* ab = static_cast<const __nv_bfloat16*>(alpha);
   if (mode == 0) {
-    int8_conv3x3_kernel<float, false><<<grid, kThreads, 0, s>>>(
+    int8_conv3x3_kernel<float, 0><<<grid, kThreads, 0, s>>>(
         xi, wi, static_cast<const float*>(deq), static_cast<const float*>(bias),
-        static_cast<const float*>(alpha), s_out, oi, hin, win, cin, cout, hout,
+        static_cast<const float*>(alpha), s_out, out, hin, win, cin, cout, hout,
         wout, pad, co_blocks, vec_store);
+  } else if (mode == 1) {
+    int8_conv3x3_kernel<__nv_bfloat16, 1><<<grid, kThreads, 0, s>>>(
+        xi, wi, db, bb, ab, s_out, out, hin, win, cin, cout, hout, wout, pad,
+        co_blocks, vec_store);
   } else {
-    int8_conv3x3_kernel<__nv_bfloat16, true><<<grid, kThreads, 0, s>>>(
-        xi, wi, static_cast<const __nv_bfloat16*>(deq),
-        static_cast<const __nv_bfloat16*>(bias),
-        static_cast<const __nv_bfloat16*>(alpha), s_out, oi, hin, win, cin, cout,
-        hout, wout, pad, co_blocks, vec_store);
+    int8_conv3x3_kernel<__nv_bfloat16, 2><<<grid, kThreads, 0, s>>>(
+        xi, wi, db, bb, nullptr, s_out, out, hin, win, cin, cout, hout, wout,
+        pad, co_blocks, vec_store);
   }
   return (int)cudaGetLastError();
 }

@@ -1,11 +1,11 @@
 """Single-image / batch restoration inference on the GPU.
 
 Port of `image_restoration_tpu/infer.py:27-273`: `PRODUCTION_GFPGAN`, the
-`Restorer` over GFPGANv1OCR or SRVGGNetCompact (float path
+`Restorer` over GFPGANv1OCR, SRVGGNetCompact or RRDBNet (float path
 `restore_batch`/`__call__`, device-IO path `restore_batch_u8`, halo-tiled
-`restore_tiled`/`restore_tiled_u8`) and the `--arch gfpgan_ocr|srvgg
-[--tile N]` CLI. Not ported yet: `quant="dyn-int8"`, `data_parallel` and
-`--arch rrdbnet`; they raise NotImplementedError.
+`restore_tiled`/`restore_tiled_u8`) and the `--arch gfpgan_ocr|rrdbnet|srvgg
+[--tile N] [--bf16]` CLI. Not ported yet: `quant="dyn-int8"` and
+`data_parallel`; they raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -31,13 +31,16 @@ PRODUCTION_GFPGAN = dict(
     num_style_feat=256, channel_multiplier=0.5, num_mlp=4,
     input_is_latent=True, different_w=True, narrow=1, sft_half=True)
 SRVGG_X4 = dict(type="SRVGGNetCompact", num_feat=64, num_conv=32, upscale=4)
+# ESRGAN ×4 (RealESRGAN_x4plus), the JAX CLI's --arch rrdbnet
+RRDBNET_X4 = dict(type="RRDBNet", num_in_ch=3, num_out_ch=3, scale=4,
+                  num_feat=64, num_block=23, num_grow_ch=32)
 SR_MEAN_STD = dict(mean=(0, 0, 0), std=(1, 1, 1), out_min_max=(0, 1))
-_PORTED_ARCHS = ("GFPGANv1OCR", "SRVGGNetCompact")
+_PORTED_ARCHS = ("GFPGANv1OCR", "SRVGGNetCompact", "RRDBNet")
 
 
 class Restorer:
-    """Restoration wrapper around GFPGANv1OCR or SRVGGNetCompact (the
-    archs ported so far), on one device.
+    """Restoration wrapper around GFPGANv1OCR, SRVGGNetCompact or RRDBNet
+    (the archs ported so far), on one device.
 
     Without `ckpt_path` the weights are drawn from a generator seeded with
     `seed`. `device=None` means "cuda" and raises without a GPU.
@@ -175,7 +178,7 @@ def main(argv=None):
     elif args.arch == "srvgg":
         net_opt, mean_std = SRVGG_X4, SR_MEAN_STD
     else:
-        raise NotImplementedError(f"--arch {args.arch} is not ported yet")
+        net_opt, mean_std = RRDBNET_X4, SR_MEAN_STD
     restorer = Restorer(net_opt, args.ckpt,
                         dtype=torch.bfloat16 if args.bf16 else None,
                         device=args.device, **mean_std)

@@ -3,21 +3,26 @@
 Port of the Pallas kernel `image_restoration_tpu/ops/pallas/int8_conv.py`
 `int8_conv3x3_requant` and of the layer expression of the int8 SRVGG chain
 (`ops/quantized_inference.py:133-141`): nine shifted int8·int8 → int32
-products, then a fused epilogue to int8.
+products, then a fused epilogue.
 
 The port's form is batched NHWC: x (N, H, W, Cin) int8, weight
 (Cout, 3, 3, Cin) int8, and `pad` 0 (the Pallas signature's VALID conv over a
-pre-padded input) or 1 (the chain's SAME conv, zero border implied). Two
+pre-padded input) or 1 (the chain's SAME conv, zero border implied). Three
 epilogues:
 
 - ``"f32"``, the Pallas formula: ``h = acc·deq + b`` in float32 (no FMA),
-  PReLU(alpha), ``clip(round(h · (127 / s_out)), ±127)``;
-- ``"bf16"``, the chain's formula: deq, b, alpha in bfloat16 (with 127/s_out
-  folded in), every operation rounded to bfloat16, then round and clip.
+  PReLU(alpha), ``clip(round(h · (127 / s_out)), ±127)``, int8 out;
+- ``"bf16"``, the SRVGG chain's formula: deq, b, alpha in bfloat16 (with
+  127/s_out folded in), every operation rounded to bfloat16, then round and
+  clip, int8 out;
+- ``"bf16_deq"``, the int8 RRDB chain's stage conv
+  (`image_restoration_tpu/ops/rrdb_quant.py:153-169`): bfloat16 out,
+  ``acc.astype(bf16) · deq (+ b)``, each operation rounded to bfloat16; no
+  activation, round or clip. The bias is optional (None).
 
 `alpha=None` means no PReLU (conv_last's int8 sink). Rounding is half to even
-in both. `int8_conv3x3_requant` takes the plain version for CPU tensors and
-launches the hand-written CUDA kernel (`csrc/int8_conv3x3.cu`) for CUDA
+in all three. `int8_conv3x3_requant` takes the plain version for CPU tensors
+and launches the hand-written CUDA kernel (`csrc/int8_conv3x3.cu`) for CUDA
 tensors; it never falls back from one to the other.
 """
 
@@ -30,7 +35,10 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-EPILOGUES = {"f32": (0, torch.float32), "bf16": (1, torch.bfloat16)}
+# epilogue → (kernel mode, type of deq/bias/alpha, output type)
+EPILOGUES = {"f32": (0, torch.float32, torch.int8),
+             "bf16": (1, torch.bfloat16, torch.int8),
+             "bf16_deq": (2, torch.bfloat16, torch.bfloat16)}
 _lib = None
 _lib_lock = threading.Lock()
 _count_lock = threading.Lock()
@@ -58,13 +66,17 @@ def _check(x, weight, deq, bias, alpha, s_out, pad, epilogue):
                          f"{epilogue!r}")
     if epilogue == "f32" and s_out is None:
         raise ValueError("the f32 epilogue needs s_out")
+    if epilogue == "bf16_deq" and alpha is not None:
+        raise ValueError("the bf16_deq epilogue has no activation")
+    if epilogue != "bf16_deq" and bias is None:
+        raise ValueError(f"the {epilogue} epilogue needs a bias")
     if x.shape[1] + 2 * pad < 3 or x.shape[2] + 2 * pad < 3:
         raise ValueError(f"x {tuple(x.shape)} is too small for a 3×3 conv "
                          f"with pad {pad}")
 
 
 def int8_conv3x3_requant_plain(x: torch.Tensor, weight: torch.Tensor,
-                               deq: torch.Tensor, bias: torch.Tensor,
+                               deq: torch.Tensor, bias: torch.Tensor | None,
                                alpha: torch.Tensor | None = None,
                                s_out=None, pad: int = 1,
                                epilogue: str = "bf16") -> torch.Tensor:
@@ -75,6 +87,9 @@ def int8_conv3x3_requant_plain(x: torch.Tensor, weight: torch.Tensor,
     acc = F.conv2d(x.permute(0, 3, 1, 2).double(),
                    weight.permute(0, 3, 1, 2).double(), padding=pad)
     acc = torch.round(acc).permute(0, 2, 3, 1)
+    if epilogue == "bf16_deq":
+        h = acc.float().bfloat16() * deq.bfloat16()
+        return (h if bias is None else h + bias.bfloat16()).contiguous()
     if epilogue == "f32":
         h = acc.float() * deq.float() + bias.float()
         if alpha is not None:
@@ -114,10 +129,11 @@ def _pad_channels(t: torch.Tensor, to: int) -> torch.Tensor:
 
 
 def int8_conv3x3_requant(x: torch.Tensor, weight: torch.Tensor,
-                         deq: torch.Tensor, bias: torch.Tensor,
+                         deq: torch.Tensor, bias: torch.Tensor | None,
                          alpha: torch.Tensor | None = None, s_out=None,
                          pad: int = 1, epilogue: str = "bf16") -> torch.Tensor:
-    """(N, H, W, Cin) int8 → (N, H + 2·pad − 2, W + 2·pad − 2, Cout) int8.
+    """(N, H, W, Cin) int8 → (N, H + 2·pad − 2, W + 2·pad − 2, Cout), int8
+    (bfloat16 for the "bf16_deq" epilogue).
 
     CPU tensors → `int8_conv3x3_requant_plain`. CUDA tensors → kernel K2,
     which needs contiguous x and weight on one device; deq, bias and alpha
@@ -139,25 +155,25 @@ def int8_conv3x3_requant(x: torch.Tensor, weight: torch.Tensor,
     if not (x.is_contiguous() and weight.is_contiguous()):
         raise ValueError("int8_conv3x3_requant kernel needs contiguous NHWC "
                          "x and (Cout, 3, 3, Cin) weight")
-    mode, pdt = EPILOGUES[epilogue]
+    mode, pdt, out_dt = EPILOGUES[epilogue]
     cin = -(-x.shape[3] // 4) * 4
     x = _pad_channels(x, cin)
     weight = _pad_channels(weight, cin)
     if (x.data_ptr() | weight.data_ptr()) % 4:
         raise ValueError("int8_conv3x3_requant kernel needs 4-byte aligned "
                          "x and weight")
-    deq, bias = (p.to(pdt).contiguous() for p in (deq, bias))
-    if alpha is not None:
-        alpha = alpha.to(pdt).contiguous()
+    deq, bias, alpha = (None if p is None else p.to(pdt).contiguous()
+                        for p in (deq, bias, alpha))
     n, h, w, _ = x.shape
     cout = weight.shape[0]
     out = torch.empty((n, h + 2 * pad - 2, w + 2 * pad - 2, cout),
-                      dtype=torch.int8, device=x.device)
+                      dtype=out_dt, device=x.device)
     lib = _kernel_lib()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = lib.int8_conv3x3_requant(
-            x.data_ptr(), weight.data_ptr(), deq.data_ptr(), bias.data_ptr(),
+            x.data_ptr(), weight.data_ptr(), deq.data_ptr(),
+            None if bias is None else bias.data_ptr(),
             None if alpha is None else alpha.data_ptr(),
             1.0 if s_out is None else float(s_out), out.data_ptr(),
             n, h, w, cin, cout, pad, mode, stream)

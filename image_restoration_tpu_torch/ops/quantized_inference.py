@@ -32,7 +32,7 @@ from .pixel_ops import pixel_shuffle
 
 
 @contextlib.contextmanager
-def _no_tf32():
+def no_tf32():
     """float32 convs and matmuls in full float32 on the card."""
     saved = (torch.backends.cudnn.allow_tf32,
              torch.backends.cuda.matmul.allow_tf32)
@@ -53,7 +53,7 @@ def calibrate_srvgg_act_scales(net, x: torch.Tensor) -> torch.Tensor:
     maximum that the int8 sink needs. float32 (TF32 off) on x's device."""
     scales = []
     h = x.float()
-    with _no_tf32():
+    with no_tf32():
         for w, b, a in net.conv_layers():
             scales.append(h.abs().max())
             h = F.conv2d(h.permute(0, 3, 1, 2), w.float(),
@@ -64,7 +64,7 @@ def calibrate_srvgg_act_scales(net, x: torch.Tensor) -> torch.Tensor:
     return torch.stack(scales)
 
 
-def _bf16(a: np.ndarray, pack: int, device) -> torch.Tensor:
+def bf16_vector(a: np.ndarray, pack: int, device) -> torch.Tensor:
     """float32 numpy → bfloat16 (round to nearest even), tiled `pack` times."""
     return torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(
         torch.bfloat16).repeat(pack).to(device)
@@ -96,15 +96,15 @@ def quantize_srvgg_params(net, act_scales: Sequence[float],
         w_q = np.clip(np.round(w / w_scale), -127, 127).astype(np.int8)
         w_q = torch.from_numpy(w_q.transpose(3, 0, 1, 2).copy())  # O,3,3,I
         q[f"w_{name}"] = _block_diag(w_q, pack, in_dim=3).to(device)
-        q[f"deq_{name}"] = _bf16((s_in / 127.0) * w_scale, pack, device)
-        q[f"b_{name}"] = _bf16(bias.detach().float().cpu().numpy(), pack,
+        q[f"deq_{name}"] = bf16_vector((s_in / 127.0) * w_scale, pack, device)
+        q[f"b_{name}"] = bf16_vector(bias.detach().float().cpu().numpy(), pack,
                                device)
 
     for i, (w, b, a) in enumerate(layers[:-1]):
         if a is None:
             raise ValueError("the int8 path needs act_type='prelu'")
         quant_layer(w, b, scales[i], str(i))
-        q[f"a_{i}"] = _bf16(a.detach().float().cpu().numpy(), pack, device)
+        q[f"a_{i}"] = bf16_vector(a.detach().float().cpu().numpy(), pack, device)
         # fold 127/s_out into deq and b: PReLU commutes with a positive scale
         r = 127.0 / scales[i + 1]
         q[f"deq_{i}"] = _times(q[f"deq_{i}"], r)

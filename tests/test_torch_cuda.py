@@ -149,3 +149,112 @@ def test_int8_chain_on_card_matches_cpu(cuda_device, crop_halo):
     torch.cuda.synchronize()
     assert int8_conv3x3_requant.launches == before + num_conv + 2
     assert torch.equal(got.cpu(), want)
+
+
+def _bf16_ulp(v):
+    """One bf16 ulp of each value of v (float32)."""
+    return torch.exp2(torch.floor(torch.log2(v.abs().clamp_min(1e-30))) - 7)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,h,w,cin,cout,bh", [
+    (2, 16, 24, 64, 192, 4),   # a widened stage shape, two images
+    (1, 16, 48, 32, 160, 8),   # Cout 160: one half-empty 64-channel block
+    (1, 13, 37, 24, 36, 1),    # ragged H, W, Cin (padded to 32) and Cout
+])
+def test_conv3x3_im2col_kernel_matches_plain(cuda_device, n, h, w, cin, cout,
+                                             bh):
+    """K3 against its plain version on the card: float32 out within 1e-5 of
+    max|plain| (the same products, summed in another order); bf16 out within
+    one bf16 ulp of the plain value, plus that float32 tolerance where a sum
+    cancels to near zero (its ulp is then below the summation error)."""
+    from image_restoration_tpu_torch.ops.im2col_conv import (
+        conv3x3_im2col, conv3x3_im2col_plain)
+    rng = np.random.default_rng(cin * 100 + cout)
+    x = torch.from_numpy(rng.standard_normal((n, h + 2, w + 2, cin)).astype(
+        np.float32)).to(cuda_device, torch.bfloat16)
+    wt = torch.from_numpy(rng.standard_normal((3, 3, cin, cout)).astype(
+        np.float32) * 0.1).to(cuda_device, torch.bfloat16)
+    for out_dtype in (torch.float32, torch.bfloat16):
+        before = conv3x3_im2col.launches
+        got = conv3x3_im2col(x, wt, bh=bh, out_dtype=out_dtype)
+        torch.cuda.synchronize()
+        assert conv3x3_im2col.launches == before + 1
+        want = conv3x3_im2col_plain(x, wt, bh=bh, out_dtype=out_dtype)
+        assert got.shape == want.shape == (n, h, w, cout)
+        assert got.dtype == out_dtype
+        err = (got.float() - want.float()).abs()
+        tol = 1e-5 * want.abs().max().item()
+        if out_dtype == torch.float32:
+            assert err.max().item() <= tol
+        else:
+            assert bool((err <= _bf16_ulp(want.float()) + tol).all())
+
+
+@pytest.mark.cuda
+def test_conv3x3_im2col_wrapper_rejects_bad_inputs(cuda_device):
+    from image_restoration_tpu_torch.ops.im2col_conv import conv3x3_im2col
+    x = torch.zeros((1, 10, 10, 32), dtype=torch.bfloat16, device=cuda_device)
+    wt = torch.zeros((3, 3, 32, 64), dtype=torch.bfloat16, device=cuda_device)
+    with pytest.raises(TypeError):
+        conv3x3_im2col(x.float(), wt.float())  # the kernel takes bf16 only
+    with pytest.raises(ValueError):
+        conv3x3_im2col(x.transpose(1, 2), wt)  # not contiguous
+    with pytest.raises(ValueError):
+        conv3x3_im2col(x, wt.cpu())
+    with pytest.raises(ValueError):
+        conv3x3_im2col(torch.zeros((1, 10, 10, 144), dtype=torch.bfloat16,
+                                   device=cuda_device),
+                       torch.zeros((3, 3, 144, 8), dtype=torch.bfloat16,
+                                   device=cuda_device))  # Cin > 128
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cin,cout", [(64, 192), (32, 160), (32, 64),
+                                      (10, 36)])
+def test_int8_conv3x3_bf16_deq_matches_plain(cuda_device, cin, cout):
+    """K2's bf16_deq epilogue (the int8 RRDB stage conv) against its plain
+    version on the card, with and without the bias: bit-equal."""
+    from image_restoration_tpu_torch.ops.int8_conv import (
+        int8_conv3x3_requant, int8_conv3x3_requant_plain)
+    rng = np.random.default_rng(cin + cout)
+    x, wt, deq, b, _ = _k2_inputs(rng, 2, 19, 37, cin, cout, "bf16_deq",
+                                  cuda_device)
+    for bias in (b, None):
+        before = int8_conv3x3_requant.launches
+        got = int8_conv3x3_requant(x, wt, deq, bias, epilogue="bf16_deq")
+        torch.cuda.synchronize()
+        assert int8_conv3x3_requant.launches == before + 1
+        want = int8_conv3x3_requant_plain(x, wt, deq, bias,
+                                          epilogue="bf16_deq")
+        assert got.dtype == want.dtype == torch.bfloat16
+        assert got.shape == want.shape == (2, 19, 37, cout)
+        assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_int8_rrdb_forward_on_card(cuda_device):
+    """One int8 RRDB forward at num_block 1 on the card: 15 K2 launches (3
+    dense blocks × 5 stages), and equal bit for bit to the same chain on
+    K2's plain version on the card."""
+    from unittest import mock
+    from image_restoration_tpu_torch.archs import build_network
+    from image_restoration_tpu_torch.ops import int8_conv
+    from image_restoration_tpu_torch.ops import rrdb_quant as rq
+    net = build_network(dict(type="RRDBNet", num_feat=64, num_block=1,
+                             num_grow_ch=32, scale=4),
+                        torch.Generator().manual_seed(2)).to(cuda_device)
+    rng = np.random.default_rng(6)
+    x = torch.from_numpy(rng.random((2, 24, 20, 3)).astype(np.float32)).to(
+        cuda_device)
+    q = rq.quantize_rrdb_params(net, rq.calibrate_rrdb_act_scales(net, x))
+    before = int8_conv.int8_conv3x3_requant.launches
+    got = rq.quantized_rrdb_forward(q, x, 1)
+    torch.cuda.synchronize()
+    assert int8_conv.int8_conv3x3_requant.launches == before + 15
+    with mock.patch.object(rq, "int8_conv3x3_requant",
+                           int8_conv.int8_conv3x3_requant_plain):
+        want = rq.quantized_rrdb_forward(q, x, 1)
+    assert got.shape == (2, 96, 80, 3) and got.dtype == torch.bfloat16
+    assert bool(torch.isfinite(got.float()).all())
+    assert torch.equal(got, want)
