@@ -8,7 +8,8 @@ fails loudly if any phase fails:
 
   1. device: the card's name and power limit (nvidia-smi);
   2. build: every hand-written kernel (K1, K2 and K3), from csrc/, one nvcc
-     per source, all started together, with ptxas's register report.
+     per source, all started together, with ptxas's register report; a
+     register spill fails the run.
 
 Path 1, the restore server: GFPGANv1OCR at PRODUCTION_GFPGAN (256²) behind
 `Restorer.restore_batch_u8` and `/Restore/`, `/RestoreConcat/`:
@@ -31,7 +32,9 @@ int8 PTQ with pack-2 block-diagonal weights, tiles of 512 with a halo of 8,
 
   7. K2 against its plain version at each layer shape of an engine call
      (4 packed images of 528², Cin→Cout 6→128, 128→128, 128→96) in both
-     epilogue modes, plus ragged shapes: integer-exact; device times of the
+     epilogue modes, plus ragged shapes (the served 528 width, H = 1, tiles
+     that cross images, Cout 160/192, sums of 2^22 and more that take the
+     kernel's scalar epilogue): integer-exact; device times of the
      kernel and the plain version, the bound, and two library yardsticks
      (torch._int_mm on the im2col matrix, and the cuDNN bf16 conv of the
      packed bf16 path at the same shape);
@@ -56,8 +59,10 @@ packed, widened and int8 forms, and K3 behind the stage-conv probe:
      and cuDNN's bf16 conv; then `probe_conv.main()`, K3's entry point, with
      the counts set to 0 before it and read after;
  12. K2's "bf16_deq" epilogue against its plain version at the five RRDB
-     stage shapes at 528², one image and the ladder's batch of 4,
-     bit-equal, with device times for one image;
+     stage shapes at 528², one image and the ladder's batch of 4, and at
+     ragged shapes, bit-equal, with device times for one image and
+     torch._int_mm on the im2col matrix (the contraction alone) as the
+     yardstick;
  13. main path: counts set to 0, then `infer.main(["--arch", "rrdbnet",
      "--tile", "512", ...])` on a 1024×768 PNG (4 tiles of 544²) and
      `restore_tiled_u8` on the same image, timed; the card against the CPU
@@ -276,6 +281,9 @@ def phase_build():
             if "spill" in ln or ("ptxas info" in ln
                                  and ("Used" in ln or "Compiling" in ln)):
                 log(f"  {ln.strip()}")
+            require("spill" not in ln
+                    or "0 bytes spill stores, 0 bytes spill loads" in ln,
+                    f"{b.name} spills registers: {ln.strip()}")
     log(f"build total {total:.2f} s")
     return {b.name: b.seconds for b in builds}
 
@@ -597,6 +605,14 @@ def k2_inputs(gen, n, h, w, cin, cout, epilogue, prelu):
     return x, wt, deq, b, (a if prelu else None)
 
 
+def saturate(x, wt):
+    """Sums of 2^22 and more in one corner (Cin >= 32, H and W > 8): the
+    kernel's threads holding them take its scalar epilogue."""
+    if x.shape[1] > 8 and x.shape[2] > 8 and x.shape[3] >= 32:
+        x[:, :5, :6] = 127
+        wt[:min(wt.shape[0], 9)] = 127
+
+
 def im2col(x, cin_to):
     """(N, H, W, C) int8 → (N·H·W, 9·cin_to), taps major, channels minor:
     the A of the SAME conv as one matrix product (the weights' (Cout, 3, 3,
@@ -679,11 +695,16 @@ def phase_k2_kernels():
             torch.cuda.empty_cache()
     for n_, h, w, cin, cout, pad in [(3, 37, 45, 10, 24, 1),
                                      (3, 37, 45, 10, 24, 0),
-                                     (1, 5, 3, 6, 128, 1)]:
+                                     (1, 5, 3, 6, 128, 1),
+                                     (2, 25, 528, 6, 96, 1),
+                                     (1, 1, 40, 64, 192, 1),
+                                     (3, 64, 136, 32, 160, 1),
+                                     (1, 9, 30, 128, 192, 1)]:
         for epilogue in ("bf16", "f32"):
             for prelu in (True, False):
                 x, wt, deq, b, a = k2_inputs(gen, n_, h, w, cin, cout,
                                              epilogue, prelu)
+                saturate(x, wt)
                 got = int8_conv3x3_requant(x, wt, deq, b, a, 64.0, pad=pad,
                                            epilogue=epilogue)
                 want = int8_conv3x3_requant_plain(x, wt, deq, b, a, 64.0,
@@ -692,8 +713,10 @@ def phase_k2_kernels():
                 require(torch.equal(got, want),
                         f"K2 ragged {(n_, h, w, cin, cout, pad)} {epilogue} "
                         f"prelu={prelu}")
-    log("K2 ragged shapes (odd H and W, Cin 10 and 6, pad 0 and 1, with and "
-        "without PReLU, both epilogues): integer-exact")
+    log("K2 ragged shapes (odd H and W, 528 wide, H 1, 176 and 144 tiles, "
+        "Cin 6/10/32/64/128, Cout 24/96/128/160/192, sums >= 2^22 in a "
+        "corner, pad 0 and 1, with and without PReLU, both epilogues): "
+        "integer-exact")
     per_call = {k: sum(r[k] * r["per_call"] for r in rows
                        if r["epilogue"] == "bf16")
                 for k in ("ms", "plain_ms", "bound_ms", "int_mm_ms",
@@ -1084,7 +1107,9 @@ def phase_k3_kernels():
 def phase_k2_deq():
     """K2's bf16_deq epilogue against its plain version at the five RRDB
     stage shapes at 528² (SAME padding), for one image and for the ladder's
-    batch of 4: bit-equal; times for one image."""
+    batch of 4, and at ragged shapes: bit-equal; times for one image, with
+    torch._int_mm on the im2col matrix as the yardstick."""
+    import torch.nn.functional as F
     from image_restoration_tpu_torch.ops.int8_conv import (
         int8_conv3x3_requant, int8_conv3x3_requant_plain)
     gen = torch.Generator(device="cuda").manual_seed(4)
@@ -1105,22 +1130,55 @@ def phase_k2_deq():
             del got, want
         ops = 2 * s * s * cout * 9 * cin
         nbytes = s * s * (cin + 2 * cout) + cout * 9 * cin
+        t_ops, t_bytes = ops / INT8_OPS_PER_S, nbytes / HBM_BYTES_PER_S
         row = dict(Cin=cin, Cout=cout, bias=bias is not None,
-                   bound_ms=max(ops / INT8_OPS_PER_S,
-                                nbytes / HBM_BYTES_PER_S) * 1e3,
+                   bound_ms=max(t_ops, t_bytes) * 1e3,
+                   bound_by="operations" if t_ops >= t_bytes else "bytes",
                    ms=device_time_ms(lambda t: int8_conv3x3_requant(
                        t, wt, deq, bias, epilogue="bf16_deq"), [(x,)], 20),
                    plain_ms=device_time_ms(
                        lambda t: int8_conv3x3_requant_plain(
                            t, wt, deq, bias, epilogue="bf16_deq"),
                        [(x,)], 3))
+        # the yardstick: the contraction alone as one int8 matrix product
+        a_mat = im2col(x, cin)
+        b_mat = wt.reshape(cout, 9 * cin).t()
+        acc = torch._int_mm(a_mat, b_mat)
+        ref = F.conv2d(x.permute(0, 3, 1, 2).double(),
+                       wt.permute(0, 3, 1, 2).double(), padding=1)
+        require(torch.equal(acc.double(), ref.permute(0, 2, 3, 1)
+                            .reshape(-1, cout)),
+                f"_int_mm yardstick differs from the conv ({cin}->{cout})")
+        del acc, ref
+        row["int_mm_ms"] = device_time_ms(
+            lambda t: torch._int_mm(t, b_mat), [(a_mat,)], 20)
+        del a_mat
         rows.append(row)
         log(f"K2 bf16_deq {cin:3d}->{cout:3d} {s}²  ms={row['ms']:.4f}  "
             f"plain_ms={row['plain_ms']:.4f}  bound_ms={row['bound_ms']:.5f}"
-            "  bit-equal at N=1 and N=4")
+            f" ({row['bound_by']})  int_mm_ms={row['int_mm_ms']:.4f}  "
+            "bit-equal at N=1 and N=4")
         del x
+    for n, h, w, cin, cout in [(2, 25, 528, 32, 160), (1, 1, 528, 64, 192),
+                               (3, 64, 136, 32, 128), (1, 9, 30, 128, 192),
+                               (2, 19, 37, 10, 36)]:
+        x, wt, deq, b, _ = k2_inputs(gen, n, h, w, cin, cout, "bf16_deq",
+                                     False)
+        saturate(x, wt)
+        for bias in (b, None):
+            got = int8_conv3x3_requant(x, wt, deq, bias, epilogue="bf16_deq")
+            want = int8_conv3x3_requant_plain(x, wt, deq, bias,
+                                              epilogue="bf16_deq")
+            torch.cuda.synchronize()
+            require(torch.equal(got.view(torch.int16),
+                                want.view(torch.int16)),
+                    f"K2 bf16_deq ragged {(n, h, w, cin, cout)} "
+                    f"bias={bias is not None}")
+    log("K2 bf16_deq ragged shapes (528 wide with H 25 and 1, W 136 and 37, "
+        "Cin 10/32/64/128, Cout 36/128/160/192, sums >= 2^22 in a corner, "
+        "with and without bias): bit-equal, signed zeros included")
     per_fwd = {k: 3 * 23 * sum(r[k] for r in rows)
-               for k in ("ms", "plain_ms", "bound_ms")}
+               for k in ("ms", "plain_ms", "bound_ms", "int_mm_ms")}
     log("K2 bf16_deq per RRDBNet-23 forward of one 528² tile (345 launches): "
         + "  ".join(f"{k}={v:.3f}" for k, v in per_fwd.items()))
     torch.cuda.empty_cache()
@@ -1487,7 +1545,9 @@ def main(argv=None):
              "one SR engine call (bf16 epilogue), and over K3's five "
              "launches of one pass over the widened stage shapes at 528² "
              "(bf16 out); K2's library_ms is torch._int_mm on the im2col "
-             "matrix, the contraction alone; K3's is cuDNN's bf16 conv; "
+             "matrix, the contraction alone (k2_bf16_deq_per_rrdb23_forward"
+             " has the same yardstick for the RRDB half); K3's is cuDNN's "
+             "bf16 conv; "
              "K3's launches are those of probe_conv.main()")
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)

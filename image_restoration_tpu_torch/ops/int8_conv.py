@@ -39,6 +39,10 @@ import torch.nn.functional as F
 EPILOGUES = {"f32": (0, torch.float32, torch.int8),
              "bf16": (1, torch.bfloat16, torch.int8),
              "bf16_deq": (2, torch.bfloat16, torch.bfloat16)}
+# the kernel's K step is 32 channels of one tap, and a block keeps all
+# 9·Cin rows of its weight slice in shared memory (csrc/int8_conv3x3.cu)
+CIN_MULTIPLE = 32
+MAX_CIN = 192
 _lib = None
 _lib_lock = threading.Lock()
 _count_lock = threading.Lock()
@@ -87,6 +91,13 @@ def int8_conv3x3_requant_plain(x: torch.Tensor, weight: torch.Tensor,
     acc = F.conv2d(x.permute(0, 3, 1, 2).double(),
                    weight.permute(0, 3, 1, 2).double(), padding=pad)
     acc = torch.round(acc).permute(0, 2, 3, 1)
+    return requant_epilogue(acc, deq, bias, alpha, s_out, epilogue)
+
+
+def requant_epilogue(acc: torch.Tensor, deq: torch.Tensor,
+                     bias: torch.Tensor | None, alpha: torch.Tensor | None,
+                     s_out, epilogue: str) -> torch.Tensor:
+    """K2's epilogue on integer sums `acc` (..., Cout), op by op."""
     if epilogue == "bf16_deq":
         h = acc.float().bfloat16() * deq.bfloat16()
         return (h if bias is None else h + bias.bfloat16()).contiguous()
@@ -138,8 +149,9 @@ def int8_conv3x3_requant(x: torch.Tensor, weight: torch.Tensor,
     CPU tensors → `int8_conv3x3_requant_plain`. CUDA tensors → kernel K2,
     which needs contiguous x and weight on one device; deq, bias and alpha
     are cast to the epilogue's type (float32 or bfloat16). Cin is padded to
-    a multiple of 4 with zero channels and zero weights. Anything else
-    raises. `int8_conv3x3_requant.launches` counts the kernel's launches.
+    a multiple of 32 with zero channels and zero weights, and may be at most
+    192 after that. Anything else raises. `int8_conv3x3_requant.launches`
+    counts the kernel's launches.
     """
     if x.device.type == "cpu":
         return int8_conv3x3_requant_plain(x, weight, deq, bias, alpha, s_out,
@@ -156,11 +168,14 @@ def int8_conv3x3_requant(x: torch.Tensor, weight: torch.Tensor,
         raise ValueError("int8_conv3x3_requant kernel needs contiguous NHWC "
                          "x and (Cout, 3, 3, Cin) weight")
     mode, pdt, out_dt = EPILOGUES[epilogue]
-    cin = -(-x.shape[3] // 4) * 4
+    cin = -(-x.shape[3] // CIN_MULTIPLE) * CIN_MULTIPLE
+    if cin > MAX_CIN:
+        raise ValueError(f"int8_conv3x3_requant kernel takes at most "
+                         f"{MAX_CIN} input channels, got {x.shape[3]}")
     x = _pad_channels(x, cin)
     weight = _pad_channels(weight, cin)
-    if (x.data_ptr() | weight.data_ptr()) % 4:
-        raise ValueError("int8_conv3x3_requant kernel needs 4-byte aligned "
+    if (x.data_ptr() | weight.data_ptr()) % 16:
+        raise ValueError("int8_conv3x3_requant kernel needs 16-byte aligned "
                          "x and weight")
     deq, bias, alpha = (None if p is None else p.to(pdt).contiguous()
                         for p in (deq, bias, alpha))

@@ -62,10 +62,15 @@ def test_fused_bias_lrelu_wrapper_rejects_bad_inputs(cuda_device):
 def _k2_inputs(rng, n, h, w, cin, cout, epilogue, device):
     from image_restoration_tpu_torch.ops.int8_conv import EPILOGUES
     pdt = EPILOGUES[epilogue][1]
-    x = torch.from_numpy(rng.integers(-127, 128, (n, h, w, cin)).astype(
-        np.int8)).to(device)
-    wt = torch.from_numpy(rng.integers(-127, 128, (cout, 3, 3, cin)).astype(
-        np.int8)).to(device)
+    x = rng.integers(-127, 128, (n, h, w, cin)).astype(np.int8)
+    wt = rng.integers(-127, 128, (cout, 3, 3, cin)).astype(np.int8)
+    if h > 8 and w > 8 and cin >= 32:
+        # sums of 2^22 and more in one corner: the threads holding them take
+        # the kernel's scalar epilogue, the others its fast one
+        x[:, :5, :6] = 127
+        wt[:min(cout, 9)] = 127
+    x = torch.from_numpy(x).to(device)
+    wt = torch.from_numpy(wt).to(device)
     # acc has a spread of about sqrt(9·Cin)·127²/3: |acc·deq| reaches ~100,
     # so the bf16 epilogue (and f32 at s_out 64) both clip some values
     scale = 100.0 / (np.sqrt(9 * cin) * 127 ** 2 / 3)
@@ -83,6 +88,10 @@ def _k2_inputs(rng, n, h, w, cin, cout, epilogue, device):
     (1, 12, 70, 128, 96, 1),   # conv_last (two out-channel blocks, 64 + 32)
     (3, 17, 19, 10, 24, 0),    # VALID over a pre-padded input; Cout % 8 != 0
     (1, 5, 3, 4, 3, 1),        # one block, scalar stores
+    (2, 25, 528, 6, 96, 1),    # served width; 176 tiles: blocks walk across images
+    (1, 1, 40, 64, 192, 1),    # H = 1
+    (3, 64, 136, 32, 160, 1),  # W not a multiple of 24; 144 tiles
+    (1, 9, 30, 128, 192, 1),   # Cin 128, Cout 192: two 128-channel blocks
 ])
 def test_int8_conv3x3_kernel_matches_plain(cuda_device, epilogue, n, h, w,
                                            cin, cout, pad):
@@ -121,6 +130,16 @@ def test_int8_conv3x3_wrapper_rejects_bad_inputs(cuda_device):
         int8_conv3x3_requant(x, wt, p, p.cpu())
     with pytest.raises(ValueError):
         int8_conv3x3_requant(x, wt, p, p, epilogue="f32")  # no s_out
+    with pytest.raises(ValueError):  # Cin above the kernel's 192
+        int8_conv3x3_requant(
+            torch.zeros((1, 8, 8, 200), dtype=torch.int8, device=cuda_device),
+            torch.zeros((16, 3, 3, 200), dtype=torch.int8, device=cuda_device),
+            p, p)
+    flat = torch.zeros(8 * 8 * 32 + 1, dtype=torch.int8, device=cuda_device)
+    with pytest.raises(ValueError):  # x not 16-byte aligned (Cin 32: no pad copy)
+        int8_conv3x3_requant(flat[1:].view(1, 8, 8, 32),
+                             torch.zeros((16, 3, 3, 32), dtype=torch.int8,
+                                         device=cuda_device), p, p)
 
 
 @pytest.mark.cuda
@@ -210,15 +229,22 @@ def test_conv3x3_im2col_wrapper_rejects_bad_inputs(cuda_device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("cin,cout", [(64, 192), (32, 160), (32, 64),
-                                      (10, 36)])
-def test_int8_conv3x3_bf16_deq_matches_plain(cuda_device, cin, cout):
+@pytest.mark.parametrize("n,h,w,cin,cout", [
+    (2, 19, 37, 64, 192), (2, 19, 37, 32, 160), (2, 19, 37, 32, 64),
+    (2, 19, 37, 10, 36),
+    (1, 1, 528, 64, 192),    # H = 1 at the served width
+    (2, 25, 528, 32, 160),   # 176 tiles: blocks walk across images
+    (3, 64, 136, 32, 128),   # W not a multiple of 24; 144 tiles
+    (1, 9, 30, 128, 192),    # Cin 128: shared memory holds 64 channels a block
+])
+def test_int8_conv3x3_bf16_deq_matches_plain(cuda_device, n, h, w, cin, cout):
     """K2's bf16_deq epilogue (the int8 RRDB stage conv) against its plain
-    version on the card, with and without the bias: bit-equal."""
+    version on the card, with and without the bias: bit-equal, signed zeros
+    included."""
     from image_restoration_tpu_torch.ops.int8_conv import (
         int8_conv3x3_requant, int8_conv3x3_requant_plain)
-    rng = np.random.default_rng(cin + cout)
-    x, wt, deq, b, _ = _k2_inputs(rng, 2, 19, 37, cin, cout, "bf16_deq",
+    rng = np.random.default_rng(cin + cout + w)
+    x, wt, deq, b, _ = _k2_inputs(rng, n, h, w, cin, cout, "bf16_deq",
                                   cuda_device)
     for bias in (b, None):
         before = int8_conv3x3_requant.launches
@@ -228,8 +254,8 @@ def test_int8_conv3x3_bf16_deq_matches_plain(cuda_device, cin, cout):
         want = int8_conv3x3_requant_plain(x, wt, deq, bias,
                                           epilogue="bf16_deq")
         assert got.dtype == want.dtype == torch.bfloat16
-        assert got.shape == want.shape == (2, 19, 37, cout)
-        assert torch.equal(got, want)
+        assert got.shape == want.shape == (n, h, w, cout)
+        assert torch.equal(got.view(torch.int16), want.view(torch.int16))
 
 
 @pytest.mark.cuda

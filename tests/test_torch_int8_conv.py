@@ -146,6 +146,187 @@ def test_wrapper_dispatch_and_checks(rng):
         int8_conv3x3_requant(x, wt, p, p, epilogue="f32")  # no s_out
 
 
+# ------------------------------------- K2's tiled walk, emulated on the CPU
+#
+# csrc/int8_conv3x3.cu as blocks of PyTorch: the wrapper pads Cin to 32; a
+# block holds NT output channels (Cout rounded up to 64, at most 192, less
+# while shared memory does not hold them); tiles of 8 × 24 output pixels in
+# persistent order (block b takes tiles b, b + G, …; co-block outermost, then
+# image, tile row, tile column); three warpgroups each own an 8 × 8 part and
+# gather its 10 × 10 slab with the halo, zero outside the image; K runs over
+# the 9 taps and, within a tap, 32-channel chunks; the epilogue takes the
+# fast path for a thread whose sums all lie in [-2^22, 2^22) and the scalar
+# path otherwise; H, W and Cout are masked at the store.
+
+K2_TH, K2_PART_W, K2_WGS, K2_MAX_NT = 8, 8, 3, 192
+K2_MAX_SMEM = 232448
+
+
+def _k2_smem(nt, cin, epilogue):
+    esize = 2 if epilogue == "bf16_deq" else 1
+    return (9 * cin * nt + K2_WGS * cin * (K2_TH + 2) * (K2_PART_W + 2)
+            + K2_WGS * K2_TH * K2_PART_W * (nt * esize + 16) + 3 * nt * 4
+            + 3 * nt // 2 * 4)
+
+
+def _k2_nt(cin, cout, epilogue):
+    nt = min(-(-cout // 64) * 64, K2_MAX_NT)
+    while nt > 64 and _k2_smem(nt, cin, epilogue) > K2_MAX_SMEM:
+        nt -= 64
+    return nt
+
+
+def _bf16_round(x):
+    """float64 → the nearest bf16 value (half to even), rounded once."""
+    _, e = torch.frexp(x)  # x = m·2^e, 0.5 <= |m| < 1: 8 significant bits
+    ulp = torch.exp2(e.double() - 8)
+    return torch.where(x == 0, x, torch.round(x / ulp) * ulp)
+
+
+def _k2_fast_epilogue(acc, deq, bias, alpha, s_out, epilogue):
+    """The kernel's fast epilogue, operation by operation: acc exact in f32,
+    bf16 products and sums rounded once, PReLU as min(h, 0)·a + max(h, 0)
+    rounded once, the clip before round half to even. A missing bias is -0
+    and a missing alpha 1."""
+    cout = acc.shape[-1]
+    f = acc.float()
+    if epilogue == "f32":
+        b = bias.float()
+        a = torch.ones(cout) if alpha is None else alpha.float()
+        h = f * deq.float() + b
+        h = torch.where(h >= 0, h, h * a)
+        ratio = float(np.float32(127.0) / np.float32(s_out))
+        return torch.round(torch.clamp(h * ratio, -127, 127)).to(torch.int8)
+    b = (torch.full((cout,), -0.0) if bias is None else bias.float()).double()
+    h = f.bfloat16().double() * deq.bfloat16().double()  # exact
+    h = _bf16_round(_bf16_round(h) + b)
+    if epilogue == "bf16_deq":
+        return h.bfloat16()
+    a = torch.ones(cout, dtype=torch.float64) if alpha is None else \
+        alpha.bfloat16().double()
+    h = _bf16_round(torch.clamp(h, max=0) * a + torch.clamp(h, min=0))
+    return torch.round(torch.clamp(h, -127, 127)).to(torch.int8)
+
+
+def _k2_walk(x, weight, deq, bias, alpha, s_out, pad, epilogue, grid):
+    """K2's walk over x (N, H, W, Cin) for a persistent grid of `grid`
+    blocks; its output must equal int8_conv3x3_requant_plain's."""
+    from image_restoration_tpu_torch.ops.int8_conv import (
+        CIN_MULTIPLE, EPILOGUES, requant_epilogue)
+    n, hin, win, _ = x.shape
+    cout = weight.shape[0]
+    cin = -(-x.shape[3] // CIN_MULTIPLE) * CIN_MULTIPLE
+    xp = torch.nn.functional.pad(x, (0, cin - x.shape[3])).double()
+    wp = torch.nn.functional.pad(weight, (0, cin - weight.shape[3])).double()
+    hout, wout = hin + 2 * pad - 2, win + 2 * pad - 2
+    nt = _k2_nt(cin, cout, epilogue)
+    tw = K2_WGS * K2_PART_W
+    tiles_x, tiles_y = -(-wout // tw), -(-hout // K2_TH)
+    tiles_co = n * tiles_y * tiles_x
+    num_tiles = tiles_co * -(-cout // nt)
+    out = torch.full((n, hout, wout, cout), 99, dtype=EPILOGUES[epilogue][2])
+    # thread of each (pixel, channel) of a part: warp rows 2·wq, 2·wq + 1,
+    # lane column g, lane channel pair q
+    pix = torch.arange(K2_TH * K2_PART_W)[:, None]
+    ch = torch.arange(nt)[None, :]
+    thread = ((pix // K2_PART_W) // 2 * 32 + pix % K2_PART_W * 4
+              + ch % 8 // 2).expand(-1, nt)
+    for b in range(min(grid, num_tiles)):
+        for t in range(b, num_tiles, grid):
+            co, r = divmod(t, tiles_co)
+            img, r = divmod(r, tiles_y * tiles_x)
+            ty, tx = divmod(r, tiles_x)
+            co0 = co * nt
+            w_blk = torch.zeros(nt, 9, cin, dtype=torch.float64)
+            w_blk[:min(nt, cout - co0)] = wp[co0:co0 + nt].reshape(-1, 9, cin)
+            for wg in range(K2_WGS):
+                y0, x0 = ty * K2_TH, tx * tw + wg * K2_PART_W
+                slab = torch.zeros(K2_TH + 2, K2_PART_W + 2, cin,
+                                   dtype=torch.float64)
+                for i in range(K2_TH + 2):
+                    for j in range(K2_PART_W + 2):
+                        iy, ix = y0 - pad + i, x0 - pad + j
+                        if 0 <= iy < hin and 0 <= ix < win:
+                            slab[i, j] = xp[img, iy, ix]
+                acc = torch.zeros(K2_TH * K2_PART_W, nt, dtype=torch.float64)
+                for tap in range(9):
+                    dy, dx = divmod(tap, 3)
+                    a_tap = slab[dy:dy + K2_TH, dx:dx + K2_PART_W].reshape(
+                        -1, cin)
+                    for c in range(0, cin, 32):
+                        acc += a_tap[:, c:c + 32] @ w_blk[:, tap, c:c + 32].t()
+                acc = acc.to(torch.int64)
+                keep = min(nt, cout - co0)
+                par = [None if p is None else torch.cat(
+                    [p[co0:co0 + keep], torch.zeros(nt - keep, dtype=p.dtype)])
+                       for p in (deq, bias, alpha)]
+                small = ((acc >= -2 ** 22) & (acc < 2 ** 22)).long()
+                fast_thread = torch.ones(128, dtype=torch.long).scatter_reduce(
+                    0, thread.reshape(-1), small.reshape(-1), "amin")
+                fast = fast_thread[thread].bool()
+                res = torch.where(
+                    fast, _k2_fast_epilogue(acc, *par, s_out, epilogue),
+                    requant_epilogue(acc, *par, s_out, epilogue))
+                rows = min(K2_TH, hout - y0)
+                cols = min(K2_PART_W, wout - x0)
+                if rows <= 0 or cols <= 0:
+                    continue
+                res = res.reshape(K2_TH, K2_PART_W, nt)
+                out[img, y0:y0 + rows, x0:x0 + cols, co0:co0 + keep] = \
+                    res[:rows, :cols, :keep]
+    return out
+
+
+def _k2_case_inputs(rng, n, h, w, cin, cout, epilogue, prelu, with_bias,
+                    saturate):
+    """int8 x and weights; deq spreads |acc·deq| to about 100 and the bias
+    spans ten decades, so bf16 sums meet operands of very different size."""
+    pdt = torch.float32 if epilogue == "f32" else torch.bfloat16
+    x = _i8(rng, (n, h, w, cin))
+    wt = _i8(rng, (cout, 3, 3, cin))
+    if saturate:  # sums ≥ 2^22 in one corner: those threads take the scalar path
+        x[:, :5, :6] = 127
+        wt[:min(cout, 9)] = 127
+    scale = 100.0 / (np.sqrt(9 * cin) * 127 ** 2 / 3)
+    deq = torch.from_numpy(rng.random(cout) * scale).to(pdt)
+    b = torch.from_numpy(rng.standard_normal(cout)
+                         * 10.0 ** rng.uniform(-6, 4, cout)).to(pdt)
+    a = torch.from_numpy(rng.random(cout)).to(pdt)
+    return (_t(x), _t(wt), deq, b if with_bias else None,
+            a if prelu else None)
+
+
+@pytest.mark.parametrize("n,h,w,cin,cout,pad,epilogue,grid,saturate", [
+    (1, 3, 528, 6, 96, 1, "bf16", 132, False),       # a served row, body_0's Cin
+    (1, 2, 528, 6, 160, 1, "bf16_deq", 132, False),
+    (1, 2, 528, 6, 192, 1, "f32", 132, False),
+    (2, 11, 30, 10, 24, 1, "bf16", 3, True),         # ragged, tiles straddle images
+    (3, 9, 27, 4, 3, 0, "f32", 2, True),             # VALID over a pre-padded input
+    (2, 10, 26, 24, 36, 0, "bf16_deq", 5, True),
+    (1, 1, 40, 64, 192, 1, "bf16_deq", 132, False),  # H = 1, one 192-channel block
+    (1, 9, 30, 160, 200, 1, "bf16", 4, True),        # Cin 160, two co-blocks
+    (1, 6, 17, 192, 70, 1, "bf16_deq", 7, False),    # Cin 192: smem allows NT 64
+])
+def test_k2_tiled_walk_matches_plain(rng, n, h, w, cin, cout, pad, epilogue,
+                                     grid, saturate):
+    """K2's walk (tiles, persistent order, slab gather, Cin padding, k32
+    chunks per tap, fast and scalar epilogues, masking) equals the plain
+    version bit for bit, with and without bias and PReLU."""
+    variants = ([(False, True), (False, False)] if epilogue == "bf16_deq"
+                else [(True, True), (False, True)])  # (PReLU, bias)
+    for prelu, with_bias in variants:
+        x, wt, deq, b, a = _k2_case_inputs(rng, n, h, w, cin, cout, epilogue,
+                                           prelu, with_bias, saturate)
+        got = _k2_walk(x, wt, deq, b, a, 64.0, pad, epilogue, grid)
+        want = int8_conv3x3_requant_plain(x, wt, deq, b, a, 64.0, pad=pad,
+                                          epilogue=epilogue)
+        assert got.shape == want.shape
+        if epilogue == "bf16_deq":  # bit patterns, signed zeros included
+            assert torch.equal(got.view(torch.int16), want.view(torch.int16))
+        else:
+            assert torch.equal(got, want)
+
+
 # ----------------------------------------------------------- the int8 chain
 
 def _nets(rng, num_feat, num_conv, upscale):
