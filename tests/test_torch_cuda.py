@@ -178,8 +178,13 @@ def _bf16_ulp(v):
 @pytest.mark.cuda
 @pytest.mark.parametrize("n,h,w,cin,cout,bh", [
     (2, 16, 24, 64, 192, 4),   # a widened stage shape, two images
-    (1, 16, 48, 32, 160, 8),   # Cout 160: one half-empty 64-channel block
+    (1, 16, 48, 32, 160, 8),   # Cout 160: one slice of NT = 160
     (1, 13, 37, 24, 36, 1),    # ragged H, W, Cin (padded to 32) and Cout
+    (2, 40, 528, 64, 192, 8),  # two slices of 96; 220 tiles: blocks walk across images
+    (3, 64, 136, 32, 160, 8),  # W not a multiple of 24; 144 tiles over 132 blocks
+    (1, 1, 528, 32, 160, 1),   # H = 1 at the probe's width
+    (1, 9, 30, 128, 192, 1),   # Cin 128: six slices of 32
+    (2, 9, 30, 10, 3, 1),      # Cin 10 (padded to 16), odd Cout: scalar stores
 ])
 def test_conv3x3_im2col_kernel_matches_plain(cuda_device, n, h, w, cin, cout,
                                              bh):
