@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py [--out report.json]
 
-Drives the port's two main paths with random weights made from a seed, and
+Drives the port's four main paths with random weights made from a seed, and
 fails loudly if any phase fails:
 
   1. device: the card's name and power limit (nvidia-smi);
@@ -74,6 +74,25 @@ packed, widened and int8 forms, and K3 behind the stage-conv probe:
  15. the int8 chain at 2 blocks: on K2 against K2's plain version at 528²
      (every stage input equal, output bit-equal), and against the float32
      forward at 256² (≥30 dB); the 23-block PSNR is printed.
+
+Path 4, the product pipeline: `PlatePipeline` at its defaults (RetinaFace
+Resnet18 at 224², two Restorer(PRODUCTION_GFPGAN) at 256²) behind
+`process`, `process_batch` and `/Vehicle_Resolution_GFPGAN/`:
+
+ 16. the detector: Resnet18 at 224² on the card against the CPU (TF32 off;
+     raw outputs within 1e-3·max(1, max|CPU|), NMS order, keep and valid
+     equal in the kept 20), the other three backbones at batch 8 (also
+     against the CPU), ms per detect call at batch 1 and 8 and NMS's share;
+ 17. main path: counts set to 0, then `process` on a 640×480 photo and
+     `process_batch` on 16 in chunks of 8, on the host and the device
+     geometry path, and one POST; K1 must launch 39 times per GFPGAN
+     forward (two per image or chunk), K2 and K3 never;
+ 18. correctness (TF32 off, the quad pinned): device geometry against host
+     geometry on the card (the thresholds of tests/test_serve.py), and the
+     card against the CPU on each path (≤4 LSB max, ≤0.05 mean);
+ 19. throughput: images/s of `process_batch` in chunks of 8 on each
+     geometry path, the "auto" choice, ms per request and its PNG encode,
+     peak memory, and a profile of one chunk on each path.
 
 The last line of stdout is {"ok": true, "device": {...}}; the line before it
 lists the kernels as JSON. Without a GPU, or without the port beside this
@@ -1461,6 +1480,393 @@ def phase_rrdb_int8_check(net23, q23):
     return res
 
 
+# ------------------------------------------- path 4: the product pipeline
+
+PIPE_TARGET = 256
+DET_SIZE = 224
+DET_TOL = 1e-3              # card vs CPU, × max(1, max|CPU|)
+# a plate-like quad on the 256² canvas, [p1, p2, p5, p4] (TL, TR, BR, BL)
+PINNED_QUAD = np.array([[40, 88], [208, 72], [216, 176], [32, 188]],
+                       np.int32)
+PIPE_CHUNK = 8
+PIPE_BATCH = 16
+
+
+def car_photo(seed, h=480, w=640):
+    """A synthetic 640×480 BGR uint8 car photo (scene_image: a street-like
+    scene with a licence plate)."""
+    return np.ascontiguousarray(scene_image(h, w, seed)[..., ::-1])
+
+
+@torch.no_grad()
+def calibrate_detector(det, seed):
+    """Random conv weights leave BatchNorm at identity statistics, and the
+    0–255 input then saturates the class softmax (hundreds of scores equal
+    1.0, ties everywhere). Set each BatchNorm's running statistics to those
+    of its own input on two synthetic scenes, in one pass in layer order, as
+    a trained detector's would be: the scores spread out."""
+    import cv2
+    s = det.image_size
+    cal = np.stack([cv2.resize(car_photo(seed + i), (s, s))
+                    for i in range(2)]).astype(np.float32)
+
+    def hook(m, inp):
+        v = inp[0].float()
+        m.running_mean.copy_(v.mean((0, 2, 3)))
+        m.running_var.copy_(v.var((0, 2, 3), unbiased=False))
+
+    hooks = [m.register_forward_pre_hook(hook) for m in det.net.modules()
+             if isinstance(m, torch.nn.BatchNorm2d)]
+    try:
+        det.net(torch.from_numpy(cal).to(det.device) - det._mean)
+    finally:
+        for h in hooks:
+            h.remove()
+
+
+def build_detector(backbone, device, seed=0, like=None):
+    """PlateDetector(backbone) at 224² with calibrated statistics, or with
+    `like`'s weights."""
+    from image_restoration_tpu_torch.detect.engine import PlateDetector
+    det = PlateDetector(backbone=backbone, image_size=DET_SIZE,
+                        device=device, seed=seed)
+    if like is None:
+        calibrate_detector(det, seed=60)
+    else:
+        det.net.load_state_dict(like.net.state_dict())
+    return det
+
+
+def phase_detector():
+    """Resnet18 at 224² on the card against the CPU (TF32 off): raw outputs
+    within 1e-3·max(1, max|CPU|), then the NMS order and the kept entries
+    of the detector's output. The other three backbones once at batch 8,
+    also held against the CPU. ms per detect call at batch 1 and 8, and
+    NMS's share of it."""
+    import cv2
+    from image_restoration_tpu_torch.detect.box_utils import decode, nms
+    res = {}
+    imgs = np.stack([cv2.resize(car_photo(70 + i), (DET_SIZE, DET_SIZE))
+                     for i in range(8)]).astype(np.float32)
+    tf32 = (torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        for bb in ("Resnet18", "Resnet50", "mobilenet0.25", "MobilenetV3"):
+            gpu = build_detector(bb, "cuda")
+            cpu = build_detector(bb, "cpu", like=gpu)
+            n = 2 if bb == "Resnet18" else 8
+            x = torch.from_numpy(imgs[:n])
+            with torch.no_grad():
+                want = cpu.net(x - cpu._mean)
+                got = gpu.net(x.cuda() - gpu._mean)
+            errs = []
+            for name, w, g in zip(("loc", "conf", "landm"), want, got):
+                require(bool(torch.isfinite(g).all()), f"{bb} {name} finite")
+                err = (g.cpu() - w).abs().max().item()
+                lim = DET_TOL * max(1.0, w.abs().max().item())
+                require(err <= lim, f"{bb} {name}: card vs CPU {err} > {lim}")
+                errs.append(err)
+            log(f"detector {bb} bs={n} card vs CPU (TF32 off): max|d| "
+                f"loc/conf/landm {errs[0]:.3g}/{errs[1]:.3g}/{errs[2]:.3g}")
+            res[f"{bb}_card_vs_cpu"] = errs
+            if bb != "Resnet18":
+                out = gpu(imgs)
+                require(out[0].shape == (8, 20, 4) and out[3].shape == (8, 20),
+                        f"{bb} detect: {out[0].shape}")
+                res[f"{bb}_ms_bs8"] = median_ms(
+                    lambda: gpu.detect(torch.from_numpy(imgs).cuda()), 10)[0]
+                log(f"detector {bb} bs=8: {res[f'{bb}_ms_bs8']:.3f} ms per "
+                    "detect call")
+                continue
+            orders = []
+            for det, (loc, conf, _) in ((cpu, want), (gpu, got)):
+                boxes = decode(loc, det.priors, det.cfg["variance"])
+                orders.append(nms(boxes, conf[..., 1], det.iou_threshold,
+                                  det.top_k, det.score_threshold))
+            k = gpu.keep_top_k
+            (_, _, keep_c, order_c), (_, _, keep_g, order_g) = orders
+            require(torch.equal(order_g.cpu()[:, :k], order_c[:, :k]),
+                    "Resnet18 NMS order: card vs CPU")
+            require(torch.equal(keep_g.cpu()[:, :k], keep_c[:, :k]),
+                    "Resnet18 NMS keep: card vs CPU")
+            same = (order_g.cpu() == order_c).float().mean().item()
+            outs_c, outs_g = cpu(imgs[:2]), gpu(imgs[:2])
+            require(np.array_equal(outs_c[3], outs_g[3]), "valid differs")
+            for name, c, g in zip(("boxes", "scores", "landms"), outs_c,
+                                  outs_g):
+                err = float(np.abs(c - g).max())
+                require(err <= DET_TOL, f"detector {name}: {err}")
+            log(f"detector Resnet18 card vs CPU: NMS order and keep equal in "
+                f"the first {k} (of 200: {100 * same:.1f}% equal), valid "
+                "equal, boxes/scores/landms within 1e-3")
+            det18 = gpu
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = tf32
+    for bs in (1, 8):
+        x = torch.from_numpy(imgs[:bs]).cuda()
+        det_ms, lo, hi = median_ms(lambda: det18.detect(x), 20)
+        with torch.no_grad():
+            loc, conf, _ = det18.net(x - det18._mean)
+        boxes = decode(loc, det18.priors, det18.cfg["variance"])
+        nms_ms = median_ms(lambda: nms(
+            boxes, conf[..., 1], det18.iou_threshold, det18.top_k,
+            det18.score_threshold), 20)[0]
+        res[f"Resnet18_ms_bs{bs}"] = det_ms
+        res[f"nms_ms_bs{bs}"] = nms_ms
+        log(f"detector Resnet18 224² bs={bs}: {det_ms:.3f} ms per detect "
+            f"call (min {lo:.3f}, max {hi:.3f}), NMS {nms_ms:.3f} ms "
+            f"({100 * nms_ms / det_ms:.1f}%)")
+    del det18, gpu, cpu
+    torch.cuda.empty_cache()
+    return res
+
+
+def build_pipeline():
+    """PlatePipeline at its defaults on the card (Resnet18 at 224², two
+    Restorer(PRODUCTION_GFPGAN), seed 0), the detector's statistics
+    calibrated and the restorers' biases drawn as in path 1."""
+    from image_restoration_tpu_torch.serve.pipeline import PlatePipeline
+    pipe = PlatePipeline(detector=build_detector("Resnet18", "cuda"),
+                         device="cuda", seed=0)
+    for r in (pipe.plate_restorer, pipe.car_restorer):
+        randomize_weights(r.net, seed=1)
+    return pipe
+
+
+def phase_pipeline_main_path(pipe):
+    """Counts at 0; `process` on one 640×480 photo and `process_batch` on 16
+    in chunks of 8, each on the host and the device geometry path, then one
+    POST to /Vehicle_Resolution_GFPGAN/. Two GFPGAN forwards per image or
+    chunk (plate and car are two restorers): K1 must launch 39 times each,
+    K2 and K3 never."""
+    import cv2
+    from image_restoration_tpu_torch.serve.api import ServiceCore, make_server
+    t = PIPE_TARGET
+    photo = car_photo(80)
+    photos = [car_photo(81 + i) for i in range(PIPE_BATCH)]
+    kernels = _counts_zero()
+    k1 = kernels[0]
+    forwards = 0
+
+    def step(name, fn, n_fwd):
+        nonlocal forwards
+        before = k1.launches
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        dt = (time.perf_counter() - t0) * 1e3
+        n = k1.launches - before
+        require(n == K1_LAUNCHES_PER_FORWARD * n_fwd,
+                f"{name}: K1 launched {n} times, expected "
+                f"{K1_LAUNCHES_PER_FORWARD * n_fwd}")
+        forwards += n_fwd
+        log(f"{name}: {dt:.1f} ms (first call), K1 launches {n}")
+        return out
+
+    def check(res, name):
+        m = res["montage"]
+        require(m.dtype == np.uint8 and m.shape == (t, 6 * t, 3),
+                f"{name}: montage {m.dtype} {m.shape}")
+        require(res["quad"].shape == (4, 2) and np.isfinite(res["score"]),
+                f"{name}: quad/score")
+
+    detected = 0
+    for geo in (False, True):
+        pipe.device_geometry = geo
+        path = "device" if geo else "host"
+        check(step(f"process 640x480 ({path} geometry)",
+                   lambda: pipe.process(photo), 2), "process")
+        outs = step(f"process_batch {PIPE_BATCH} in chunks of {PIPE_CHUNK} "
+                    f"({path} geometry)",
+                    lambda: pipe.process_batch(photos, PIPE_CHUNK),
+                    2 * PIPE_BATCH // PIPE_CHUNK)
+        require(len(outs) == PIPE_BATCH, f"process_batch: {len(outs)}")
+        for o in outs:
+            check(o, "process_batch")
+        detected = sum(o["detected"] for o in outs)
+    pipe.device_geometry = False
+    core = ServiceCore(pipeline=pipe)
+    server = make_server(core, "127.0.0.1", 0)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    try:
+        ok, buf = cv2.imencode(".jpg", photo)
+        require(ok, "JPEG encode")
+        status, media, body = step(
+            "POST /Vehicle_Resolution_GFPGAN/ 640x480 jpeg",
+            lambda: post(server.server_address[1],
+                         "/Vehicle_Resolution_GFPGAN/", buf.tobytes()), 2)
+        img = cv2.imdecode(np.frombuffer(body, np.uint8), cv2.IMREAD_COLOR)
+        require(status == 200 and media == "image/png" and img is not None
+                and img.shape == (t, 6 * t, 3),
+                f"/Vehicle_Resolution_GFPGAN/: {status} {media}")
+    finally:
+        server.shutdown()
+        server.server_close()
+        core.close()
+        thread.join(timeout=30)
+    require(not thread.is_alive(), "server thread did not stop")
+    launches = [k.launches for k in kernels]
+    require(launches[0] == K1_LAUNCHES_PER_FORWARD * forwards
+            and launches[1:] == [0, 0],
+            f"pipeline path: K1/K2/K3 launches {launches}, {forwards} "
+            "forwards")
+    log(f"pipeline main path: {forwards} GFPGAN forwards, K1 launches "
+        f"{launches[0]} (K2, K3: 0); {detected} of {PIPE_BATCH} photos "
+        "detected (random weights)")
+    return launches[0], forwards
+
+
+def phase_pipeline_correctness(pipe):
+    """TF32 off, the detector's quad pinned: the device geometry path
+    against the host path on the card (the thresholds of
+    tests/test_serve.py), and the card against the CPU on each path
+    (montage ≤4 LSB max, ≤0.05 mean, as phase 5)."""
+    from image_restoration_tpu_torch.infer import PRODUCTION_GFPGAN, Restorer
+    from image_restoration_tpu_torch.serve.pipeline import PlatePipeline
+    photo = car_photo(90)
+    res = {}
+    tf32 = (torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    pinned = mock.patch.object(PlatePipeline, "_detect_quad",
+                               lambda self, im: (PINNED_QUAD.copy(), 0.9,
+                                                 True))
+    try:
+        cpu_r = []
+        for r in (pipe.plate_restorer, pipe.car_restorer):
+            c = Restorer(PRODUCTION_GFPGAN, device="cpu")
+            c.net.load_state_dict(r.net.state_dict())
+            cpu_r.append(c)
+        cpu = PlatePipeline(
+            detector=build_detector("Resnet18", "cpu", like=pipe.detector),
+            plate_restorer=cpu_r[0], car_restorer=cpu_r[1])
+        with pinned:
+            outs = {}
+            for geo in (False, True):
+                for name, p in (("card", pipe), ("cpu", cpu)):
+                    p.device_geometry = geo
+                    outs[(name, geo)] = p.process(photo)
+            pipe.device_geometry = False
+        host, dev = outs[("card", False)], outs[("card", True)]
+        for key in ("crop", "crop_padded", "transform"):
+            d = np.abs(dev[key].astype(np.float32)
+                       - host[key].astype(np.float32))
+            q90, mean = float(np.quantile(d, 0.9)), float(d.mean())
+            log(f"device vs host geometry on the card, {key}: q90 {q90} "
+                f"mean {mean:.4f} (limits 2, 8)")
+            require(q90 <= 2.0 and mean <= 8.0, f"geometry {key}")
+            res[f"geo_{key}_mean"] = mean
+        for key in ("plate_restored", "car_restored", "pasted"):
+            mean = float(np.abs(dev[key].astype(np.float32)
+                                - host[key].astype(np.float32)).mean())
+            log(f"device vs host geometry on the card, {key}: mean "
+                f"{mean:.4f} (limit 12)")
+            require(mean <= 12.0, f"geometry {key}: mean {mean}")
+            res[f"geo_{key}_mean"] = mean
+        for geo in (False, True):
+            a = outs[("card", geo)]["montage"].astype(np.int16)
+            b = outs[("cpu", geo)]["montage"].astype(np.int16)
+            d = np.abs(a - b)
+            path = "device" if geo else "host"
+            log(f"pipeline card vs CPU ({path} geometry, TF32 off): montage "
+                f"max {d.max()} LSB, mean {d.mean():.5f}")
+            require(d.max() <= 4 and d.mean() <= 0.05,
+                    f"pipeline card vs CPU ({path}): {d.max()} {d.mean()}")
+            res[f"card_vs_cpu_{path}_lsb"] = int(d.max())
+            res[f"card_vs_cpu_{path}_mean"] = float(d.mean())
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = tf32
+    return res
+
+
+def phase_pipeline_throughput(pipe):
+    """images/s of process_batch in chunks of 8 on each geometry path, the
+    "auto" choice, ms per /Vehicle_Resolution_GFPGAN/ request and its PNG
+    encode, peak device memory, and a profile of one chunk on each path
+    (device-busy share). PyTorch's default TF32 settings."""
+    import cv2
+    from image_restoration_tpu_torch.serve.api import ServiceCore, make_server
+    from image_restoration_tpu_torch.serve.pipeline import PlatePipeline
+    photos = [car_photo(100 + i) for i in range(2 * PIPE_BATCH)]
+    res = {}
+    for geo in (False, True):
+        path = "device" if geo else "host"
+        pipe.device_geometry = geo
+        med, lo, hi = median_ms(
+            lambda: pipe.process_batch(photos, PIPE_CHUNK), 3)
+        res[f"{path}_imgs_per_s"] = len(photos) / med * 1e3
+        torch.cuda.reset_peak_memory_stats()
+        pipe.process_batch(photos[:PIPE_CHUNK], PIPE_CHUNK)
+        res[f"{path}_peak_mib"] = torch.cuda.max_memory_allocated() / 2 ** 20
+        log(f"process_batch {len(photos)} photos, chunks of {PIPE_CHUNK}, "
+            f"{path} geometry: {res[f'{path}_imgs_per_s']:.2f} imgs/s "
+            f"(median {med:.1f} ms, min {lo:.1f}, max {hi:.1f}), peak "
+            f"{res[f'{path}_peak_mib']:.1f} MiB")
+        want = 2 * K1_LAUNCHES_PER_FORWARD
+        wall, kernels, k1_n = profile_call(
+            lambda: pipe.process_batch(photos[:PIPE_CHUNK], PIPE_CHUNK),
+            "fused_bias_lrelu", want)
+        busy = sum(k[0] for k in kernels)
+        log(f"profile of one chunk of {PIPE_CHUNK} ({path} geometry): wall "
+            f"{wall:.2f} ms, device busy {busy:.2f} ms "
+            f"({100 * busy / wall:.1f}%), K1 launches {k1_n}")
+        for tk, n, name in kernels[:8]:
+            log(f"  {tk:9.4f} ms  x{n:<4d} {name[:110]}")
+        require(k1_n == want, f"profiler saw {k1_n} K1 launches")
+        res[f"{path}_profile"] = dict(wall_ms=wall, busy_ms=busy, top=[
+            dict(ms=tk, count=n, name=name[:200])
+            for tk, n, name in kernels[:10]])
+    pipe.device_geometry = False
+    auto = PlatePipeline(detector=pipe.detector,
+                         plate_restorer=pipe.plate_restorer,
+                         car_restorer=pipe.car_restorer,
+                         device_geometry="auto")
+    auto.process_batch(photos[:PIPE_BATCH], PIPE_CHUNK)
+    res["auto_ms_per_image"] = auto.geo_auto_ms_per_image
+    res["auto_choice"] = "device" if auto.device_geometry else "host"
+    log(f"device_geometry='auto' at chunk {PIPE_CHUNK}: "
+        f"{auto.geo_auto_ms_per_image} ms/img -> {res['auto_choice']}")
+
+    core = ServiceCore(pipeline=pipe)
+    server = make_server(core, "127.0.0.1", 0)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    try:
+        ok, buf = cv2.imencode(".jpg", photos[0])
+        times = []
+        for _ in range(6):
+            t0 = time.perf_counter()
+            status, _, body = post(server.server_address[1],
+                                   "/Vehicle_Resolution_GFPGAN/",
+                                   buf.tobytes())
+            times.append((time.perf_counter() - t0) * 1e3)
+            require(status == 200, f"/Vehicle_Resolution_GFPGAN/: {status}")
+        montage = pipe.process(photos[0])["montage"]
+        enc = []
+        for _ in range(6):
+            t0 = time.perf_counter()
+            cv2.imencode(".png", montage)
+            enc.append((time.perf_counter() - t0) * 1e3)
+    finally:
+        server.shutdown()
+        server.server_close()
+        core.close()
+        thread.join(timeout=30)
+    require(not thread.is_alive(), "server thread did not stop")
+    res["request_ms"] = float(np.median(times[1:]))
+    res["png_encode_ms"] = float(np.median(enc[1:]))
+    log(f"POST /Vehicle_Resolution_GFPGAN/ 640x480: median "
+        f"{res['request_ms']:.2f} ms over 5 (after one warm-up), PNG encode "
+        f"of the 1536x256 montage {res['png_encode_ms']:.2f} ms")
+    return res
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", default=None,
@@ -1505,6 +1911,15 @@ def main(argv=None):
     ladder, rrdb_prof, net23, q23 = phase_rrdb_ladder()
     rrdb_check = phase_rrdb_int8_check(net23, q23)
     del net23, q23
+    torch.cuda.empty_cache()
+
+    detector = phase_detector()
+    pipe = build_pipeline()
+    pipe_launches, pipe_forwards = phase_pipeline_main_path(pipe)
+    pipe_check = phase_pipeline_correctness(pipe)
+    pipe_thr = phase_pipeline_throughput(pipe)
+    del pipe
+    torch.cuda.empty_cache()
 
     a = agg[("float32", 16)]
     kernels = [{
@@ -1512,7 +1927,7 @@ def main(argv=None):
         "route": "cuda",
         "source": "image_restoration_tpu_torch/csrc/fused_bias_act.cu",
         "replaces": "image_restoration_tpu/ops/pallas/fused_act_kernel.py:43",
-        "launches": launches,
+        "launches": launches + pipe_launches,
         "max_abs_err": worst,
         "ms": a["ms"],
         "plain_ms": a["plain_ms"],
@@ -1559,7 +1974,10 @@ def main(argv=None):
         k3_probe=probe, k3_probe_launches=k3_launches,
         k2_bf16_deq_rows=deq_rows, k2_bf16_deq_per_rrdb23_forward=deq_fwd,
         rrdb_main_path=rrdb_main, rrdb_ladder=ladder, rrdb_profile=rrdb_prof,
-        rrdb_int8=rrdb_check, seconds=time.perf_counter() - t_start,
+        rrdb_int8=rrdb_check, detector=detector,
+        pipeline_main_path_launches=pipe_launches,
+        pipeline_forwards=pipe_forwards, pipeline_correctness=pipe_check,
+        pipeline_throughput=pipe_thr, seconds=time.perf_counter() - t_start,
         note="kernels[].ms/plain_ms/bound_ms: device time (calls back to "
              "back, CUDA events) and bound, summed over the 39 K1 launches "
              "of one batch-16 f32 forward, over the 34 K2 launches of "
@@ -1569,7 +1987,8 @@ def main(argv=None):
              "matrix, the contraction alone (k2_bf16_deq_per_rrdb23_forward"
              " has the same yardstick for the RRDB half); K3's is cuDNN's "
              "bf16 conv; "
-             "K3's launches are those of probe_conv.main()")
+             "K3's launches are those of probe_conv.main(); K1's launches "
+             "are those of path 1's and path 4's main-path phases (4, 17)")
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as f:

@@ -124,6 +124,74 @@ def _fit(key: str, a: np.ndarray, shape: Tuple[int, ...],
     return a.reshape(shape)
 
 
+# RetinaFace: the reference's Sequential indices → flax's module names (the
+# `_RULES` of the JAX package's convert/retinaface_import.py, inverted, plus
+# the ResNet bodies' `layerL.B` → `layerL_B`)
+_RETINAFACE_RULES = [
+    (r"^fpn\.(output\d|merge\d)\.0\.", r"fpn.\1_conv."),
+    (r"^fpn\.(output\d|merge\d)\.1\.", r"fpn.\1_bn."),
+    (r"^(ssh\d)\.(\w+)\.0\.", r"\1.\2_conv."),
+    (r"^(ssh\d)\.(\w+)\.1\.", r"\1.\2_bn."),
+    (r"^(ClassHead|BboxHead|LandmarkHead)\.(\d)\.conv1x1\.", r"\1_\2."),
+    (r"^body\.stage1\.0\.0\.", r"body.stage1_0_conv."),
+    (r"^body\.stage1\.0\.1\.", r"body.stage1_0_bn."),
+    (r"^body\.stage(\d)\.(\d+)\.0\.", r"body.stage\1_\2_dw."),
+    (r"^body\.stage(\d)\.(\d+)\.1\.", r"body.stage\1_\2_dw_bn."),
+    (r"^body\.stage(\d)\.(\d+)\.3\.", r"body.stage\1_\2_pw."),
+    (r"^body\.stage(\d)\.(\d+)\.4\.", r"body.stage\1_\2_pw_bn."),
+    (r"^body\.(layer\d)\.(\d+)\.downsample\.(\d)\.",
+     r"body.\1_\2.downsample_\3."),
+    (r"^body\.(layer\d)\.(\d+)\.", r"body.\1_\2."),
+]
+# port leaf → (flax collection, leaf) for a BatchNorm and for a conv
+_BN_LEAVES = {"weight": ("params", "scale"), "bias": ("params", "bias"),
+              "running_mean": ("batch_stats", "mean"),
+              "running_var": ("batch_stats", "var")}
+_CONV_LEAVES = {"weight": ("params", "kernel"), "bias": ("params", "bias")}
+
+
+def retinaface_state_dict_from_jax(net: torch.nn.Module,
+                                   variables: Dict) -> OrderedDict:
+    """The `state_dict` of the port's `RetinaFace` holding the JAX
+    package's flax `variables` (`params` and `batch_stats`). BatchNorm's
+    scale/bias/mean/var become weight/bias/running_mean/running_var, convs
+    go HWIO → OIHW. Strict both ways; `num_batches_tracked` has no flax leaf
+    and is left out (a strict `load_state_dict` of a plain dict fills it)."""
+    leaves = {(col,) + path: arr for col in ("params", "batch_stats")
+              for path, arr in _leaves(variables.get(col, {})).items()}
+    bn_modules = {name for name, m in net.named_modules()
+                  if isinstance(m, torch.nn.BatchNorm2d)}
+    used = set()
+    out = OrderedDict()
+    for key, ref in net.state_dict().items():
+        if key.endswith("num_batches_tracked"):
+            continue
+        module, leaf = key.rsplit(".", 1)
+        flax = module + "."
+        for pat, rep in _RETINAFACE_RULES:
+            flax, n = re.subn(pat, rep, flax)
+            if n:
+                break
+        table = _BN_LEAVES if module in bn_modules else _CONV_LEAVES
+        col, flax_leaf = table[leaf]
+        path = (col,) + tuple(flax.rstrip(".").split(".")) + (flax_leaf,)
+        if path not in leaves:
+            raise KeyError(f"port key {key!r} has no flax counterpart "
+                           f"({'/'.join(path)})")
+        used.add(path)
+        arr = leaves[path]
+        if arr.ndim == 4:  # HWIO → OIHW (depthwise: (3,3,1,C) → (C,1,3,3))
+            arr = arr.transpose(3, 2, 0, 1)
+        if arr.shape != tuple(ref.shape):
+            raise ValueError(f"{key}: flax {arr.shape} != port "
+                             f"{tuple(ref.shape)}")
+        out[key] = torch.from_numpy(np.array(arr, np.float32))
+    unused = sorted("/".join(p) for p in set(leaves) - used)
+    if unused:
+        raise KeyError(f"{len(unused)} flax leaves unused: {unused[:10]}")
+    return out
+
+
 def state_dict_from_jax(net: torch.nn.Module, flax_params: Dict) -> OrderedDict:
     """The `state_dict` of port module `net` holding the JAX package's
     `flax_params` (a nested dict of arrays, the `params` collection)."""

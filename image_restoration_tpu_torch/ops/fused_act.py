@@ -9,6 +9,10 @@ and launches the hand-written CUDA kernel (`csrc/fused_bias_act.cu`) for a
 tensor on the GPU; it never falls back from one to the other. Both compute in
 float32 and round once to x's dtype, so they agree bit for bit up to the
 order of float32 operations, which is the same.
+
+On the GPU with grad enabled the launch runs inside `FusedLeakyReLUFunction`,
+whose backward is the closed form `g·scale·(x+b ≥ 0 ? 1 : slope)` written in
+PyTorch ops, so it is itself differentiable (R1 takes a double backward).
 """
 
 from __future__ import annotations
@@ -33,14 +37,37 @@ def fused_leaky_relu_plain(x: torch.Tensor, bias: torch.Tensor | None = None,
                            scale: float = SQRT2) -> torch.Tensor:
     """scale * leaky_relu(x + bias) in plain PyTorch; bias over the last axis.
 
-    The arithmetic is the kernel's: float32 throughout, one rounding to
-    x's dtype at the end.
+    The arithmetic is the kernel's: float32 throughout (float64 stays
+    float64), one rounding to x's dtype at the end.
     """
-    v = x.float()
+    acc = torch.promote_types(x.dtype, torch.float32)
+    v = x.to(acc)
     if bias is not None:
-        v = v + bias.to(x.dtype).float()
+        v = v + bias.to(x.dtype).to(acc)
     v = torch.where(v >= 0, v, v * negative_slope) * scale
     return v.to(x.dtype)
+
+
+def fused_leaky_relu_backward(grad: torch.Tensor, x: torch.Tensor,
+                              bias: torch.Tensor | None,
+                              negative_slope: float = 0.2,
+                              scale: float = SQRT2):
+    """(grad_x, grad_bias) of `fused_leaky_relu` at (x, bias): the closed
+    form g·scale·(x+b ≥ 0 ? 1 : slope), the bias grad summed over every axis
+    but the last. Plain PyTorch ops, so autograd differentiates it again."""
+    acc = torch.promote_types(x.dtype, torch.float32)
+    v = x.to(acc)
+    if bias is not None:
+        v = v + bias.to(x.dtype).to(acc)
+    gs = grad.to(acc) * scale
+    gx = torch.where(v >= 0, gs, gs * negative_slope)
+    gb = None
+    if bias is not None:
+        # through the forward's cast of the bias to x's dtype, as autograd
+        # of the plain version takes it
+        gb = gx.sum(dim=tuple(range(gx.dim() - 1))).to(x.dtype).to(
+            bias.dtype)
+    return gx.to(x.dtype), gb
 
 
 def scaled_leaky_relu(x: torch.Tensor, negative_slope: float = 0.2) -> torch.Tensor:
@@ -65,6 +92,27 @@ def _kernel_lib() -> ctypes.CDLL:
         return _lib
 
 
+class FusedLeakyReLUFunction(torch.autograd.Function):
+    """K1 as an autograd node: the forward launches the kernel (its plain
+    version for a CPU tensor), the backward is `fused_leaky_relu_backward`,
+    from the saved input and bias."""
+
+    @staticmethod
+    def forward(ctx, x, bias, negative_slope, scale):
+        ctx.save_for_backward(x, bias)
+        ctx.negative_slope, ctx.scale = negative_slope, scale
+        if x.device.type == "cpu":
+            return fused_leaky_relu_plain(x, bias, negative_slope, scale)
+        return _launch(x, bias, negative_slope, scale)
+
+    @staticmethod
+    def backward(ctx, grad):
+        x, bias = ctx.saved_tensors
+        gx, gb = fused_leaky_relu_backward(grad, x, bias, ctx.negative_slope,
+                                           ctx.scale)
+        return gx, gb, None, None
+
+
 def fused_leaky_relu(x: torch.Tensor, bias: torch.Tensor | None = None,
                      negative_slope: float = 0.2,
                      scale: float = SQRT2) -> torch.Tensor:
@@ -73,10 +121,21 @@ def fused_leaky_relu(x: torch.Tensor, bias: torch.Tensor | None = None,
     CPU tensor → `fused_leaky_relu_plain`. CUDA tensor → kernel K1, which
     needs a contiguous float32 or bfloat16 x and a bias of shape (C,) on the
     same device (cast to x's dtype, as the TPU kernel does); anything else
-    raises. `fused_leaky_relu.launches` counts the kernel's launches.
+    raises. With grad enabled and x or the bias requiring it, the launch is
+    recorded as `FusedLeakyReLUFunction`. `fused_leaky_relu.launches` counts
+    the kernel's launches.
     """
     if x.device.type == "cpu":
         return fused_leaky_relu_plain(x, bias, negative_slope, scale)
+    if torch.is_grad_enabled() and (
+            x.requires_grad or (bias is not None and bias.requires_grad)):
+        return FusedLeakyReLUFunction.apply(x, bias, negative_slope, scale)
+    return _launch(x, bias, negative_slope, scale)
+
+
+def _launch(x: torch.Tensor, bias: torch.Tensor | None,
+            negative_slope: float, scale: float) -> torch.Tensor:
+    """Check x and bias, then launch K1 on x's stream."""
     if x.device.type != "cuda":
         raise ValueError(f"fused_leaky_relu: unsupported device {x.device}")
     if x.dtype not in _DTYPE_CODES:

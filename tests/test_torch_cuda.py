@@ -289,3 +289,116 @@ def test_int8_rrdb_forward_on_card(cuda_device):
     assert got.shape == (2, 96, 80, 3) and got.dtype == torch.bfloat16
     assert bool(torch.isfinite(got.float()).all())
     assert torch.equal(got, want)
+
+
+@pytest.fixture
+def no_tf32():
+    """float32 convs and matmuls in full float32 on the card."""
+    saved = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    yield
+    (torch.backends.cudnn.allow_tf32,
+     torch.backends.cuda.matmul.allow_tf32) = saved
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_fused_bias_lrelu_grads_match_plain(cuda_device, dtype):
+    """With grad on, K1's output carries a grad_fn (the launch still
+    happens, once); its grads, and the double backward, equal autograd of
+    the plain version on the card. Under inference_mode it launches the
+    same once and records nothing."""
+    rng = np.random.default_rng(1)
+    dt = getattr(torch, dtype)
+    x0 = torch.from_numpy(rng.standard_normal((6, 9, 32)).astype(
+        np.float32)).to(cuda_device, dt)
+    b0 = torch.from_numpy(rng.standard_normal(32).astype(np.float32)).to(
+        cuda_device)
+    g = torch.from_numpy(rng.standard_normal((6, 9, 32)).astype(
+        np.float32)).to(cuda_device, dt).requires_grad_()
+    u = torch.from_numpy(rng.standard_normal((6, 9, 32)).astype(
+        np.float32)).to(cuda_device, dt)
+    res = {}
+    for name, fn in (("kernel", fused_leaky_relu),
+                     ("plain", fused_leaky_relu_plain)):
+        x, b = x0.clone().requires_grad_(), b0.clone().requires_grad_()
+        before = fused_leaky_relu.launches
+        y = fn(x, b)
+        assert y.grad_fn is not None
+        assert fused_leaky_relu.launches == before + (name == "kernel")
+        gx, gb = torch.autograd.grad(y, (x, b), g, create_graph=True)
+        gg = torch.autograd.grad((gx.float() * u.float()).sum(), g)[0]
+        res[name] = (y, gx, gb, gg)
+    tol = dict(rtol=1e-6, atol=0) if dt == torch.float32 else \
+        dict(rtol=2 ** -7, atol=0)
+    for a, w in zip(res["kernel"], res["plain"]):
+        torch.testing.assert_close(a.float(), w.float(), **tol)
+    with torch.inference_mode():
+        before = fused_leaky_relu.launches
+        y = fused_leaky_relu(x0, b0)
+        assert fused_leaky_relu.launches == before + 1 and y.grad_fn is None
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("backbone", ["Resnet18", "mobilenet0.25"])
+def test_retinaface_and_nms_on_card_match_cpu(cuda_device, no_tf32,
+                                              backbone):
+    """RetinaFace at 224² on the card against the CPU (TF32 off), and the
+    detector's NMS on the card's outputs against the CPU's NMS on the same
+    boxes: keep and order equal."""
+    from image_restoration_tpu_torch.detect.engine import PlateDetector
+    kw = dict(backbone=backbone, image_size=224, score_threshold=0.0,
+              keep_top_k=20, seed=3)
+    cpu = PlateDetector(device="cpu", **kw)
+    gpu = PlateDetector(device=cuda_device, **kw)
+    x = torch.from_numpy((np.random.default_rng(2).random(
+        (2, 224, 224, 3)) * 255).astype(np.float32))
+    with torch.no_grad():
+        want = cpu.net(x - cpu._mean)
+        got = gpu.net(x.to(cuda_device) - gpu._mean)
+    for w, a in zip(want, got):
+        scale = max(1.0, w.abs().max().item())
+        assert (a.cpu() - w).abs().max().item() <= 1e-3 * scale
+    from image_restoration_tpu_torch.detect.box_utils import decode, nms
+    boxes = decode(got[0], gpu.priors, gpu.cfg["variance"])
+    kb, ks, keep, order = nms(boxes, got[1][..., 1], 0.6, 200, 0.0)
+    kb_c, ks_c, keep_c, order_c = nms(boxes.cpu(), got[1][..., 1].cpu(),
+                                      0.6, 200, 0.0)
+    assert torch.equal(order.cpu(), order_c)
+    assert torch.equal(keep.cpu(), keep_c)
+    assert torch.equal(kb.cpu(), kb_c) and torch.equal(ks.cpu(), ks_c)
+
+
+@pytest.mark.cuda
+def test_geometry_on_card_matches_cpu(cuda_device):
+    """The geometry ops on the card against the CPU: masks equal, values
+    within 1e-4 of the 0–255 range."""
+    from image_restoration_tpu_torch.ops import geometry as tg
+    rng = np.random.default_rng(4)
+    quads = np.array([[[40, 90], [200, 80], [210, 160], [30, 170]],
+                      [[10, 10], [120, 120], [120, 10], [10, 120]],
+                      [[16, 255], [16, 255], [255, 0], [0, 150]]],
+                     np.float32)
+    img = torch.from_numpy((rng.random((3, 256, 256, 6)) * 255).astype(
+        np.float32))
+    q = torch.from_numpy(quads)
+    outs = {}
+    for dev in ("cpu", cuda_device):
+        qd, imd = q.to(dev), img.to(dev)
+        m = tg.homography_square_to_quad(256.0, qd)
+        m = torch.where(torch.isfinite(m).all(-1).all(-1)[:, None, None]
+                        & (tg.det3x3(m).abs() > 1e-8)[:, None, None],
+                        m, torch.eye(3, device=dev))
+        bbox = tg.bbox_of_quad(qd, (256, 256))
+        outs[str(dev)] = [t.cpu() for t in (
+            tg.quad_mask(qd, (256, 256)), tg.quad_mask_aa(qd, (256, 256)),
+            m, tg.warp_perspective(imd, m),
+            tg.crop_resize(imd, bbox, (256, 256)),
+            tg.pad_resize(imd, bbox, (256, 256)))]
+    cpu, gpu = outs["cpu"], outs[str(cuda_device)]
+    assert torch.equal(cpu[0], gpu[0]) and torch.equal(cpu[1], gpu[1])
+    torch.testing.assert_close(gpu[2], cpu[2], rtol=1e-5, atol=1e-6)
+    for a, w in zip(gpu[3:], cpu[3:]):
+        assert (a - w).abs().max().item() <= 1e-4 * 255

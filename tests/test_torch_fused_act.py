@@ -98,3 +98,65 @@ def test_cpu_tensor_takes_plain_path(rng, monkeypatch):
 def test_wrapper_rejects_other_devices():
     with pytest.raises(ValueError, match="unsupported device"):
         fused_leaky_relu(torch.empty((2, 4), device="meta"))
+
+
+def _away_from_kink(rng, shape):
+    """float64 x and bias with every |x + b| ≥ 0.05, so the finite
+    differences of gradcheck never straddle the kink at 0."""
+    x, b = (a.astype(np.float64) for a in _inputs(rng, shape))
+    v = x + b
+    x = np.where(np.abs(v) < 0.05, x + np.sign(v + 1e-9) * 0.1, x)
+    return (torch.from_numpy(x).requires_grad_(),
+            torch.from_numpy(b).requires_grad_())
+
+
+@pytest.mark.parametrize("shape,with_bias", [((3, 5, 8), True),
+                                             ((7, 4), True), ((2, 3, 6), False)])
+def test_k1_backward_matches_plain_autograd(rng, shape, with_bias):
+    """K1's closed-form backward (the CUDA path's autograd node) against
+    autograd of the plain version: first and second derivatives in float64,
+    and `gradcheck`/`gradgradcheck` of the node itself (on the CPU its
+    forward is the plain version)."""
+    x, b = _away_from_kink(rng, shape)
+    bias = b if with_bias else None
+    g = torch.from_numpy(rng.standard_normal(shape)).requires_grad_()
+    inputs = (x, b) if with_bias else (x,)
+
+    want = torch.autograd.grad(fused_leaky_relu_plain(x, bias), inputs, g,
+                               create_graph=True)
+    got = torch.autograd.grad(
+        fused_act.FusedLeakyReLUFunction.apply(x, bias, 0.2, math.sqrt(2)),
+        inputs, g, create_graph=True)
+    for a, w in zip(got, want):
+        torch.testing.assert_close(a, w, rtol=0, atol=1e-12)
+    # double backward: d(sum(grad_x · u))/d(g, x[, b])
+    u = torch.from_numpy(rng.standard_normal(shape))
+    want2 = torch.autograd.grad((want[0] * u).sum(), (g,) + inputs,
+                                allow_unused=True)
+    got2 = torch.autograd.grad((got[0] * u).sum(), (g,) + inputs,
+                               allow_unused=True)
+    for a, w in zip(got2, want2):
+        if w is None:
+            assert a is None or not a.any()
+        else:
+            torch.testing.assert_close(a, w, rtol=0, atol=1e-12)
+
+    fn = lambda *t: fused_act.FusedLeakyReLUFunction.apply(  # noqa: E731
+        t[0], t[1] if with_bias else None, 0.2, math.sqrt(2))
+    assert torch.autograd.gradcheck(fn, inputs)
+    assert torch.autograd.gradgradcheck(fn, inputs)
+
+
+def test_k1_backward_bf16_dtypes(rng):
+    """The backward returns grads in the inputs' dtypes: bf16 x, f32 bias."""
+    x, b = _inputs(rng, (4, 6, 16))
+    xt = torch.from_numpy(x).bfloat16()
+    g = torch.ones_like(xt)
+    gx, gb = fused_act.fused_leaky_relu_backward(g, xt, torch.from_numpy(b))
+    assert gx.dtype == torch.bfloat16 and gb.dtype == torch.float32
+    v = xt.float() + torch.from_numpy(b).bfloat16().float()
+    want = torch.where(v >= 0, 1.0, 0.2) * math.sqrt(2)
+    torch.testing.assert_close(gx.float(), want.bfloat16().float())
+    torch.testing.assert_close(gb, (want.to(torch.float32)
+                                    .reshape(-1, 16).sum(0)), rtol=2e-2,
+                               atol=0)

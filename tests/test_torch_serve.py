@@ -185,7 +185,8 @@ def test_http_restore_endpoints(restorers, rng):
         small = cv2.resize(img, (64, 64))[..., ::-1]
         assert _lsb(core._restore_one(np.ascontiguousarray(small)),
                     jr.restore_batch_u8(small[None])[0]) <= 1
-        for route, msg in [("/Vehicle_Resolution_GFPGAN/", "not ported yet"),
+        for route, msg in [("/Vehicle_Resolution_GFPGAN/",
+                            "no pipeline configured"),
                            ("/SRx4/", "no SR engine configured")]:
             with pytest.raises(urllib.error.HTTPError) as e:
                 _post(port, route, buf.tobytes())
