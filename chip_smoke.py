@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py [--out report.json]
 
-Drives the port's four main paths with random weights made from a seed, and
+Drives the port's five main paths with random weights made from a seed, and
 fails loudly if any phase fails:
 
   1. device: the card's name and power limit (nvidia-smi);
@@ -94,6 +94,34 @@ Resnet18 at 224², two Restorer(PRODUCTION_GFPGAN) at 256²) behind
      geometry path, the "auto" choice, ms per request and its PNG encode,
      peak memory, and a profile of one chunk on each path.
 
+Path 5, the exported engines and the dynamic-int8 mode: `torch.export`
+artifacts (K1, K2 and K3 are the custom ops `irt::…`) behind
+`EngineFaceRestorer`, `PlatePipeline(geo_engine=EngineGeoPipeline)`,
+`EngineRestorer(engine_dir)` and `IRT_SR_ENGINE`, and
+`Restorer(quant="dyn-int8")` at PRODUCTION_GFPGAN:
+
+ 20. export on the card through the exporters (`scripts/export_gfpgan.py`
+     `build_engine`, `scripts/export_restorer.py` `build_engine`) into a
+     temporary directory: the GFPGAN u8 engine at batch 32 in float32 and in
+     dyn-int8 and at batch 1, the geometry engine at batch 8, the SR engine
+     at the exporter's defaults with uint8 IO; each export's seconds, its
+     round trip and its MiB;
+ 21. main path (TF32 off): counts set to 0, then each artifact loaded as a
+     server loads it against the live object: the GFPGAN engines against
+     `restore_batch_u8` (≤1 LSB, K1 39 per forward through the artifact),
+     the geometry engine in `PlatePipeline` against the live device
+     geometry (montage ≤1 LSB, one 2N forward per chunk), the SR artifact
+     against `EngineRestorer.build` on a 1024×768 photo (bit-equal, K2 34
+     per chunk, K1 never), one POST to /SRx4/ through IRT_SR_ENGINE and one
+     to /Restore/ through `ServiceCore(restorer=EngineFaceRestorer)`;
+ 22. dyn-int8: the card against the CPU on one image and the uint8 path
+     against its float path (≥ 30 dB, TF32 off; the dB against the float32
+     Restorer is printed), imgs/s and peak MiB of float32, bf16 and
+     dyn-int8 at batch 1, 8 and 32, a profile of one batch-32 dyn-int8
+     restore with the shares of `_int_mm`, of the im2col and quantize
+     passes and of K1, and ms per call of the exported module against the
+     eager Restorer at batch 1 and 32.
+
 The last line of stdout is {"ok": true, "device": {...}}; the line before it
 lists the kernels as JSON. Without a GPU, or without the port beside this
 file, it exits non-zero before printing a result.
@@ -106,6 +134,7 @@ import json
 import math
 import os
 import subprocess
+import tempfile
 import threading
 import time
 import urllib.request
@@ -1867,6 +1896,399 @@ def phase_pipeline_throughput(pipe):
     return res
 
 
+# ----------------------------- path 5: exported engines and dynamic int8
+
+ENGINE_BATCH = 32           # export_gfpgan's default batch
+GEO_BATCH = 8
+DYN_INT8_GATE_DB = 30.0     # tests/test_serve.py:206-217's gate
+SPEED_BATCHES = (1, 8, 32)
+
+
+def _tf32_off():
+    """Turn TF32 off for a comparison; returns the settings to restore."""
+    old = (torch.backends.cudnn.allow_tf32,
+           torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return old
+
+
+def _tf32_restore(old):
+    (torch.backends.cudnn.allow_tf32,
+     torch.backends.cuda.matmul.allow_tf32) = old
+
+
+def _psnr_u8(a, b):
+    mse = float(np.mean((a.astype(np.float32) - b.astype(np.float32)) ** 2))
+    return 10 * math.log10(255.0 ** 2 / max(mse, 1e-12))
+
+
+def _lsb(a, b):
+    require(a.dtype == b.dtype == np.uint8 and a.shape == b.shape,
+            f"compare {a.dtype}{a.shape} with {b.dtype}{b.shape}")
+    return int(np.abs(a.astype(np.int16) - b.astype(np.int16)).max())
+
+
+def save_pth(net, path):
+    """A reference-layout .pth ({'params_ema': state_dict}) of net."""
+    torch.save({"params_ema": {k: v.detach().cpu()
+                               for k, v in net.state_dict().items()}}, path)
+    return str(path)
+
+
+def phase_export(restorer, pipe, tmp):
+    """Export on the card into tmp, through the exporters' entry points:
+    the GFPGAN u8 engine at PRODUCTION_GFPGAN (path 1's weights) at batch 32
+    in float32 and in dyn-int8, and at batch 1 (for the host-cost
+    comparison); the geometry engine at batch 8 (the pipeline's weights);
+    the SR engine at export_restorer's defaults with --u8-io (path 2's
+    calibration). Each is checked against its live graph before it is
+    written (the exporters' round trip). Returns {name: (dir, record)}."""
+    from image_restoration_tpu_torch.scripts import export_gfpgan
+    from image_restoration_tpu_torch.scripts import export_restorer
+    from image_restoration_tpu_torch.serve.engine_restorer import save_engine
+
+    pth = save_pth(restorer.net, os.path.join(tmp, "gfpgan.pth"))
+    geo_pth = save_pth(pipe.plate_restorer.net,
+                       os.path.join(tmp, "pipeline.pth"))
+    specs = [("gfpgan_bs32", dict(pth=pth, batch=ENGINE_BATCH)),
+             ("gfpgan_dyn_int8_bs32", dict(pth=pth, batch=ENGINE_BATCH,
+                                           quant="dyn-int8")),
+             ("gfpgan_bs1", dict(pth=pth, batch=1)),
+             ("geometry_bs8", dict(pth=geo_pth, batch=GEO_BATCH,
+                                   with_geometry=True))]
+    out = {}
+    for name, kw in specs:
+        t0 = time.perf_counter()
+        program, meta, live, _ = export_gfpgan.build_engine(device="cuda",
+                                                            **kw)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        db = export_gfpgan.round_trip_db(program.module(), live, meta)
+        d = os.path.join(tmp, name)
+        nbytes = save_engine(d, program, meta)
+        t2 = time.perf_counter()
+        out[name] = (d, dict(export_s=t1 - t0, round_trip_db=db,
+                             save_s=t2 - t1, mib=nbytes / 2 ** 20))
+        log(f"export {name}: traced in {t1 - t0:.2f} s, round trip "
+            f"{db:.1f} dB, written in {t2 - t1:.2f} s, "
+            f"{nbytes / 2 ** 20:.1f} MiB")
+        require(db >= 30.0, f"{name}: round trip {db:.1f} dB")
+        del program, live
+    t0 = time.perf_counter()
+    program, meta, serve = export_restorer.build_engine(
+        calib=sr_calib(), seed=0, io="u8", device="cuda", **SR)
+    t1 = time.perf_counter()
+    size = SR["tile"] + 2 * SR["halo"]
+    x = torch.from_numpy((np.random.default_rng(0).random(
+        (SR["batch"], size, size, 3)) * 255).astype(np.uint8)).cuda()
+    db = export_restorer.round_trip_db(serve, program.module(), x)
+    d = os.path.join(tmp, "sr_u8")
+    nbytes = save_engine(d, program, meta)
+    t2 = time.perf_counter()
+    out["sr_u8"] = (d, dict(export_s=t1 - t0, round_trip_db=db,
+                            save_s=t2 - t1, mib=nbytes / 2 ** 20))
+    log(f"export sr_u8 ({meta['mode']}, io {meta['io']}, "
+        f"{meta['input_shape']}): traced in {t1 - t0:.2f} s, round trip "
+        f"{db:.1f} dB, written in {t2 - t1:.2f} s, {nbytes / 2 ** 20:.2f} "
+        "MiB")
+    require(db >= 30.0, f"sr_u8: round trip {db:.1f} dB")
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_artifact_main_path(restorer, pipe, exported):
+    """TF32 off, counts at 0: every artifact loaded as a server loads it
+    and held against the live object it was exported from. The GFPGAN
+    engine against `Restorer.restore_batch_u8` (≤1 LSB; K1 39 per forward
+    through the artifact), the dyn-int8 engine against a dyn-int8
+    Restorer, `PlatePipeline(geo_engine=EngineGeoPipeline)` against the
+    live device-geometry path (montage ≤1 LSB), the SR artifact against
+    `EngineRestorer.build` on a 1024×768 photo (bit-equal; K2 34 per chunk,
+    K1 never), then one /SRx4/ POST through IRT_SR_ENGINE and one /Restore/
+    POST through ServiceCore(restorer=EngineFaceRestorer). Returns (K1, K2)
+    launches and the report."""
+    import cv2
+    from image_restoration_tpu_torch.infer import PRODUCTION_GFPGAN, Restorer
+    from image_restoration_tpu_torch.serve.api import ServiceCore, make_server
+    from image_restoration_tpu_torch.serve.engine_restorer import (
+        EngineFaceRestorer, EngineGeoPipeline, EngineRestorer)
+    from image_restoration_tpu_torch.serve.pipeline import PlatePipeline
+
+    res = {}
+    old = _tf32_off()
+    k1, k2, k3 = _counts_zero()
+    try:
+        def counted(name, fn, want_k1, want_k2=0):
+            b1, b2 = k1.launches, k2.launches
+            t0 = time.perf_counter()
+            got = fn()
+            torch.cuda.synchronize()
+            dt = (time.perf_counter() - t0) * 1e3
+            n1, n2 = k1.launches - b1, k2.launches - b2
+            require((n1, n2) == (want_k1, want_k2),
+                    f"{name}: K1/K2 launched {n1}/{n2}, expected "
+                    f"{want_k1}/{want_k2}")
+            log(f"{name}: {dt:.1f} ms, K1 {n1}, K2 {n2}")
+            return got
+
+        u8 = np.stack([plate_image(256, 256, seed=200 + i)[..., ::-1]
+                       for i in range(ENGINE_BATCH)])
+        for name, live in (("gfpgan_bs32", restorer),
+                           ("gfpgan_dyn_int8_bs32", None)):
+            t0 = time.perf_counter()
+            eng = EngineFaceRestorer(exported[name][0], device="cuda")
+            load_s = time.perf_counter() - t0
+            if live is None:
+                live = Restorer(PRODUCTION_GFPGAN, quant="dyn-int8",
+                                device="cuda")
+                live.net.load_state_dict(restorer.net.state_dict())
+            got = counted(f"{name} artifact, {ENGINE_BATCH} images",
+                          lambda: eng.restore_batch_u8(u8),
+                          K1_LAUNCHES_PER_FORWARD)
+            want = counted(f"{name} live Restorer",
+                           lambda: live.restore_batch_u8(u8),
+                           K1_LAUNCHES_PER_FORWARD)
+            d = _lsb(got, want)
+            log(f"{name} artifact vs live (TF32 off): max {d} LSB, loaded "
+                f"in {load_s:.2f} s")
+            require(d <= 1, f"{name} artifact vs live: {d} LSB")
+            res[name] = dict(lsb=d, load_s=load_s)
+        face = EngineFaceRestorer(exported["gfpgan_bs32"][0], device="cuda")
+
+        # the geometry engine in the pipeline, against the live fused path
+        geo = EngineGeoPipeline(exported["geometry_bs8"][0], device="cuda")
+        served = PlatePipeline(detector=pipe.detector, geo_engine=geo)
+        require(served.device_geometry and served.plate_restorer is None,
+                "PlatePipeline(geo_engine=…) built restorers")
+        photos = [car_photo(300 + i) for i in range(GEO_BATCH)]
+        pipe.device_geometry = True
+        want = counted("live device-geometry process_batch, chunk of 8",
+                       lambda: pipe.process_batch(photos, GEO_BATCH),
+                       2 * K1_LAUNCHES_PER_FORWARD)
+        got = counted("geo_engine process_batch, chunk of 8",
+                      lambda: served.process_batch(photos, GEO_BATCH),
+                      K1_LAUNCHES_PER_FORWARD)
+        pipe.device_geometry = False
+        d = max(_lsb(g["montage"], w["montage"]) for g, w in zip(got, want))
+        log(f"geometry artifact vs live fused path (TF32 off): montage max "
+            f"{d} LSB over {GEO_BATCH} photos")
+        require(d <= 1, f"geometry artifact vs live: {d} LSB")
+        res["geometry_lsb"] = d
+
+        # the SR artifact against the in-process build
+        live_sr = build_sr(int8=True)
+        art_sr = EngineRestorer(exported["sr_u8"][0], device="cuda")
+        img = scene_image(768, 1024, seed=21)
+        got = counted("SR artifact, 1024x768", lambda: art_sr(img),
+                      0, K2_LAUNCHES_PER_CALL)
+        want = counted("SR EngineRestorer.build, 1024x768",
+                       lambda: live_sr(img), 0, K2_LAUNCHES_PER_CALL)
+        require(np.array_equal(got, want), "SR artifact != build: "
+                f"{_lsb(got, want)} LSB")
+        log("SR artifact vs EngineRestorer.build: bit-equal "
+            f"{got.shape[1]}x{got.shape[0]}")
+        del live_sr
+
+        # the server: /SRx4/ through IRT_SR_ENGINE, /Restore/ through the
+        # exported face engine
+        os.environ["IRT_SR_ENGINE"] = exported["sr_u8"][0]
+        try:
+            core = ServiceCore(restorer=face)
+        finally:
+            del os.environ["IRT_SR_ENGINE"]
+        require(isinstance(core.sr_engine, EngineRestorer),
+                "IRT_SR_ENGINE did not load")
+        server = make_server(core, "127.0.0.1", 0)
+        thread = threading.Thread(target=server.serve_forever, daemon=True)
+        thread.start()
+        try:
+            port = server.server_address[1]
+            bgr = np.ascontiguousarray(scene_image(360, 640, seed=22)[
+                ..., ::-1])
+            ok, png = cv2.imencode(".png", bgr)
+            status, media, body = counted(
+                "POST /SRx4/ 640x360 through IRT_SR_ENGINE",
+                lambda: post(port, "/SRx4/", png.tobytes()), 0,
+                K2_LAUNCHES_PER_CALL)
+            out = cv2.imdecode(np.frombuffer(body, np.uint8),
+                               cv2.IMREAD_COLOR)
+            require(status == 200 and out is not None
+                    and out.shape == (1440, 2560, 3), f"/SRx4/: {status}")
+            ok, jpg = cv2.imencode(".jpg", plate_image(120, 360, seed=301))
+            status, media, body = counted(
+                "POST /Restore/ through EngineFaceRestorer",
+                lambda: post(port, "/Restore/", jpg.tobytes()),
+                K1_LAUNCHES_PER_FORWARD)
+            out = cv2.imdecode(np.frombuffer(body, np.uint8),
+                               cv2.IMREAD_COLOR)
+            require(status == 200 and out is not None
+                    and out.shape == (256, 256, 3), f"/Restore/: {status}")
+        finally:
+            server.shutdown()
+            server.server_close()
+            core.close()
+            thread.join(timeout=30)
+        require(not thread.is_alive(), "server thread did not stop")
+    finally:
+        _tf32_restore(old)
+    launches = (k1.launches, k2.launches)
+    require(k3.launches == 0, f"K3 launched {k3.launches} times")
+    log(f"artifact main path: K1 launches {launches[0]}, K2 {launches[1]}, "
+        "K3 0")
+    return launches, res
+
+
+def _dyn_int8_profile(q, u8):
+    """Device time of one batch-32 dyn-int8 restore, by part: the int8
+    GEMM (`aten::_int_mm`), the im2col and quantize passes (their
+    functions wrapped in profiler ranges for this call only), K1, and the
+    rest."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+    from image_restoration_tpu_torch.ops import modulated_conv as mc
+
+    def ranged(name, fn):
+        def wrapped(*a, **k):
+            with record_function(name):
+                return fn(*a, **k)
+        return wrapped
+
+    parts = {"irt.im2col": "_im2col", "irt.quant_act": "_dyn_quant",
+             "irt.quant_weight": "_quant_weight"}
+    patches = [mock.patch.object(mc, attr, ranged(name, getattr(mc, attr)))
+               for name, attr in parts.items()]
+    for p in patches:
+        p.start()
+    try:
+        q.restore_batch_u8(u8)
+        torch.cuda.synchronize()
+        for _ in range(3):
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                q.restore_batch_u8(u8)
+                torch.cuda.synchronize()
+                wall = (time.perf_counter() - t0) * 1e3
+            # the ranges also appear on the device's timeline: keep kernels
+            kernels = [k for k in _kernel_events(prof) if k[2] not in parts]
+            k1_n = sum(k[1] for k in kernels if "fused_bias_lrelu" in k[2])
+            if k1_n == K1_LAUNCHES_PER_FORWARD:
+                break
+            log(f"profiler saw {k1_n} K1 launches: profiling again")
+    finally:
+        for p in patches:
+            p.stop()
+    require(k1_n == K1_LAUNCHES_PER_FORWARD,
+            f"dyn-int8 profile: {k1_n} K1 launches")
+    busy = sum(k[0] for k in kernels)
+
+    def op_ms(key):
+        """Device time of the kernels launched inside the host-side op or
+        range `key`."""
+        return sum(getattr(e, "device_time_total",
+                           getattr(e, "cuda_time_total", 0.0)) / 1e3
+                   for e in prof.key_averages()
+                   if e.key == key and getattr(e, "device_type", None)
+                   == torch.autograd.DeviceType.CPU)
+
+    shares = {"int_mm": op_ms("aten::_int_mm"),
+              "im2col": op_ms("irt.im2col"),
+              "quantize": op_ms("irt.quant_act") + op_ms("irt.quant_weight"),
+              "k1": sum(k[0] for k in kernels if "fused_bias_lrelu" in k[2])}
+    shares["other"] = busy - sum(shares.values())
+    log(f"profile dyn-int8 bs={u8.shape[0]}: wall {wall:.2f} ms, device busy "
+        f"{busy:.2f} ms ({100 * busy / wall:.1f}%)")
+    for k, v in shares.items():
+        log(f"  {k:9s} {v:9.3f} ms  {100 * v / busy:5.1f}% of busy")
+    for t, n, name in kernels[:12]:
+        log(f"  {t:9.4f} ms  x{n:<4d} {name[:110]}")
+    return dict(wall_ms=wall, busy_ms=busy, ms=shares,
+                share={k: v / busy for k, v in shares.items()},
+                top=[dict(ms=t, count=n, name=name[:200])
+                     for t, n, name in kernels[:20]])
+
+
+def phase_dyn_int8(restorer, exported):
+    """Restorer(quant="dyn-int8") at PRODUCTION_GFPGAN on the card: the
+    card against the CPU on one image and the uint8 path against the float
+    path (≥ 30 dB, TF32 off); imgs/s and peak MiB of float32, bf16 and
+    dyn-int8 at batch 1, 8 and 32 (PyTorch's default TF32 settings); a
+    profile of one batch-32 dyn-int8 restore; and ms per call of the
+    exported module against the eager Restorer at batch 1 and 32."""
+    from image_restoration_tpu_torch.infer import PRODUCTION_GFPGAN, Restorer
+    from image_restoration_tpu_torch.serve.engine_restorer import load_engine
+
+    sd = restorer.net.state_dict()
+    q = Restorer(PRODUCTION_GFPGAN, quant="dyn-int8", device="cuda")
+    q.net.load_state_dict(sd)
+    imgs = np.stack([plate_image(256, 256, seed=400 + i)[..., ::-1]
+                     for i in range(max(SPEED_BATCHES))])
+    res = {}
+    old = _tf32_off()
+    try:
+        qc = Restorer(PRODUCTION_GFPGAN, quant="dyn-int8", device="cpu")
+        qc.net.load_state_dict(sd)
+        a, b = q.restore_batch_u8(imgs[:1]), qc.restore_batch_u8(imgs[:1])
+        d = np.abs(a.astype(np.int16) - b.astype(np.int16))
+        res["card_vs_cpu"] = dict(lsb=int(d.max()), mean=float(d.mean()),
+                                  db=_psnr_u8(a, b))
+        log(f"dyn-int8 card vs CPU (bs=1, TF32 off): max {d.max()} LSB, "
+            f"mean {d.mean():.5f}, {res['card_vs_cpu']['db']:.2f} dB")
+        require(res["card_vs_cpu"]["db"] >= DYN_INT8_GATE_DB,
+                f"dyn-int8 card vs CPU {res['card_vs_cpu']['db']:.2f} dB")
+        del qc
+        u8 = imgs[:8]
+        got = q.restore_batch_u8(u8)
+        db = _psnr_u8(got, q.restore_batch(u8.astype(np.float32) / 255.0))
+        f32 = _psnr_u8(got, restorer.restore_batch_u8(u8))
+        res["u8_vs_float_path_db"], res["vs_float32_db"] = db, f32
+        log(f"dyn-int8 uint8 path vs its float path (bs=8): {db:.2f} dB "
+            f"(gate {DYN_INT8_GATE_DB}); dyn-int8 vs float32 Restorer: "
+            f"{f32:.2f} dB")
+        require(db >= DYN_INT8_GATE_DB, f"dyn-int8 u8 vs float {db:.2f} dB")
+    finally:
+        _tf32_restore(old)
+
+    bf = Restorer(PRODUCTION_GFPGAN, dtype=torch.bfloat16, device="cuda")
+    bf.net.load_state_dict(sd)
+    modes = {"float32": restorer, "bf16": bf, "dyn-int8": q}
+    speed = {}
+    for mode, r in modes.items():
+        for bs in SPEED_BATCHES:
+            u8 = imgs[:bs]
+            med, lo, hi = median_ms(lambda: r.restore_batch_u8(u8),
+                                    {1: 20, 8: 10, 32: 6}[bs])
+            torch.cuda.reset_peak_memory_stats()
+            r.restore_batch_u8(u8)
+            peak = torch.cuda.max_memory_allocated() / 2 ** 20
+            speed[f"{mode}_bs{bs}"] = dict(imgs_per_s=bs / med * 1e3,
+                                           ms=med, ms_min=lo, ms_max=hi,
+                                           peak_mib=peak)
+            log(f"restore_batch_u8 {mode} bs={bs}: {bs / med * 1e3:.2f} "
+                f"imgs/s (median {med:.3f} ms, min {lo:.3f}, max {hi:.3f}), "
+                f"peak {peak:.1f} MiB")
+    res["speed"] = speed
+    del bf
+    res["profile"] = _dyn_int8_profile(q, imgs[:ENGINE_BATCH])
+
+    # the artifact's host cost: the loaded module against the eager graph
+    # on the same device tensors
+    host = {}
+    for bs, name in ((1, "gfpgan_bs1"), (ENGINE_BATCH, "gfpgan_bs32")):
+        module, _ = load_engine(exported[name][0], "cuda")
+        x = torch.from_numpy(imgs[:bs]).cuda()
+        with torch.inference_mode():
+            art = median_ms(lambda: module(x), 20)[0]
+            eager = median_ms(lambda: restorer._fwd_u8(x), 20)[0]
+        host[f"bs{bs}"] = dict(artifact_ms=art, eager_ms=eager)
+        log(f"exported module vs eager Restorer, bs={bs}: {art:.3f} vs "
+            f"{eager:.3f} ms per call")
+        del module
+    res["artifact_vs_eager"] = host
+    torch.cuda.empty_cache()
+    return res
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", default=None,
@@ -1918,8 +2340,14 @@ def main(argv=None):
     pipe_launches, pipe_forwards = phase_pipeline_main_path(pipe)
     pipe_check = phase_pipeline_correctness(pipe)
     pipe_thr = phase_pipeline_throughput(pipe)
-    del pipe
-    torch.cuda.empty_cache()
+
+    with tempfile.TemporaryDirectory(prefix="irt_engines_") as tmp:
+        exported = phase_export(restorer, pipe, tmp)
+        (art_k1, art_k2), art_check = phase_artifact_main_path(
+            restorer, pipe, exported)
+        del pipe
+        torch.cuda.empty_cache()
+        dyn = phase_dyn_int8(restorer, exported)
 
     a = agg[("float32", 16)]
     kernels = [{
@@ -1927,7 +2355,7 @@ def main(argv=None):
         "route": "cuda",
         "source": "image_restoration_tpu_torch/csrc/fused_bias_act.cu",
         "replaces": "image_restoration_tpu/ops/pallas/fused_act_kernel.py:43",
-        "launches": launches + pipe_launches,
+        "launches": launches + pipe_launches + art_k1,
         "max_abs_err": worst,
         "ms": a["ms"],
         "plain_ms": a["plain_ms"],
@@ -1939,7 +2367,7 @@ def main(argv=None):
         "route": "cuda",
         "source": "image_restoration_tpu_torch/csrc/int8_conv3x3.cu",
         "replaces": "image_restoration_tpu/ops/pallas/int8_conv.py:65",
-        "launches": k2_launches,
+        "launches": k2_launches + art_k2,
         "max_abs_err": max(r["max_abs_err"] for r in k2_rows),
         "ms": k2_call["ms"],
         "plain_ms": k2_call["plain_ms"],
@@ -1977,7 +2405,11 @@ def main(argv=None):
         rrdb_int8=rrdb_check, detector=detector,
         pipeline_main_path_launches=pipe_launches,
         pipeline_forwards=pipe_forwards, pipeline_correctness=pipe_check,
-        pipeline_throughput=pipe_thr, seconds=time.perf_counter() - t_start,
+        pipeline_throughput=pipe_thr,
+        exports={k: v[1] for k, v in exported.items()},
+        artifact_main_path_launches=dict(k1=art_k1, k2=art_k2),
+        artifact_correctness=art_check, dyn_int8=dyn,
+        seconds=time.perf_counter() - t_start,
         note="kernels[].ms/plain_ms/bound_ms: device time (calls back to "
              "back, CUDA events) and bound, summed over the 39 K1 launches "
              "of one batch-16 f32 forward, over the 34 K2 launches of "
@@ -1988,7 +2420,8 @@ def main(argv=None):
              " has the same yardstick for the RRDB half); K3's is cuDNN's "
              "bf16 conv; "
              "K3's launches are those of probe_conv.main(); K1's launches "
-             "are those of path 1's and path 4's main-path phases (4, 17)")
+             "are those of the main-path phases of paths 1, 4 and 5 (4, "
+             "17, 21), K2's those of paths 2 and 5 (8, 21)")
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as f:

@@ -82,6 +82,11 @@ class PlateDetector:
         """images (N, S, S, 3) float BGR in [0, 255] on the device →
         (boxes (N, K, 4), scores (N, K), landms (N, K, 10), valid (N, K)),
         K = keep_top_k, boxes and landmarks in [0, 1] coordinates."""
+        return self.forward(images)
+
+    def forward(self, images: torch.Tensor):
+        """`detect` without a grad mode of its own: the graph (net, decode,
+        NMS) that `scripts/export_detector.py` exports."""
         variances = self.cfg["variance"]
         loc, conf, landm = self.net(images - self._mean.to(images.dtype))
         loc, conf, landm = loc.float(), conf.float(), landm.float()

@@ -3,9 +3,10 @@
 Port of `image_restoration_tpu/infer.py:27-273`: `PRODUCTION_GFPGAN`, the
 `Restorer` over GFPGANv1OCR, SRVGGNetCompact or RRDBNet (float path
 `restore_batch`/`__call__`, device-IO path `restore_batch_u8`, halo-tiled
-`restore_tiled`/`restore_tiled_u8`) and the `--arch gfpgan_ocr|rrdbnet|srvgg
-[--tile N] [--bf16]` CLI. Not ported yet: `quant="dyn-int8"` and
-`data_parallel`; they raise NotImplementedError.
+`restore_tiled`/`restore_tiled_u8`), the dynamic-int8 serving mode
+(`quant="dyn-int8"`) and the `--arch gfpgan_ocr|rrdbnet|srvgg [--tile N]
+[--bf16]` CLI. Not ported yet: `data_parallel`; it raises
+NotImplementedError.
 """
 
 from __future__ import annotations
@@ -21,6 +22,7 @@ import torch
 
 from .archs import build_network
 from .convert.pth import load_pth
+from .ops.modulated_conv import int8_serving
 from .ops.resize import resize
 from .parallel.tiling import tiled_apply
 from .utils.device import resolve_device
@@ -36,6 +38,7 @@ RRDBNET_X4 = dict(type="RRDBNet", num_in_ch=3, num_out_ch=3, scale=4,
                   num_feat=64, num_block=23, num_grow_ch=32)
 SR_MEAN_STD = dict(mean=(0, 0, 0), std=(1, 1, 1), out_min_max=(0, 1))
 _PORTED_ARCHS = ("GFPGANv1OCR", "SRVGGNetCompact", "RRDBNet")
+QUANT_MODES = (None, "dyn-int8")
 
 
 class Restorer:
@@ -44,6 +47,11 @@ class Restorer:
 
     Without `ckpt_path` the weights are drawn from a generator seeded with
     `seed`. `device=None` means "cuda" and raises without a GPU.
+
+    quant="dyn-int8" runs every conv of `ops/modulated_conv.py` (the whole
+    StyleGAN2/GFPGAN family) with per-output-channel int8 weights and a
+    per-tensor int8 activation scale taken on the fly (`int8_serving`),
+    for this Restorer's forwards only; every entry point honours it.
     """
 
     def __init__(self, network_opt: dict, ckpt_path: Optional[str] = None,
@@ -52,10 +60,8 @@ class Restorer:
                  out_min_max=(-1, 1), quant: Optional[str] = None,
                  data_parallel: Optional[int] = None, device=None,
                  seed: int = 0):
-        if quant is not None:
-            raise NotImplementedError(
-                f"quant={quant!r} is not ported yet (needs an int8 conv "
-                "kernel; PyTorch has none on CUDA)")
+        if quant not in QUANT_MODES:
+            raise ValueError(f"unknown quant mode {quant!r}")
         if data_parallel:
             raise NotImplementedError("data_parallel is not ported yet")
         self.device = resolve_device(device)
@@ -66,6 +72,7 @@ class Restorer:
             raise NotImplementedError(f"Restorer({opt['type']}) is not "
                                       "ported yet")
         self.arch = opt["type"]
+        self.quant = quant
         self.net = build_network(opt, torch.Generator().manual_seed(seed))
         if ckpt_path:
             sd = load_pth(ckpt_path, param_key,
@@ -86,24 +93,41 @@ class Restorer:
             x = resize(x, self.input_size, "bilinear")
         return x
 
-    @torch.inference_mode()
-    def _fwd(self, x: torch.Tensor) -> torch.Tensor:
-        if self.arch == "GFPGANv1OCR":
-            return self.net(self._resize_in(x), return_rgb=False)[0]
-        return self.net(self._resize_in(x))
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """The normalized forward on the device, in this Restorer's quant
+        mode. No grad mode of its own, so `torch.export` can trace it; the
+        entry points run it under `inference_mode` (`_fwd`)."""
+        x = self._resize_in(x)
+        if self.quant == "dyn-int8":
+            with int8_serving():
+                return self._net_out(x)
+        return self._net_out(x)
 
-    @torch.inference_mode()
-    def _fwd_u8(self, x_u8: torch.Tensor) -> torch.Tensor:
+    def _net_out(self, x: torch.Tensor) -> torch.Tensor:
+        if self.arch == "GFPGANv1OCR":
+            return self.net(x, return_rgb=False)[0]
+        return self.net(x)
+
+    def forward_u8(self, x_u8: torch.Tensor) -> torch.Tensor:
         """uint8 RGB (N,H,W,3) on the device → uint8 BGR: /255, normalize,
-        forward, clip, rescale, BGR flip and rounding, all on the device."""
+        forward, clip, rescale, BGR flip and rounding, all on the device
+        (the graph that `scripts/export_gfpgan.py` exports)."""
         x = x_u8.float() / 255.0
         x = (x - self._mean_t) / self._std_t
-        out = self._fwd(x)
+        out = self.forward(x)
         lo, hi = self.out_min_max
         y = torch.clamp(out.float(), lo, hi)
         y = (y - lo) / (hi - lo)
         y = torch.flip(y, dims=(-1,))  # rgb2bgr, as tensor2img does
         return torch.round(y * 255.0).to(torch.uint8)
+
+    @torch.inference_mode()
+    def _fwd(self, x: torch.Tensor) -> torch.Tensor:
+        return self.forward(x)
+
+    @torch.inference_mode()
+    def _fwd_u8(self, x_u8: torch.Tensor) -> torch.Tensor:
+        return self.forward_u8(x_u8)
 
     def _to_device(self, arr: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(arr)).to(self.device)

@@ -4,15 +4,18 @@ Port of `image_restoration_tpu/ops/fused_act.py:23-40` and of the Pallas
 kernel `ops/pallas/fused_act_kernel.py` `fused_bias_lrelu_pallas`, which
 computes ``scale * leaky_relu(x + bias)`` over a channel-last (M, C) view.
 
-`fused_leaky_relu` takes the plain PyTorch version for a tensor on the CPU
-and launches the hand-written CUDA kernel (`csrc/fused_bias_act.cu`) for a
-tensor on the GPU; it never falls back from one to the other. Both compute in
-float32 and round once to x's dtype, so they agree bit for bit up to the
-order of float32 operations, which is the same.
+K1 is the custom op ``irt::fused_bias_lrelu`` (`torch.library`), so
+`torch.export` records it as one node and an exported engine runs the same
+kernel as the eager path. Its CPU impl is the plain PyTorch version, its
+CUDA impl launches the hand-written kernel (`csrc/fused_bias_act.cu`); it
+never falls back from one to the other. Both compute in float32 and round
+once to x's dtype, so they agree bit for bit up to the order of float32
+operations, which is the same. The fake impl makes the checks that need no
+data, so a bad graph fails at export time.
 
-On the GPU with grad enabled the launch runs inside `FusedLeakyReLUFunction`,
-whose backward is the closed form `g·scale·(x+b ≥ 0 ? 1 : slope)` written in
-PyTorch ops, so it is itself differentiable (R1 takes a double backward).
+The op's autograd formula is the closed form `g·scale·(x+b ≥ 0 ? 1 :
+slope)` written in PyTorch ops, so it is itself differentiable (R1 takes a
+double backward).
 """
 
 from __future__ import annotations
@@ -20,6 +23,7 @@ from __future__ import annotations
 import ctypes
 import math
 import threading
+from typing import Optional
 
 import torch
 from torch import nn
@@ -92,64 +96,84 @@ def _kernel_lib() -> ctypes.CDLL:
         return _lib
 
 
-class FusedLeakyReLUFunction(torch.autograd.Function):
-    """K1 as an autograd node: the forward launches the kernel (its plain
-    version for a CPU tensor), the backward is `fused_leaky_relu_backward`,
-    from the saved input and bias."""
-
-    @staticmethod
-    def forward(ctx, x, bias, negative_slope, scale):
-        ctx.save_for_backward(x, bias)
-        ctx.negative_slope, ctx.scale = negative_slope, scale
-        if x.device.type == "cpu":
-            return fused_leaky_relu_plain(x, bias, negative_slope, scale)
-        return _launch(x, bias, negative_slope, scale)
-
-    @staticmethod
-    def backward(ctx, grad):
-        x, bias = ctx.saved_tensors
-        gx, gb = fused_leaky_relu_backward(grad, x, bias, ctx.negative_slope,
-                                           ctx.scale)
-        return gx, gb, None, None
-
-
-def fused_leaky_relu(x: torch.Tensor, bias: torch.Tensor | None = None,
-                     negative_slope: float = 0.2,
-                     scale: float = SQRT2) -> torch.Tensor:
-    """scale * leaky_relu(x + bias) over a channel-last tensor (..., C).
-
-    CPU tensor → `fused_leaky_relu_plain`. CUDA tensor → kernel K1, which
-    needs a contiguous float32 or bfloat16 x and a bias of shape (C,) on the
-    same device (cast to x's dtype, as the TPU kernel does); anything else
-    raises. With grad enabled and x or the bias requiring it, the launch is
-    recorded as `FusedLeakyReLUFunction`. `fused_leaky_relu.launches` counts
-    the kernel's launches.
-    """
-    if x.device.type == "cpu":
-        return fused_leaky_relu_plain(x, bias, negative_slope, scale)
-    if torch.is_grad_enabled() and (
-            x.requires_grad or (bias is not None and bias.requires_grad)):
-        return FusedLeakyReLUFunction.apply(x, bias, negative_slope, scale)
-    return _launch(x, bias, negative_slope, scale)
-
-
-def _launch(x: torch.Tensor, bias: torch.Tensor | None,
-            negative_slope: float, scale: float) -> torch.Tensor:
-    """Check x and bias, then launch K1 on x's stream."""
+def _check_kernel_args(x: torch.Tensor, bias: Optional[torch.Tensor]):
+    """What K1 takes, read from metadata alone (the fake impl runs it too):
+    a contiguous float32 or bfloat16 x on the GPU, a bias of shape (C,)."""
+    c = x.shape[-1] if x.dim() else 1
+    if bias is not None and tuple(bias.shape) != (c,):
+        raise ValueError(f"bias shape {tuple(bias.shape)} != ({c},)")
     if x.device.type != "cuda":
-        raise ValueError(f"fused_leaky_relu: unsupported device {x.device}")
+        return
     if x.dtype not in _DTYPE_CODES:
         raise TypeError(f"fused_leaky_relu kernel takes float32 or bfloat16, "
                         f"got {x.dtype}")
     if not x.is_contiguous():
         raise ValueError("fused_leaky_relu kernel needs a contiguous "
                          "channel-last tensor")
+    if bias is not None and bias.device != x.device:
+        raise ValueError(f"bias on {bias.device}, x on {x.device}")
+
+
+@torch.library.custom_op("irt::fused_bias_lrelu", mutates_args=(),
+                         device_types="cpu")
+def fused_bias_lrelu_op(x: torch.Tensor, bias: Optional[torch.Tensor],
+                        negative_slope: float, scale: float) -> torch.Tensor:
+    """K1 as a custom op; this CPU impl is the plain version."""
+    return fused_leaky_relu_plain(x, bias, negative_slope, scale)
+
+
+@fused_bias_lrelu_op.register_kernel("cuda")
+def _fused_bias_lrelu_cuda(x, bias, negative_slope, scale):
+    return _launch(x, bias, negative_slope, scale)
+
+
+@fused_bias_lrelu_op.register_fake
+def _fused_bias_lrelu_fake(x, bias, negative_slope, scale):
+    _check_kernel_args(x, bias)
+    return torch.empty_like(x)
+
+
+def _setup_backward(ctx, inputs, output):
+    x, bias, negative_slope, scale = inputs
+    ctx.save_for_backward(x, bias)
+    ctx.negative_slope, ctx.scale = negative_slope, scale
+
+
+def _backward(ctx, grad):
+    x, bias = ctx.saved_tensors
+    gx, gb = fused_leaky_relu_backward(grad, x, bias, ctx.negative_slope,
+                                       ctx.scale)
+    return gx, gb, None, None
+
+
+fused_bias_lrelu_op.register_autograd(_backward,
+                                      setup_context=_setup_backward)
+
+
+def fused_leaky_relu(x: torch.Tensor, bias: torch.Tensor | None = None,
+                     negative_slope: float = 0.2,
+                     scale: float = SQRT2) -> torch.Tensor:
+    """scale * leaky_relu(x + bias) over a channel-last tensor (..., C),
+    through the op ``irt::fused_bias_lrelu``.
+
+    CPU tensor → `fused_leaky_relu_plain`. CUDA tensor → kernel K1, which
+    needs a contiguous float32 or bfloat16 x and a bias of shape (C,) on the
+    same device (cast to x's dtype, as the TPU kernel does); anything else
+    raises. With grad enabled the op records its autograd node.
+    `fused_leaky_relu.launches` counts the kernel's launches.
+    """
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"fused_leaky_relu: unsupported device {x.device}")
+    return torch.ops.irt.fused_bias_lrelu(x, bias, float(negative_slope),
+                                          float(scale))
+
+
+def _launch(x: torch.Tensor, bias: torch.Tensor | None,
+            negative_slope: float, scale: float) -> torch.Tensor:
+    """Check x and bias, then launch K1 on x's stream."""
+    _check_kernel_args(x, bias)
     c = x.shape[-1] if x.dim() else 1
     if bias is not None:
-        if bias.shape != (c,):
-            raise ValueError(f"bias shape {tuple(bias.shape)} != ({c},)")
-        if bias.device != x.device:
-            raise ValueError(f"bias on {bias.device}, x on {x.device}")
         bias = bias.to(x.dtype)
         if not bias.is_contiguous():
             raise ValueError("bias must be contiguous")

@@ -21,6 +21,8 @@ from __future__ import annotations
 
 import torch
 
+from ..utils.device import DeviceConstants
+
 
 def homography_from_points(src: torch.Tensor, dst: torch.Tensor):
     """(..., 4, 2) src → dst points: the 8-dof homography (..., 3, 3);
@@ -85,9 +87,12 @@ def homography_square_to_quad(t: float, quad: torch.Tensor) -> torch.Tensor:
                           torch.stack([d, e, y0], -1),
                           torch.stack([g, h, torch.ones_like(g)], -1)], -2)
     # a product, as in JAX: a non-finite entry spreads along its row
-    scale = torch.diag(torch.tensor([1.0 / t, 1.0 / t, 1.0],
-                                    dtype=torch.float32, device=q.device))
-    return m_unit @ scale
+    return m_unit @ _unit_scale(float(t), q.device)
+
+
+# diag(1/t, 1/t, 1) on a device: the unit square → the t × t canvas
+_unit_scale = DeviceConstants(lambda t, device: torch.diag(torch.tensor(
+    [1.0 / t, 1.0 / t, 1.0], dtype=torch.float32, device=device)))
 
 
 def _pixel_grid(h: int, w: int, device):

@@ -10,9 +10,11 @@ dx, c) order, contracted with the (3, 3, Cin, Cout) weight reshaped to
 
 `conv3x3_im2col` keeps the JAX signature and its `H % bh == 0` check, so a
 caller fails where JAX fails; `bh` sets nothing else here, since the kernel
-tiles on its own. CPU tensors take `conv3x3_im2col_plain`; CUDA tensors
-launch the hand-written kernel (`csrc/conv3x3_im2col.cu`), an implicit GEMM
-on the bf16 tensor cores; it never falls back from one to the other.
+tiles on its own. K3 is the custom op ``irt::conv3x3_im2col``
+(`torch.library`), called the same way as K1 and K2: its CPU impl is
+`conv3x3_im2col_plain`, its CUDA impl launches the hand-written kernel
+(`csrc/conv3x3_im2col.cu`), an implicit GEMM on the bf16 tensor cores; it
+never falls back from one to the other.
 """
 
 from __future__ import annotations
@@ -81,10 +83,52 @@ def _kernel_lib() -> ctypes.CDLL:
         return _lib
 
 
+def _check_kernel_args(x_padded, weight):
+    """What the CUDA impl takes beyond `_check`, read from metadata alone:
+    bf16 x and weight on one device, x contiguous, Cin ≤ 128 after padding
+    to 16. Returns the padded Cin."""
+    if x_padded.dtype != torch.bfloat16 or weight.dtype != torch.bfloat16:
+        raise TypeError(f"the conv3x3_im2col kernel takes bfloat16 x and "
+                        f"weight, got {x_padded.dtype} and {weight.dtype}")
+    if weight.device != x_padded.device:
+        raise ValueError(f"weight must be on x's device {x_padded.device}")
+    if not x_padded.is_contiguous():
+        raise ValueError("the conv3x3_im2col kernel needs a contiguous NHWC x")
+    cin_p = -(-x_padded.shape[3] // 16) * 16
+    if cin_p > MAX_CIN:
+        raise ValueError(f"the conv3x3_im2col kernel takes Cin <= {MAX_CIN}, "
+                         f"got {x_padded.shape[3]}")
+    return cin_p
+
+
+@torch.library.custom_op("irt::conv3x3_im2col", mutates_args=(),
+                         device_types="cpu")
+def conv3x3_im2col_op(x_padded: torch.Tensor, weight: torch.Tensor, bh: int,
+                      out_dtype: torch.dtype) -> torch.Tensor:
+    """K3 as a custom op; this CPU impl is the plain version."""
+    return conv3x3_im2col_plain(x_padded, weight, bh, out_dtype)
+
+
+@conv3x3_im2col_op.register_kernel("cuda")
+def _conv3x3_im2col_cuda(x_padded, weight, bh, out_dtype):
+    return _launch(x_padded, weight, bh, out_dtype)
+
+
+@conv3x3_im2col_op.register_fake
+def _conv3x3_im2col_fake(x_padded, weight, bh, out_dtype):
+    _check(x_padded, weight, bh, out_dtype)
+    if x_padded.device.type == "cuda":
+        _check_kernel_args(x_padded, weight)
+    n, hp, wp, _ = x_padded.shape
+    return x_padded.new_empty((n, hp - 2, wp - 2, weight.shape[3]),
+                              dtype=out_dtype)
+
+
 def conv3x3_im2col(x_padded: torch.Tensor, weight: torch.Tensor, bh: int = 8,
                    out_dtype=torch.bfloat16) -> torch.Tensor:
     """(N, H+2, W+2, Cin) pre-padded input, (3, 3, Cin, Cout) weight →
-    (N, H, W, Cout) in `out_dtype` (bfloat16 or float32).
+    (N, H, W, Cout) in `out_dtype` (bfloat16 or float32), through the op
+    ``irt::conv3x3_im2col``.
 
     CPU tensors → `conv3x3_im2col_plain`. CUDA tensors → kernel K3, which
     takes bf16 x and weight on one device, x contiguous and 16-byte
@@ -93,24 +137,19 @@ def conv3x3_im2col(x_padded: torch.Tensor, weight: torch.Tensor, bh: int = 8,
     `conv3x3_im2col.launches` counts the kernel's launches.
     """
     _check(x_padded, weight, bh, out_dtype)
-    if x_padded.device.type == "cpu":
-        return conv3x3_im2col_plain(x_padded, weight, bh, out_dtype)
-    if x_padded.device.type != "cuda":
+    if x_padded.device.type not in ("cpu", "cuda"):
         raise ValueError(f"conv3x3_im2col: unsupported device "
                          f"{x_padded.device}")
-    if x_padded.dtype != torch.bfloat16 or weight.dtype != torch.bfloat16:
-        raise TypeError(f"the conv3x3_im2col kernel takes bfloat16 x and "
-                        f"weight, got {x_padded.dtype} and {weight.dtype}")
-    if weight.device != x_padded.device:
-        raise ValueError(f"weight must be on x's device {x_padded.device}")
-    if not x_padded.is_contiguous():
-        raise ValueError("the conv3x3_im2col kernel needs a contiguous NHWC x")
+    return torch.ops.irt.conv3x3_im2col(x_padded, weight, int(bh), out_dtype)
+
+
+def _launch(x_padded, weight, bh, out_dtype):
+    """Check the arguments, pad Cin and Cout, then launch K3 on x's
+    stream."""
+    _check(x_padded, weight, bh, out_dtype)
+    cin_p = _check_kernel_args(x_padded, weight)
     n, hp, wp, cin = x_padded.shape
     cout = weight.shape[3]
-    cin_p = -(-cin // 16) * 16
-    if cin_p > MAX_CIN:
-        raise ValueError(f"the conv3x3_im2col kernel takes Cin <= {MAX_CIN}, "
-                         f"got {cin}")
     cout_w = -(-cout // 8) * 8
     if cin_p != cin:
         x_padded = F.pad(x_padded, (0, cin_p - cin))

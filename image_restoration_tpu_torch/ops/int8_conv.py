@@ -21,15 +21,21 @@ epilogues:
   activation, round or clip. The bias is optional (None).
 
 `alpha=None` means no PReLU (conv_last's int8 sink). Rounding is half to even
-in all three. `int8_conv3x3_requant` takes the plain version for CPU tensors
-and launches the hand-written CUDA kernel (`csrc/int8_conv3x3.cu`) for CUDA
-tensors; it never falls back from one to the other.
+in all three. K2 is the custom op ``irt::int8_conv3x3_requant``
+(`torch.library`), so `torch.export` records it as one node: its CPU impl is
+the plain version, its CUDA impl launches the hand-written kernel
+(`csrc/int8_conv3x3.cu`); it never falls back from one to the other. The
+fake impl checks what needs no data and gives the output's shape and type;
+the channel padding and the 16-byte alignment check read data pointers, so
+they stay in the CUDA impl. `s_out` is a Python number, a constant of the
+engine (the port's chains fold it into deq and b and pass none).
 """
 
 from __future__ import annotations
 
 import ctypes
 import threading
+from typing import Optional
 
 import numpy as np
 import torch
@@ -139,39 +145,80 @@ def _pad_channels(t: torch.Tensor, to: int) -> torch.Tensor:
     return t if t.shape[-1] == to else F.pad(t, (0, to - t.shape[-1]))
 
 
+def _check_kernel_args(x, weight, deq, bias, alpha, pad, epilogue):
+    """What the CUDA impl takes beyond `_check`, read from metadata alone:
+    the parameters on x's device and Cin ≤ 192 after padding to 32."""
+    params = [p for p in (weight, deq, bias, alpha) if p is not None]
+    if any(p.device != x.device for p in params):
+        raise ValueError("weight, deq, bias and alpha must be on x's device "
+                         f"{x.device}")
+    cin = -(-x.shape[3] // CIN_MULTIPLE) * CIN_MULTIPLE
+    if cin > MAX_CIN:
+        raise ValueError(f"int8_conv3x3_requant kernel takes at most "
+                         f"{MAX_CIN} input channels, got {x.shape[3]}")
+    return cin
+
+
+@torch.library.custom_op("irt::int8_conv3x3_requant", mutates_args=(),
+                         device_types="cpu")
+def int8_conv3x3_requant_op(x: torch.Tensor, weight: torch.Tensor,
+                            deq: torch.Tensor, bias: Optional[torch.Tensor],
+                            alpha: Optional[torch.Tensor],
+                            s_out: Optional[float], pad: int,
+                            epilogue: str) -> torch.Tensor:
+    """K2 as a custom op; this CPU impl is the plain version."""
+    return int8_conv3x3_requant_plain(x, weight, deq, bias, alpha, s_out,
+                                      pad, epilogue)
+
+
+@int8_conv3x3_requant_op.register_kernel("cuda")
+def _int8_conv3x3_requant_cuda(x, weight, deq, bias, alpha, s_out, pad,
+                               epilogue):
+    return _launch(x, weight, deq, bias, alpha, s_out, pad, epilogue)
+
+
+@int8_conv3x3_requant_op.register_fake
+def _int8_conv3x3_requant_fake(x, weight, deq, bias, alpha, s_out, pad,
+                               epilogue):
+    _check(x, weight, deq, bias, alpha, s_out, pad, epilogue)
+    if x.device.type == "cuda":
+        _check_kernel_args(x, weight, deq, bias, alpha, pad, epilogue)
+    n, h, w, _ = x.shape
+    return x.new_empty((n, h + 2 * pad - 2, w + 2 * pad - 2, weight.shape[0]),
+                       dtype=EPILOGUES[epilogue][2])
+
+
 def int8_conv3x3_requant(x: torch.Tensor, weight: torch.Tensor,
                          deq: torch.Tensor, bias: torch.Tensor | None,
                          alpha: torch.Tensor | None = None, s_out=None,
                          pad: int = 1, epilogue: str = "bf16") -> torch.Tensor:
     """(N, H, W, Cin) int8 → (N, H + 2·pad − 2, W + 2·pad − 2, Cout), int8
-    (bfloat16 for the "bf16_deq" epilogue).
+    (bfloat16 for the "bf16_deq" epilogue), through the op
+    ``irt::int8_conv3x3_requant``.
 
     CPU tensors → `int8_conv3x3_requant_plain`. CUDA tensors → kernel K2,
     which needs contiguous x and weight on one device; deq, bias and alpha
     are cast to the epilogue's type (float32 or bfloat16). Cin is padded to
     a multiple of 32 with zero channels and zero weights, and may be at most
-    192 after that. Anything else raises. `int8_conv3x3_requant.launches`
-    counts the kernel's launches.
+    192 after that. Anything else raises. `s_out` is a Python number or
+    None. `int8_conv3x3_requant.launches` counts the kernel's launches.
     """
-    if x.device.type == "cpu":
-        return int8_conv3x3_requant_plain(x, weight, deq, bias, alpha, s_out,
-                                          pad, epilogue)
-    if x.device.type != "cuda":
+    if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"int8_conv3x3_requant: unsupported device "
                          f"{x.device}")
+    return torch.ops.irt.int8_conv3x3_requant(
+        x, weight, deq, bias, alpha, None if s_out is None else float(s_out),
+        int(pad), epilogue)
+
+
+def _launch(x, weight, deq, bias, alpha, s_out, pad, epilogue):
+    """Check the arguments, pad Cin, then launch K2 on x's stream."""
     _check(x, weight, deq, bias, alpha, s_out, pad, epilogue)
-    params = [p for p in (weight, deq, bias, alpha) if p is not None]
-    if any(p.device != x.device for p in params):
-        raise ValueError("weight, deq, bias and alpha must be on x's device "
-                         f"{x.device}")
+    cin = _check_kernel_args(x, weight, deq, bias, alpha, pad, epilogue)
     if not (x.is_contiguous() and weight.is_contiguous()):
         raise ValueError("int8_conv3x3_requant kernel needs contiguous NHWC "
                          "x and (Cout, 3, 3, Cin) weight")
     mode, pdt, out_dt = EPILOGUES[epilogue]
-    cin = -(-x.shape[3] // CIN_MULTIPLE) * CIN_MULTIPLE
-    if cin > MAX_CIN:
-        raise ValueError(f"int8_conv3x3_requant kernel takes at most "
-                         f"{MAX_CIN} input channels, got {x.shape[3]}")
     x = _pad_channels(x, cin)
     weight = _pad_channels(weight, cin)
     if (x.data_ptr() | weight.data_ptr()) % 16:
@@ -190,7 +237,7 @@ def int8_conv3x3_requant(x: torch.Tensor, weight: torch.Tensor,
             x.data_ptr(), weight.data_ptr(), deq.data_ptr(),
             None if bias is None else bias.data_ptr(),
             None if alpha is None else alpha.data_ptr(),
-            1.0 if s_out is None else float(s_out), out.data_ptr(),
+            1.0 if s_out is None else s_out, out.data_ptr(),
             n, h, w, cin, cout, pad, mode, stream)
     if err != 0:
         msg = lib.int8_conv3x3_error_string(err).decode()

@@ -1,7 +1,9 @@
 """Convolutions in NHWC and the StyleGAN2 modulated convolution.
 
-Port of `image_restoration_tpu/ops/modulated_conv.py:93-174` (default paths
-only: the fused-resample and dynamic-int8 modes are not ported yet).
+Port of `image_restoration_tpu/ops/modulated_conv.py:35-174`: the default
+paths and the dynamic-int8 serving mode (`int8_serving`); the
+fused-resample paths (FUSE_UP / FUSE_DOWN) are not ported yet, but
+`fused_valid_conv`, their inner conv, is.
 
 Layout: activations NHWC, weights OIHW (the reference checkpoint's layout).
 A conv runs on `x.permute(0, 3, 1, 2)`, an NCHW-shaped tensor in
@@ -14,23 +16,145 @@ The modulated conv uses the exact rewrite of the JAX package:
 
 so the conv is one dense conv shared by the batch, and the demodulation
 `d[n,o] = rsqrt(Σ_{ihw} W² s² + eps)` is one einsum, computed in float32.
+
+Dynamic int8 (JAX :35-80): inside `int8_serving()` every conv of this
+module runs with per-output-channel int8 weights and a per-tensor int8
+activation scale `max|x|/127 + 1e-12` taken on the fly over the whole batch
+(so a result depends on what shares its batch, as in JAX), int32 sums, and
+a bf16 epilogue `acc→bf16 × (sx·sw→bf16)`. JAX reads its flag once, when a
+function is traced; here it is read at every call, so it is a ContextVar:
+`Restorer` sets it around its own forward, and neither another restorer
+nor another thread sees it. The int8 product is what JAX leaves to XLA's
+int8 conv: an explicit NHWC im2col and `torch._int_mm` (int8 × int8 →
+int32, exact), K and N padded with zeros to multiples of 8. The FIR
+depthwise convs (`upfirdn.py`) stay float, as in JAX.
 """
 
 from __future__ import annotations
+
+import contextvars
+from contextlib import contextmanager
 
 import torch
 import torch.nn.functional as F
 
 from .upfirdn import upfirdn_smooth
 
+_INT8_SERVING = contextvars.ContextVar("irt_int8_serving", default=False)
+
+
+@contextmanager
+def int8_serving():
+    """Run the convs of this module in dynamic int8 inside the block, in
+    this context only (this thread, this task)."""
+    token = _INT8_SERVING.set(True)
+    try:
+        yield
+    finally:
+        _INT8_SERVING.reset(token)
+
+
+def _dyn_quant(t: torch.Tensor):
+    """Per-tensor int8: s = max|t|/127 + 1e-12 in float32, q = clip(round(t
+    / s), ±127), round half to even, true divisions (a division by a Python
+    number may become a multiplication by its reciprocal on the GPU)."""
+    t32 = t.float()
+    m = t32.abs().amax()
+    s = m / torch.full_like(m, 127.0) + 1e-12
+    q = torch.clamp(torch.round(t32 / s), -127, 127)
+    return q.to(torch.int8), s
+
+
+def _quant_weight(w: torch.Tensor):
+    """Per-output-channel int8 of an OIHW weight (axis 0; JAX takes the
+    last axis of HWIO)."""
+    w32 = w.float()
+    m = w32.abs().amax(dim=(1, 2, 3))
+    s = m / torch.full_like(m, 127.0) + 1e-12
+    q = torch.clamp(torch.round(w32 / s[:, None, None, None]), -127, 127)
+    return q.to(torch.int8), s
+
+
+def _round_up(v: int, m: int) -> int:
+    return -(-v // m) * m
+
+
+def _im2col(xq: torch.Tensor, kh: int, kw: int, stride: int, padding,
+            lhs_dilation: int = 1):
+    """The (M, K) im2col matrix of NHWC xq for a kh × kw window, in (dy,
+    dx, c) order, with JAX's input dilation and padding ((top, bottom),
+    (left, right)); M padded to a multiple of 8 and at least 32 and K to a
+    multiple of 8, with zeros (`torch._int_mm` takes no smaller shapes on
+    the GPU). Returns (matrix, (N, Ho, Wo))."""
+    n, h, w, c = xq.shape
+    if lhs_dilation > 1:
+        d = lhs_dilation
+        xd = xq.new_zeros((n, (h - 1) * d + 1, (w - 1) * d + 1, c))
+        xd[:, ::d, ::d] = xq
+        xq = xd
+    (pt, pb), (pl, pr) = padding
+    xp = F.pad(xq, (0, 0, pl, pr, pt, pb))
+    ho = (xp.shape[1] - kh) // stride + 1
+    wo = (xp.shape[2] - kw) // stride + 1
+    k = kh * kw * c
+    kp, m = _round_up(k, 8), n * ho * wo
+    cols = [xp[:, dy:dy + (ho - 1) * stride + 1:stride,
+               dx:dx + (wo - 1) * stride + 1:stride]
+            for dy in range(kh) for dx in range(kw)]
+    if kp != k:
+        cols.append(xp.new_zeros((n, ho, wo, kp - k)))
+    a = torch.cat(cols, dim=-1).reshape(m, kp)
+    mp = max(_round_up(m, 8), 32)
+    if mp != m:
+        a = F.pad(a, (0, 0, 0, mp - m))
+    return a, (n, ho, wo)
+
+
+def _int8_conv_sums(xq: torch.Tensor, wq: torch.Tensor, stride: int,
+                    padding, lhs_dilation: int = 1) -> torch.Tensor:
+    """Exact int32 sums of the NHWC int8 conv of xq with the OIHW int8 wq:
+    `lax.conv_general_dilated(xq, wq, stride, padding, lhs_dilation,
+    preferred_element_type=int32)`, as one `torch._int_mm` of the im2col
+    matrix with the weight, Cout padded to a multiple of 8 with zeros."""
+    cout, cin, kh, kw = wq.shape
+    a, (n, ho, wo) = _im2col(xq, kh, kw, stride, padding, lhs_dilation)
+    k = kh * kw * cin
+    b = wq.permute(0, 2, 3, 1).reshape(cout, k)
+    b = F.pad(b, (0, a.shape[1] - k, 0, _round_up(cout, 8) - cout))
+    # b as (K, Cout) in column-major order, the layout cuBLASLt's int8
+    # GEMM takes
+    acc = torch._int_mm(a, b.t())
+    return acc[:n * ho * wo, :cout].reshape(n, ho, wo, cout)
+
+
+def _int8_conv(x: torch.Tensor, w: torch.Tensor, stride: int, padding,
+               lhs_dilation: int = 1, out_dtype=None) -> torch.Tensor:
+    """JAX `_int8_conv` (:70-80) for NHWC x and an OIHW weight."""
+    xq, sx = _dyn_quant(x)
+    wq, sw = _quant_weight(w)
+    acc = _int8_conv_sums(xq, wq, stride, padding, lhs_dilation)
+    deq = (sx * sw).to(torch.bfloat16)
+    return (acc.float().to(torch.bfloat16) * deq).to(out_dtype or x.dtype)
+
 
 def _nhwc(y: torch.Tensor) -> torch.Tensor:
     return y.permute(0, 2, 3, 1).contiguous()
 
 
+def fused_valid_conv(xp: torch.Tensor, wc: torch.Tensor) -> torch.Tensor:
+    """VALID stride-1 conv of the fused-resample paths (JAX :83-90),
+    honouring the dynamic-int8 mode."""
+    if _INT8_SERVING.get():
+        return _int8_conv(xp, wc, 1, ((0, 0), (0, 0)))
+    return _nhwc(F.conv2d(xp.permute(0, 3, 1, 2), wc.to(xp.dtype)))
+
+
 def conv2d(x: torch.Tensor, weight: torch.Tensor, stride: int = 1,
            padding: int = 0) -> torch.Tensor:
     """NHWC conv with an OIHW weight (torch Conv2d semantics)."""
+    if _INT8_SERVING.get():
+        return _int8_conv(x, weight, stride,
+                          ((padding, padding), (padding, padding)))
     return _nhwc(F.conv2d(x.permute(0, 3, 1, 2), weight.to(x.dtype),
                           stride=stride, padding=padding))
 
@@ -38,7 +162,14 @@ def conv2d(x: torch.Tensor, weight: torch.Tensor, stride: int = 1,
 def conv_transpose2d(x: torch.Tensor, weight: torch.Tensor,
                      stride: int = 2) -> torch.Tensor:
     """torch.conv_transpose2d(stride, padding=0) of an NHWC tensor, with the
-    same OIHW weight a forward conv would use (JAX :106-124)."""
+    same OIHW weight a forward conv would use (JAX :106-124). In int8 it is
+    JAX's form: the input-dilated correlation with the flipped kernel, cast
+    to x's dtype before it is quantized."""
+    if _INT8_SERVING.get():
+        kh, kw = weight.shape[2], weight.shape[3]
+        return _int8_conv(x, torch.flip(weight, (2, 3)).to(x.dtype), 1,
+                          ((kh - 1, kh - 1), (kw - 1, kw - 1)),
+                          lhs_dilation=stride)
     return _nhwc(F.conv_transpose2d(x.permute(0, 3, 1, 2),
                                     weight.transpose(0, 1).to(x.dtype),
                                     stride=stride))

@@ -8,10 +8,10 @@ ConvUpLayer ×2 upsample and the Restorer input resize.
 
 from __future__ import annotations
 
-import functools
-
 import numpy as np
 import torch
+
+from ..utils.device import DeviceConstants
 
 
 def cv2_resize_matrix(in_length: int, out_length: int,
@@ -35,13 +35,15 @@ def cv2_resize_matrix(in_length: int, out_length: int,
     return mat.astype(np.float32)
 
 
-@functools.lru_cache(maxsize=64)
-def _matrix(in_length: int, out_length: int, interpolation: str,
-            device: torch.device, dtype: torch.dtype) -> torch.Tensor:
-    """The resize matrix on `device`, built once per shape (few distinct
-    shapes per network, so the cache stays small)."""
+def _build_matrix(in_length: int, out_length: int, interpolation: str,
+                  device: torch.device, dtype: torch.dtype) -> torch.Tensor:
     mat = cv2_resize_matrix(in_length, out_length, interpolation)
     return torch.as_tensor(mat, device=device).to(dtype)
+
+
+# the resize matrix on a device, built once per shape (few distinct shapes
+# per network, so the cache stays small)
+_matrix = DeviceConstants(_build_matrix, maxsize=64)
 
 
 def resize(img: torch.Tensor, out_hw, interpolation: str = "bilinear") -> torch.Tensor:

@@ -15,10 +15,10 @@ Layout: NHWC in and out; the kernel is shared across channels.
 
 from __future__ import annotations
 
-import functools
-
 import torch
 import torch.nn.functional as F
+
+from ..utils.device import DeviceConstants
 
 
 def make_resample_kernel(k) -> torch.Tensor:
@@ -29,11 +29,11 @@ def make_resample_kernel(k) -> torch.Tensor:
     return k / torch.sum(k)
 
 
-@functools.lru_cache(maxsize=32)
-def _resample_kernel(k: tuple, factor2: int, device: torch.device) -> torch.Tensor:
-    """make_resample_kernel(k) * factor2 on `device`, built once: a fresh
-    host→device copy per call would stall the host on every layer."""
-    return make_resample_kernel(k).mul_(factor2).to(device)
+# make_resample_kernel(k) * factor2 on a device, built once per (k,
+# factor2, device)
+_resample_kernel = DeviceConstants(
+    lambda k, factor2, device: make_resample_kernel(k).mul_(factor2).to(
+        device), maxsize=32)
 
 
 def upfirdn2d(x: torch.Tensor, kernel: torch.Tensor, up: int = 1,

@@ -5,8 +5,9 @@ Port of `image_restoration_tpu/serve/api.py:32-316`: the stdlib HTTP handler
 in front of a `ServiceCore` that holds the product pipeline (`PlatePipeline`:
 detect → crop → restore plate and car → paste back, the 6-panel montage PNG
 of `/Vehicle_Resolution_GFPGAN/`), a `Restorer` and, optionally, the ×4 SR
-tile engine (`EngineRestorer`). Concurrent requests can be coalesced by the
-micro-batcher (`microbatch=`, `IRT_MICROBATCH`). All device work runs on one
+tile engine (`EngineRestorer`, built in process with `--sr` or loaded from
+the artifact directory in `IRT_SR_ENGINE`). Concurrent requests can be
+coalesced by the micro-batcher (`microbatch=`, `IRT_MICROBATCH`). All device work runs on one
 worker thread: PyTorch caches cuDNN's execution plans per thread, so running
 on the server's thread-per-request would plan every conv anew for each
 request. A route whose part is not configured answers with the reference's
@@ -15,6 +16,7 @@ request. A route whose part is not configured answers with the reference's
     python -m image_restoration_tpu_torch.serve.api [--port 8000] \
         [--device-geometry] [--microbatch N|auto] [--detector-ckpt D.pth] \
         [--ckpt X.pth] [--sr [--sr-pth realesr.pth]]
+    IRT_SR_ENGINE=engine_sr/ python -m image_restoration_tpu_torch.serve.api
 """
 
 from __future__ import annotations
@@ -79,7 +81,9 @@ class ServiceCore:
         (uint8 on the wire, normalization on the device, ≤1 LSB from the
         host float path); False uses the reference-exact float path.
         sr_engine: an `EngineRestorer` (or any RGB uint8 → RGB uint8
-        callable) behind `/SRx4/`.
+        callable) behind `/SRx4/`; without one, the artifact directory in
+        the IRT_SR_ENGINE env var, if set (scripts/export_restorer.py).
+        restorer may be an exported `EngineFaceRestorer`.
 
         microbatch (int, "auto", or None → the IRT_MICROBATCH env var, 0 by
         default) coalesces concurrent restore requests into one call of up
@@ -95,6 +99,13 @@ class ServiceCore:
         if restorer is None and pipeline is not None:
             restorer = pipeline.car_restorer
         self.restorer = restorer
+        if sr_engine is None and os.environ.get("IRT_SR_ENGINE"):
+            # an artifact of scripts/export_restorer.py, on the device of
+            # the core's restorer (or the GPU)
+            from .engine_restorer import EngineRestorer
+            sr_engine = EngineRestorer(os.environ["IRT_SR_ENGINE"],
+                                       device=getattr(restorer, "device",
+                                                      None))
         self.sr_engine = sr_engine
         self.device_io = device_io and hasattr(self.restorer,
                                                "restore_batch_u8")
@@ -208,8 +219,9 @@ class ServiceCore:
         (no resize: the tiler handles the size), PNG."""
         if self.sr_engine is None:
             raise RuntimeError(
-                "no SR engine configured: build one with "
-                "EngineRestorer.build() (serve.api --sr)")
+                "no SR engine configured: export one with "
+                "scripts/export_restorer.py and set IRT_SR_ENGINE, or build "
+                "one in process (serve.api --sr)")
         rgb = np.ascontiguousarray(img_bgr[..., ::-1])
         out = self._worker.submit(self.sr_engine, rgb).result()
         return _encode(np.ascontiguousarray(out[..., ::-1]), ".png")

@@ -15,8 +15,9 @@ reference Car_Plate-Restoration/api_plate_oto.py:
 
 Threads: PyTorch caches cuDNN's plans per thread, so every device call runs
 on the thread that calls `process`/`process_batch`; their thread pool runs
-only cv2/numpy stages. The exported fused-geometry engine (`geo_engine=`)
-is not ported yet.
+only cv2/numpy stages. An exported fused-geometry engine (`geo_engine=`,
+`EngineGeoPipeline`) serves everything after the detector from its
+artifact.
 """
 
 from __future__ import annotations
@@ -76,7 +77,10 @@ def build_geo_fused(plate_restorer, car_restorer, target: int):
     api_plate_oto.py:264-320,449-466, through ops/geometry.py).
 
     fused(canvas_u8 (N, T, T, 3) BGR, quads (N, 4, 2) float32), both on the
-    restorers' device → (montage_u8 (N, T, 6T, 3), masked_canvas_u8)."""
+    restorers' device → (montage_u8 (N, T, 6T, 3), masked_canvas_u8). It
+    sets no grad mode, so `scripts/export_gfpgan.py --with-geometry` can
+    export it; call it under `torch.inference_mode()`. Each restore runs in
+    its Restorer's quant mode."""
     t = target
     plate, car = plate_restorer, car_restorer
     same = plate is car
@@ -104,7 +108,6 @@ def build_geo_fused(plate_restorer, car_restorer, target: int):
     lo_c, hi_c = car.out_min_max
     eye = torch.eye(3, device=dev)
 
-    @torch.inference_mode()
     def fused(canvas_u8: torch.Tensor, quads: torch.Tensor):
         n = canvas_u8.shape[0]
         canvas_f = canvas_u8.float()
@@ -120,10 +123,10 @@ def build_geo_fused(plate_restorer, car_restorer, target: int):
         plate_in = (crop_rs / 255.0 - mean_p) / std_p
         car_in = (canvas_f.flip(-1) / 255.0 - mean_c) / std_c
         if same:
-            out = plate._fwd(torch.cat([plate_in, car_in]))
+            out = plate.forward(torch.cat([plate_in, car_in]))
             out_p, out_c = out[:n], out[n:]
         else:
-            out_p, out_c = plate._fwd(plate_in), car._fwd(car_in)
+            out_p, out_c = plate.forward(plate_in), car.forward(car_in)
         yp = torch.clamp(out_p.float(), lo_p, hi_p) - lo_p
         plate_f = yp / (hi_p - lo_p) * 255.0        # stays in net order
         yc = torch.clamp(out_c.float(), lo_c, hi_c) - lo_c
@@ -180,33 +183,54 @@ class PlatePipeline:
         Missing parts are built on `device` (None → "cuda", raising without
         a GPU): the default Resnet18 detector at 224² and two
         `Restorer(PRODUCTION_GFPGAN)`, with weights from `seed` unless a
-        checkpoint is given. geo_engine (an exported fused-geometry engine)
-        is not ported yet and raises."""
+        checkpoint is given.
+
+        geo_engine: an exported fused-geometry engine (`EngineGeoPipeline`,
+        from `scripts/export_gfpgan.py --with-geometry`) that serves the
+        same post-detector graph from its artifact; it implies
+        device_geometry. The engine's own weights serve every restore, so
+        restorers or checkpoints given beside it are unused (a warning
+        says so) and none is built for it."""
         if geo_engine is not None:
-            raise NotImplementedError(
-                "geo_engine (an exported fused-geometry engine) is not "
-                "ported yet (needs the kernels as torch.library custom ops "
-                "for torch.export)")
+            tgt = getattr(geo_engine, "target", None)
+            if tgt is not None and tgt != self.TARGET:
+                raise ValueError(
+                    f"geo_engine target {tgt} != pipeline TARGET "
+                    f"{self.TARGET} (exported at a different canvas size)")
+            if any(a is not None for a in (plate_restorer, car_restorer,
+                                           plate_ckpt, car_ckpt)):
+                log.warning("PlatePipeline: geo_engine is set; every restore "
+                            "is served from the engine's own weights, the "
+                            "restorer and checkpoint arguments are unused")
         self.detector = detector or PlateDetector(
             ckpt_path=detector_ckpt, dtype=dtype, device=device, seed=seed)
         # the reference's TorchScript plate model is GFPGANv1OCR at the
-        # production config (SURVEY §7)
-        self.plate_restorer = plate_restorer or Restorer(
-            PRODUCTION_GFPGAN, plate_ckpt, dtype=dtype, device=device,
-            seed=seed)
-        self.car_restorer = car_restorer or Restorer(
-            PRODUCTION_GFPGAN, car_ckpt, dtype=dtype, device=device,
-            seed=seed)
+        # production config (SURVEY §7); with a geo_engine and no restorers
+        # given, none is built (the engine carries the weights)
+        if geo_engine is not None and plate_restorer is None and \
+                car_restorer is None:
+            self.plate_restorer = self.car_restorer = None
+        else:
+            self.plate_restorer = plate_restorer or Restorer(
+                PRODUCTION_GFPGAN, plate_ckpt, dtype=dtype, device=device,
+                seed=seed)
+            self.car_restorer = car_restorer or Restorer(
+                PRODUCTION_GFPGAN, car_ckpt, dtype=dtype, device=device,
+                seed=seed)
         self.device_io = (device_io
                           and hasattr(self.plate_restorer, "restore_batch_u8")
                           and hasattr(self.car_restorer, "restore_batch_u8"))
-        geo_capable = all(hasattr(r, "_fwd") and hasattr(r, "device")
-                          for r in (self.plate_restorer, self.car_restorer))
+        self._geo_engine = geo_engine
+        geo_capable = geo_engine is not None or all(
+            hasattr(r, "forward") and hasattr(r, "device")
+            for r in (self.plate_restorer, self.car_restorer))
         # "auto": measure both paths on the first real batch and keep the
         # faster; which wins depends on batch size, host load and the
         # geometry-op mix, so neither is hardcoded
-        self._geo_auto_pending = device_geometry == "auto" and geo_capable
-        self.device_geometry = device_geometry is True and geo_capable
+        self._geo_auto_pending = (device_geometry == "auto" and geo_capable
+                                  and geo_engine is None)
+        self.device_geometry = geo_engine is not None or (
+            device_geometry is True and geo_capable)
         self.geo_auto_ms_per_image = None
         self._geo_fused = None
 
@@ -221,16 +245,19 @@ class PlatePipeline:
     # --------------------------------------------- device geometry path
 
     def _geo_batch(self, canvases: np.ndarray, quads: np.ndarray):
-        """The fused device-geometry pass on a canvas batch; returns
-        (montage_u8, masked_u8) as numpy."""
+        """The fused device-geometry pass (or the exported engine) on a
+        canvas batch; returns (montage_u8, masked_u8) as numpy."""
+        if self._geo_engine is not None:
+            return self._geo_engine(canvases, np.asarray(quads, np.float32))
         if self._geo_fused is None:
             self._geo_fused = build_geo_fused(
                 self.plate_restorer, self.car_restorer, self.TARGET)
         dev = self.plate_restorer.device
-        mont, masked = self._geo_fused(
-            torch.from_numpy(np.ascontiguousarray(canvases)).to(dev),
-            torch.from_numpy(np.asarray(quads, np.float32)).to(dev))
-        return mont.cpu().numpy(), masked.cpu().numpy()
+        with torch.inference_mode():
+            mont, masked = self._geo_fused(
+                torch.from_numpy(np.ascontiguousarray(canvases)).to(dev),
+                torch.from_numpy(np.asarray(quads, np.float32)).to(dev))
+            return mont.cpu().numpy(), masked.cpu().numpy()
 
     def _geo_result(self, montage: np.ndarray, masked: np.ndarray,
                     canvas, quad, score, ok) -> Dict[str, np.ndarray]:

@@ -1,15 +1,16 @@
-"""The ×4 SR tile engine: SRVGGNetCompact, int8 PTQ, pack 2, uint8 IO.
+"""The ×4 SR tile engine: SRVGGNetCompact, int8 PTQ or packed bf16, pack 2.
 
 Port of `build_engine` in `scripts/export_restorer.py:29-153`, built in
 process: a random (seeded) or `.pth` SRVGGNetCompact is calibrated on a
 seeded batch, quantized per output channel with pack-2 block-diagonal
-weights and an int8 sink on conv_last, and returned as a `serve` function
-from uint8 tiles of (batch, tile + 2·halo, tile + 2·halo, 3) to uint8 tiles
-×upscale, on the device (the exporter's `--u8-io`). Each call of `serve` on
-an int8 engine is 34 launches of kernel K2 at the defaults (num_conv 32).
-
-Not ported yet: serializing the engine (`jax.export` there; `torch.export`
-is later work) and building from a quantization-aware-training checkpoint.
+weights and an int8 sink on conv_last (or packed in bf16, `int8=False`),
+and returned as a `serve` function over tiles of (batch, tile + 2·halo,
+tile + 2·halo, 3) ×upscale on the device: uint8 in and out (`io="u8"`, the
+exporter's `--u8-io`) or bf16 [0, 1] in and bf16 out (`io="bf16"`). Each
+call of an int8 engine is 34 launches of kernel K2 at the defaults
+(num_conv 32). `scripts/export_restorer.py` writes the graph as an
+artifact. Not ported yet: building from a quantization-aware-training
+checkpoint (`qat_ckpt`), which raises.
 """
 
 from __future__ import annotations
@@ -41,19 +42,27 @@ def build_srvgg(num_feat: int = 64, num_conv: int = 32, upscale: int = 4,
     return net.to(resolve_device(device)).eval().requires_grad_(False)
 
 
-def build_engine(num_feat: int = 64, num_conv: int = 32, upscale: int = 4,
-                 tile: int = 512, halo: int = 8, batch: int = 8,
-                 pth: Optional[str] = None, int8: bool = True,
-                 calib: Optional[np.ndarray] = None, seed: int = 0,
-                 device=None) -> Tuple[Callable, dict]:
-    """Returns (serve, meta).
+def build_graph(num_feat: int = 64, num_conv: int = 32, upscale: int = 4,
+                tile: int = 512, halo: int = 8, batch: int = 8,
+                pth: Optional[str] = None, int8: bool = True,
+                calib: Optional[np.ndarray] = None, seed: int = 0,
+                io: str = "u8", qat_ckpt: Optional[str] = None,
+                device=None) -> Tuple[Callable, dict]:
+    """Returns (graph, meta): the serving function with no grad mode of its
+    own (what torch.export traces) and the engine's metadata.
 
     calib: (N, H, W, 3) float [0, 1] calibration images; by default the
     same seeded uniform batch as the JAX package's exporter (2 × 128²).
-    serve takes uint8 [0, 255] tiles and returns uint8, with the /255 and
-    the clip and round inside. int8=False serves the packed bf16 path
-    instead of the int8 one.
+    io="u8": the graph takes uint8 [0, 255] tiles and returns uint8, with
+    the /255 and the clip and round inside; io="bf16": bf16 tiles in [0, 1]
+    in, bf16 out. int8=False serves the packed bf16 path instead of the
+    int8 one.
     """
+    if qat_ckpt:
+        raise NotImplementedError("an engine from a quantization-aware-"
+                                  "training checkpoint is not ported yet")
+    if io not in ("u8", "bf16"):
+        raise ValueError(f"unknown io {io!r}")
     device = resolve_device(device)
     net = build_srvgg(num_feat, num_conv, upscale, pth, seed, device)
     if int8:
@@ -73,17 +82,27 @@ def build_engine(num_feat: int = 64, num_conv: int = 32, upscale: int = 4,
         def inner(x):
             return packed_srvgg_forward(packed, x, num_conv, upscale)
 
-    @torch.inference_mode()
-    def serve(x_u8):
-        y = inner(x_u8.to(torch.bfloat16) / 255.0)
-        y = torch.clamp(y.float(), 0.0, 1.0)
-        return torch.round(y * 255.0).to(torch.uint8)
+    if io == "u8":
+        def graph(x_u8):
+            y = inner(x_u8.to(torch.bfloat16) / 255.0)
+            y = torch.clamp(y.float(), 0.0, 1.0)
+            return torch.round(y * 255.0).to(torch.uint8)
+    else:
+        graph = inner
 
     size = tile + 2 * halo
     meta = {"model": "SRVGGNetCompact", "num_feat": num_feat,
             "num_conv": num_conv, "upscale": upscale, "tile": tile,
             "halo": halo, "batch": batch, "mode": "int8" if int8 else "bf16",
-            "io": "u8", "input_shape": [batch, size, size, 3],
-            "input_dtype": "uint8",
-            "qat": False, "device": str(device)}
-    return serve, meta
+            "io": io, "input_shape": [batch, size, size, 3],
+            "input_dtype": "uint8" if io == "u8" else "bfloat16",
+            "qat": False, "platforms": [torch.device(device).type],
+            "device": str(device)}
+    return graph, meta
+
+
+def build_engine(**kwargs) -> Tuple[Callable, dict]:
+    """Returns (serve, meta): `build_graph(**kwargs)`'s graph run under
+    `inference_mode`, and its metadata."""
+    graph, meta = build_graph(**kwargs)
+    return torch.inference_mode()(graph), meta

@@ -402,3 +402,72 @@ def test_geometry_on_card_matches_cpu(cuda_device):
     torch.testing.assert_close(gpu[2], cpu[2], rtol=1e-5, atol=1e-6)
     for a, w in zip(gpu[3:], cpu[3:]):
         assert (a - w).abs().max().item() <= 1e-4 * 255
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cin,cout,k,stride,pad,dil", [
+    (16, 24, 3, 1, 1, 1), (16, 24, 3, 2, 0, 1), (16, 8, 3, 1, 2, 2),
+    (3, 3, 3, 1, 1, 1), (512, 512, 3, 1, 1, 1)])
+def test_dyn_int8_conv_on_card_matches_cpu(cuda_device, cin, cout, k,
+                                           stride, pad, dil):
+    """The dynamic-int8 conv on the card (`torch._int_mm` through cuBLASLt,
+    M padded to 32 for a 4² map at batch 1) against the CPU: quantized
+    activations, int32 sums and the bf16-epilogue output equal."""
+    from image_restoration_tpu_torch.ops import modulated_conv as mc
+    rng = np.random.default_rng(9)
+    hw = 4 if cin == 512 else 9
+    x = torch.from_numpy(rng.standard_normal((1, hw, hw, cin)).astype(
+        np.float32))
+    w = torch.from_numpy((rng.standard_normal((cout, cin, k, k)) * 0.05)
+                         .astype(np.float32))
+    padding = ((pad, pad), (pad, pad))
+    outs = {}
+    for dev in ("cpu", cuda_device):
+        xq, sx = mc._dyn_quant(x.to(dev))
+        wq, _ = mc._quant_weight(w.to(dev))
+        outs[str(dev)] = [t.cpu() for t in (
+            xq, sx, mc._int8_conv_sums(xq, wq, stride, padding, dil),
+            mc._int8_conv(x.to(dev), w.to(dev), stride, padding, dil))]
+    for a, b in zip(outs[str(cuda_device)], outs["cpu"]):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_exported_kernel_ops_launch_on_card(cuda_device, tmp_path):
+    """K1, K2 and K3 as `irt::` ops in a torch.export program on the card:
+    saved, loaded, run; each kernel launches once per call of the loaded
+    program and the result equals the eager call's."""
+    from image_restoration_tpu_torch.ops.im2col_conv import conv3x3_im2col
+    from image_restoration_tpu_torch.ops.int8_conv import int8_conv3x3_requant
+    from image_restoration_tpu_torch.serve.engine_restorer import (
+        export_graph, load_engine, save_engine)
+    g = torch.Generator().manual_seed(0)
+    w8 = torch.randint(-127, 128, (32, 3, 3, 32), dtype=torch.int8,
+                       generator=g).to(cuda_device)
+    deq = (torch.rand(32, generator=g) * 1e-3).to(cuda_device)
+    bias = torch.rand(32, generator=g).to(cuda_device)
+    wk3 = torch.randn(3, 3, 32, 16, generator=g).to(cuda_device,
+                                                   torch.bfloat16)
+
+    def graph(x8):
+        y = int8_conv3x3_requant(x8, w8, deq, bias, None, pad=1,
+                                 epilogue="bf16_deq")
+        y = fused_leaky_relu(y.contiguous(), bias.to(y.dtype))
+        return conv3x3_im2col(torch.nn.functional.pad(
+            y, (0, 0, 1, 1, 1, 1)).contiguous(), wk3, out_dtype=torch.float32)
+
+    x8 = torch.randint(-127, 128, (2, 16, 24, 32), dtype=torch.int8,
+                       generator=g).to(cuda_device)
+    program = export_graph(graph, (x8,))
+    names = {str(n.target) for n in program.graph.nodes}
+    assert {"irt.int8_conv3x3_requant.default", "irt.fused_bias_lrelu.default",
+            "irt.conv3x3_im2col.default"} <= names
+    save_engine(str(tmp_path), program, {"device": str(cuda_device)})
+    module, _ = load_engine(str(tmp_path), cuda_device)
+    kernels = (int8_conv3x3_requant, fused_leaky_relu, conv3x3_im2col)
+    before = [k.launches for k in kernels]
+    with torch.inference_mode():
+        got = module(x8)
+        torch.cuda.synchronize()
+        assert [k.launches - b for k, b in zip(kernels, before)] == [1, 1, 1]
+        assert torch.equal(got, graph(x8))

@@ -113,10 +113,10 @@ def _away_from_kink(rng, shape):
 @pytest.mark.parametrize("shape,with_bias", [((3, 5, 8), True),
                                              ((7, 4), True), ((2, 3, 6), False)])
 def test_k1_backward_matches_plain_autograd(rng, shape, with_bias):
-    """K1's closed-form backward (the CUDA path's autograd node) against
-    autograd of the plain version: first and second derivatives in float64,
-    and `gradcheck`/`gradgradcheck` of the node itself (on the CPU its
-    forward is the plain version)."""
+    """K1's closed-form backward (the autograd formula of the op
+    `irt::fused_bias_lrelu`) against autograd of the plain version: first
+    and second derivatives in float64, and `gradcheck`/`gradgradcheck` of
+    the op itself (on the CPU its forward is the plain version)."""
     x, b = _away_from_kink(rng, shape)
     bias = b if with_bias else None
     g = torch.from_numpy(rng.standard_normal(shape)).requires_grad_()
@@ -125,7 +125,7 @@ def test_k1_backward_matches_plain_autograd(rng, shape, with_bias):
     want = torch.autograd.grad(fused_leaky_relu_plain(x, bias), inputs, g,
                                create_graph=True)
     got = torch.autograd.grad(
-        fused_act.FusedLeakyReLUFunction.apply(x, bias, 0.2, math.sqrt(2)),
+        torch.ops.irt.fused_bias_lrelu(x, bias, 0.2, math.sqrt(2)),
         inputs, g, create_graph=True)
     for a, w in zip(got, want):
         torch.testing.assert_close(a, w, rtol=0, atol=1e-12)
@@ -141,7 +141,7 @@ def test_k1_backward_matches_plain_autograd(rng, shape, with_bias):
         else:
             torch.testing.assert_close(a, w, rtol=0, atol=1e-12)
 
-    fn = lambda *t: fused_act.FusedLeakyReLUFunction.apply(  # noqa: E731
+    fn = lambda *t: torch.ops.irt.fused_bias_lrelu(  # noqa: E731
         t[0], t[1] if with_bias else None, 0.2, math.sqrt(2))
     assert torch.autograd.gradcheck(fn, inputs)
     assert torch.autograd.gradgradcheck(fn, inputs)

@@ -197,8 +197,11 @@ def test_auto_selects_geometry(parts):
 
 
 def test_pipeline_defaults_to_cuda_and_refuses_engine(parts, monkeypatch):
-    with pytest.raises(NotImplementedError, match="geo_engine"):
-        _port(parts, geo_engine=object())
+    """A geometry engine exported at another canvas size is refused (JAX
+    `serve/pipeline.py:215-220`); the engines themselves are held in
+    tests/test_torch_engines.py."""
+    with pytest.raises(ValueError, match="target"):
+        _port(parts, geo_engine=SimpleNamespace(target=32))
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         tpl.PlatePipeline()

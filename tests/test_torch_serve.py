@@ -138,11 +138,26 @@ def test_restorer_device_defaults_to_cuda(monkeypatch):
         Restorer(TINY_GFPGAN)
 
 
-@pytest.mark.parametrize("kwargs", [dict(quant="dyn-int8"),
-                                    dict(data_parallel=2)])
+@pytest.mark.parametrize("kwargs", [dict(data_parallel=2)])
 def test_restorer_unported_modes_raise(kwargs):
     with pytest.raises(NotImplementedError):
         Restorer(TINY_GFPGAN, device="cpu", **kwargs)
+
+
+def test_restorer_quant_modes(restorers, rng):
+    """quant="dyn-int8" is ported (held against JAX in
+    tests/test_torch_dyn_int8.py): it serves and departs from the float
+    restorer at the same weights; an unknown mode raises ValueError, as in
+    JAX."""
+    with pytest.raises(ValueError, match="unknown quant mode"):
+        Restorer(TINY_GFPGAN, quant="int4", device="cpu")
+    q = Restorer(TINY_GFPGAN, quant="dyn-int8", device="cpu")
+    q.net.load_state_dict(restorers[1].net.state_dict())
+    u8 = (rng.random((2, 64, 64, 3)) * 255).astype(np.uint8)
+    got, want = q.restore_batch_u8(u8), restorers[1].restore_batch_u8(u8)
+    assert got.shape == want.shape and got.dtype == np.uint8
+    assert 0 < _lsb(got, want) and np.abs(
+        got.astype(np.float32) - want.astype(np.float32)).mean() < 8.0
 
 
 def test_cli_unported_arch_raises(tmp_path):
