@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py [--out report.json]
 
-Drives the port's five main paths with random weights made from a seed, and
+Drives the port's six main paths with random weights made from a seed, and
 fails loudly if any phase fails:
 
   1. device: the card's name and power limit (nvidia-smi);
@@ -122,6 +122,38 @@ artifacts (K1, K2 and K3 are the custom ops `irt::…`) behind
      passes and of K1, and ms per call of the exported module against the
      eager Restorer at batch 1 and 32.
 
+Path 6, the production GFPGAN GAN trainer: `train_pipeline` (`python -m
+image_restoration_tpu_torch.train -opt configs/train_gfpgan_plate_256.yml`)
+at the config's full width (GFPGANv1OCR 256², StyleGAN2Discriminator at
+channel multiplier 1, random VGG19 taps), batch 4, on seeded synthetic
+plates, the degradation on the card inside each step:
+
+ 23. the degradation's apply half on the card against the CPU at the same
+     drawn parameters (bs 4, 256²): each stage and the chain (median's
+     8-bit levels bit-equal, float stages ≤1e-5, JPEG and the
+     uint8-quantized chain within 2 levels on ≥99% of values), and its ms
+     per batch at bs 4 and 16;
+ 24. one full-width G+D step and one R1 step with K1's kernel against the
+     same with K1's plain version (same weights, batch, noise, degradation
+     parameters; TF32 off): every loss within 1e-5 relative, G and D
+     gradients within 1e-4 of max|grad| (1e-4 of elements to 1e-3); K1 84
+     launches per G+D step and 15 per R1 step;
+ 25. the tiny config's (32²) step pieces on the card against the CPU, same
+     tolerances;
+ 26. main path: counts set to 0, then `train_pipeline` on the production
+     config with --force_yml (32 iterations, R1 at 16 and 32, validation
+     and a checkpoint at 32), counts read (K1 exactly 32·84 + 2·15 + the
+     validation forwards' 39 each, K2 and K3 never); every loss finite;
+     `net_g_32.pth` served by `Restorer(ckpt_path=...)` (≤1 LSB against the
+     trained EMA G) and one POST /Restore/ through `ServiceCore`;
+ 27. s per step (median of steps 5-32, run as a training loop runs them,
+     with no synchronize between steps), trained imgs/s, the R1 step's ms,
+     peak MiB and TFLOP/s against `analytic_gfpgan_flops` at bs 4 and 16;
+ 28. where one bs-4 step's device time goes: a profile of
+     `optimize_parameters` for the device-busy share, the device time of
+     each of its `gfpgan.*` ranges, the FIR depthwise convs, K1's forward
+     launches, K1's PyTorch-op backward and the VGG forward.
+
 The last line of stdout is {"ok": true, "device": {...}}; the line before it
 lists the kernels as JSON. Without a GPU, or without the port beside this
 file, it exits non-zero before printing a result.
@@ -138,6 +170,7 @@ import tempfile
 import threading
 import time
 import urllib.request
+import warnings
 from unittest import mock
 
 import numpy as np
@@ -2289,6 +2322,625 @@ def phase_dyn_int8(restorer, exported):
     return res
 
 
+# ------------------------------------------ path 6: the GFPGAN GAN trainer
+
+TRAIN_CONFIG = "configs/train_gfpgan_plate_256.yml"
+# K1 at 256² in D (channel multiplier 1): conv_body's 1×1 ConvLayer, two
+# in each of 6 ResBlocks, final_conv and final_linear's first layer
+K1_PER_D_FORWARD = 15
+# a G+D step: G (39), D on its output in the G loss, D on fake and real
+K1_PER_GD_STEP = K1_LAUNCHES_PER_FORWARD + 3 * K1_PER_D_FORWARD
+K1_PER_R1_STEP = K1_PER_D_FORWARD   # the double backward launches none
+TRAIN_ITERS = 32                    # R1 at 16 and 32
+FIR_KERNEL_KEYS = ("conv2d_grouped_direct", "dgrad2d_c1_k1")
+TRAIN_VAL_IMAGES = 4
+LOSS_RTOL = 1e-5                    # kernel vs plain, card vs CPU
+GRAD_TOL = 1e-4                     # of max|grad|; 1e-4 of elements to 1e-3
+
+
+def analytic_gfpgan_flops(bs, hw=256):
+    """FLOPs of one GAN step, the estimate of `scripts/bench_train.py:320`
+    (G fwd 85, D fwd 18, VGG19 fwd 51 GFLOP per 256² image; G fwd + 2×
+    bwd, D ×2 fwd + bwd plus the fake forward in the G loss, VGG on two
+    streams fwd and bwd through the output's)."""
+    g_fwd, d_fwd, vgg_fwd = 85e9, 18e9, 51e9
+    return bs * (g_fwd * 3 + d_fwd * 3 * 2 + d_fwd + vgg_fwd * 4)
+
+
+def train_options(root):
+    """argv for `train_pipeline` on the production config with its
+    dataroots in `root`, cut to TRAIN_ITERS steps."""
+    return ["-opt", TRAIN_CONFIG, "--force_yml",
+            f"datasets:train:dataroot_gt={root}/train",
+            f"datasets:val:dataroot_gt={root}/val",
+            f"train:total_iter={TRAIN_ITERS}", f"val:val_freq={TRAIN_ITERS}",
+            f"logger:save_checkpoint_freq={TRAIN_ITERS}",
+            "logger:print_freq=8"]
+
+
+def write_plates(folder, n, seed):
+    import cv2
+    os.makedirs(folder, exist_ok=True)
+    for i in range(n):
+        cv2.imwrite(os.path.join(folder, f"plate_{i:03d}.png"),
+                    plate_image(256, 256, seed + i))
+
+
+def plate_batch(n, seed):
+    """(n, 256, 256, 3) RGB float [0, 1] synthetic plates."""
+    return np.stack([plate_image(256, 256, seed + i)[..., ::-1]
+                     for i in range(n)]).astype(np.float32) / 255.0
+
+
+def build_trainer(root, bs=4, device="cuda"):
+    """The production GFPGANModel (random weights from manual_seed, random
+    VGG taps), with its degradation pipeline."""
+    from image_restoration_tpu_torch.models import build_model
+    from image_restoration_tpu_torch.utils.options import parse_options
+    opt, _ = parse_options(root, argv=train_options(root))
+    opt["datasets"]["train"]["batch_size_per_gpu"] = bs
+    model = build_model(opt, device=device)
+    model.set_degradation_pipeline(train_degradation(opt, root))
+    return model, opt
+
+
+def train_degradation(opt, root):
+    """The training set's degradation pipeline, as the dataset derives it
+    from its options (the dataset over `root`, whatever it holds)."""
+    from image_restoration_tpu_torch.data import build_dataset
+    return build_dataset(dict(opt["datasets"]["train"], dataroot_gt=root)) \
+        .device_pipeline()
+
+
+def _grads(net):
+    return [torch.zeros_like(p) if p.grad is None else p.grad.detach().clone()
+            for p in net.parameters()]
+
+
+def gan_pieces(model, lq, gt, noise):
+    """Losses and gradients of one G+D step and one R1 step, pieces only
+    (no optimizer update): G loss terms and G grads, the D loss and D
+    grads at the detached output, R1 and its D grads."""
+    model.net_g.zero_grad(set_to_none=True)
+    model.net_d.requires_grad_(False)
+    total, losses, out = model.g_losses(lq, gt, noise, 1.0)
+    total.backward()
+    model.net_d.requires_grad_(True)
+    g_grads = _grads(model.net_g)
+    model.net_d.zero_grad(set_to_none=True)
+    l_d, real_s, fake_s = model.d_loss(out.detach(), gt)
+    l_d.backward()
+    d_grads = _grads(model.net_d)
+    model.net_d.zero_grad(set_to_none=True)
+    l_r1 = model.r1_loss(gt)
+    l_r1.backward()
+    r1_grads = _grads(model.net_d)
+    model.net_g.zero_grad(set_to_none=True)
+    model.net_d.zero_grad(set_to_none=True)
+    losses = dict(losses, l_d=l_d, real_score=real_s, fake_score=fake_s,
+                  l_d_r1=l_r1)
+    return ({k: float(v.detach()) for k, v in losses.items()}, out.detach(),
+            dict(g=g_grads, d=d_grads, r1=r1_grads))
+
+
+def compare_pieces(a, b, what):
+    """Losses within LOSS_RTOL relative; each network's gradients within
+    GRAD_TOL of its max|grad|, at most 1e-4 of elements up to 10×. Returns
+    the worst loss and gradient differences."""
+    worst_loss = 0.0
+    for k, v in b[0].items():
+        rel = abs(a[0][k] - v) / max(abs(v), 1e-12)
+        worst_loss = max(worst_loss, rel)
+        require(rel <= LOSS_RTOL, f"{what}: {k} {a[0][k]!r} vs {v!r}")
+    worst_grad = {}
+    for net, ga in a[2].items():
+        gb = b[2][net]
+        scale = max(float(g.abs().max()) for g in gb)
+        over = total = 0
+        worst = 0.0
+        for x, y in zip(ga, gb):
+            d = (x.float().cpu() - y.float().cpu()).abs()
+            worst = max(worst, float(d.max()) / scale)
+            over += int((d > GRAD_TOL * scale).sum())
+            total += d.numel()
+        worst_grad[net] = worst
+        require(worst <= 10 * GRAD_TOL and over <= total * 1e-4,
+                f"{what}: {net} grads, worst {worst:.3g} of max|grad|, "
+                f"{over} of {total} elements over {GRAD_TOL}")
+    dout = float((a[1].float().cpu() - b[1].float().cpu()).abs().max())
+    log(f"{what}: losses worst {worst_loss:.3g} relative, output max|d| "
+        f"{dout:.3g}, grads worst (of max|grad|) "
+        + ", ".join(f"{k} {v:.3g}" for k, v in worst_grad.items()))
+    return dict(loss_rel=worst_loss, out_abs=dout, grad_rel=worst_grad)
+
+
+def phase_train_degradation(root):
+    """Phase 23: the production degradation's apply half on the card
+    against the CPU at the same drawn parameters (bs 4, 256²), stage by
+    stage and as a chain; then its device time at bs 4 and 16."""
+    from image_restoration_tpu_torch.data import degradations as D
+    from image_restoration_tpu_torch.utils.options import parse_options
+    opt, _ = parse_options(root, argv=train_options(root))
+    deg = train_degradation(opt, root)
+    cfg = deg.cfg
+    gen = torch.Generator().manual_seed(23)
+    gt = torch.from_numpy(plate_batch(4, 2300))
+    p = deg.sample(gen, 4, 256, 256)
+    dev = torch.device("cuda")
+    pc = D.params_to(p, dev)
+    ksize = min(cfg.blur_kernel_size, 15)
+    stages = {
+        "blur kernel": lambda x, q, d: D.filter2d(x, D.mixed_kernel(
+            q["kernel"], cfg.kernel_list, cfg.blur_kernel_size, deg.bank(d))),
+        "median": lambda x, q, d: D.median_blur(
+            torch.round(x * 255) / 255, ksize),
+        "bilateral": lambda x, q, d: D.bilateral_blur(
+            x, ksize, q["bilateral_sigma"], q["bilateral_sigma"]),
+        "noise": lambda x, q, d: D.add_gaussian_noise(
+            x[:, :64, :64], q["noise"]),
+        "jpeg": lambda x, q, d: D.add_jpeg_compression(x, q["jpeg_quality"]),
+        "down_up": lambda x, q, d: D.random_down_up(
+            x, q["down_scale"], cfg.downsample_range)[0],
+        "jitter": lambda x, q, d: D.color_jitter(x, q["jitter"]),
+        "jitter_pt": lambda x, q, d: D.color_jitter_pt(x, q["jitter_pt"]),
+        "chain": lambda x, q, d: torch.cat(deg.apply(x, q), dim=-1),
+    }
+    old = _tf32_off()
+    out = {}
+    try:
+        for name, fn in stages.items():
+            want = fn(gt, p, torch.device("cpu"))
+            got = fn(gt.to(dev), pc, dev).cpu()
+            d = (got - want).abs()
+            row = dict(max_abs=float(d.max()),
+                       within_2_levels=float((d <= 2 / 255 + 1e-6)
+                                             .float().mean()))
+            out[name] = row
+            log(f"degradation {name:10s} card vs CPU: max|d| "
+                f"{row['max_abs']:.3g}, share within 2/255 "
+                f"{row['within_2_levels']:.6f}")
+            if name == "median":
+                # the 8-bit levels bit-equal (the card's division by 255 is
+                # a multiply by its reciprocal: 1 ulp off the CPU's)
+                require(torch.equal(torch.round(got * 255),
+                                    torch.round(want * 255)),
+                        "median: levels not bit-equal")
+                require(row["max_abs"] <= 1e-7, "median: values")
+            elif name in ("jpeg", "chain"):
+                require(row["within_2_levels"] >= 0.99,
+                        f"degradation {name}: card vs CPU")
+            else:
+                require(row["max_abs"] <= 1e-5, f"degradation {name}")
+    finally:
+        _tf32_restore(old)
+    types = p["kernel"]["type_idx"].tolist()
+    log(f"drawn kernel types {[cfg.kernel_list[t] for t in types]}")
+    for bs in (4, 16):
+        g16 = torch.Generator(dev).manual_seed(bs)
+        x = torch.from_numpy(plate_batch(bs, 2400)).to(dev)
+        arg_sets = [(deg.sample(g16, bs, 256, 256),) for _ in range(3)]
+        ms = host_time_ms(lambda q: deg.apply(x, q), arg_sets, 10)
+        out[f"apply_ms_bs{bs}"] = ms
+        log(f"degradation apply bs={bs} 256²: {ms:.3f} ms per batch "
+            "(host clock around CUDA events, sample half not timed)")
+    return out
+
+
+def phase_train_kernel_vs_plain(root):
+    """Phase 24: one full-width G+D step and one R1 step with K1's kernel
+    against the same with K1's plain version: same weights, batch, noise
+    and degradation parameters, TF32 off; K1's launches per piece."""
+    from image_restoration_tpu_torch.ops import fused_act
+    model, _ = build_trainer(root)
+    randomize_weights(model.net_g, seed=24)
+    randomize_weights(model.net_d, seed=27)
+    model.net_g_ema.load_state_dict(model.net_g.state_dict())
+    gen = torch.Generator("cuda").manual_seed(24)
+    gt = torch.from_numpy(plate_batch(4, 2410)).cuda()
+    with torch.no_grad():
+        lq, gtn = model.degrade_fn(gen, gt)
+    noise = model.draw_noise(gen)
+    old = _tf32_off()
+    try:
+        fused_act.fused_leaky_relu.launches = 0
+        k = gan_pieces(model, lq, gtn, noise)
+        torch.cuda.synchronize()
+        launches = fused_act.fused_leaky_relu.launches
+        want = K1_PER_GD_STEP + K1_PER_R1_STEP
+        require(launches == want, f"K1 launched {launches} times in one G+D "
+                f"and one R1 step, expected {want}")
+        with mock.patch.object(fused_act, "fused_leaky_relu",
+                               fused_act.fused_leaky_relu_plain):
+            p = gan_pieces(model, lq, gtn, noise)
+    finally:
+        _tf32_restore(old)
+    log("losses (K1): " + ", ".join(f"{k2} {v:.6g}" for k2, v in k[0].items()))
+    require(all(math.isfinite(v) for v in k[0].values()), "non-finite loss")
+    res = compare_pieces(k, p, "full-width step, K1 vs plain K1 (TF32 off)")
+    log(f"K1 launches: {K1_PER_GD_STEP} per G+D step "
+        f"({K1_LAUNCHES_PER_FORWARD} G + 3×{K1_PER_D_FORWARD} D), "
+        f"{K1_PER_R1_STEP} per R1 step")
+    del model
+    torch.cuda.empty_cache()
+    return dict(res, losses=k[0], k1_per_gd_step=K1_PER_GD_STEP,
+                k1_per_r1_step=K1_PER_R1_STEP)
+
+
+def tiny_train_opt(root):
+    """The tiny config of tests/test_models.py:188-233 with the production
+    losses (perceptual included)."""
+    return {"is_train": True, "manual_seed": 0, "num_devices": 1,
+            "model_type": "GFPGANModel", "name": "tiny",
+            "path": {"models": f"{root}/tiny", "visualization": root},
+            "network_g": dict(type="GFPGANv1OCR", input_width=32,
+                              input_height=32, num_style_feat=16,
+                              channel_multiplier=0.25, num_mlp=2,
+                              input_is_latent=True, different_w=True,
+                              narrow=0.5, sft_half=True),
+            "network_d": dict(type="StyleGAN2Discriminator", input_width=32,
+                              input_height=32, channel_multiplier=0.25,
+                              narrow=0.25),
+            "train": {"optim_g": {"type": "Adam", "lr": 2e-3},
+                      "optim_d": {"type": "Adam", "lr": 2e-3},
+                      "pixel_opt": {"type": "L1Loss", "loss_weight": 0.1},
+                      "L1_opt": {"type": "L1Loss", "loss_weight": 1.0},
+                      "perceptual_opt": {
+                          "type": "PerceptualLoss",
+                          "layer_weights": {"conv1_2": 0.1, "conv2_2": 0.1,
+                                            "conv3_4": 1, "conv4_4": 1,
+                                            "conv5_4": 1},
+                          "style_weight": 50, "range_norm": True},
+                      "gan_opt": {"type": "GANLoss",
+                                  "gan_type": "wgan_softplus",
+                                  "loss_weight": 0.1},
+                      "net_d_reg_every": 2, "r1_reg_weight": 10}}
+
+
+def phase_train_tiny_card_vs_cpu(root):
+    """Phase 25: the tiny config's G+D and R1 pieces on the card against
+    the CPU at the same weights, batch and noise (TF32 off)."""
+    from image_restoration_tpu_torch.models import build_model
+    opt = tiny_train_opt(root)
+    cpu = build_model(opt, device="cpu")
+    card = build_model(opt, device="cuda")
+    randomize_weights(cpu.net_g, seed=25)
+    randomize_weights(cpu.net_d, seed=26)
+    for name in ("net_g", "net_d"):
+        getattr(card, name).load_state_dict(getattr(cpu, name).state_dict())
+    card.cri_perceptual.vgg.load_state_dict(
+        cpu.cri_perceptual.vgg.state_dict())
+    g = torch.Generator().manual_seed(25)
+    gt = torch.rand((2, 32, 32, 3), generator=g) * 2 - 1
+    lq = (gt + 0.2 * torch.randn(gt.shape, generator=g)).clamp(-1, 1)
+    noise = [torch.randn(s, generator=g)
+             for s in cpu.net_g.stylegan_decoder.noise_shapes()]
+    want = gan_pieces(cpu, lq, gt, noise)
+    old = _tf32_off()
+    try:
+        got = gan_pieces(card, lq.cuda(), gt.cuda(), [n.cuda() for n in noise])
+    finally:
+        _tf32_restore(old)
+    return compare_pieces(got, want, "tiny config, card vs CPU (TF32 off)")
+
+
+def phase_train_main_path(root):
+    """Phase 26, the main path: counts at 0, then
+    `train_pipeline` on configs/train_gfpgan_plate_256.yml with
+    --force_yml (synthetic plates, 32 iterations, R1 at 16 and 32,
+    validation and a checkpoint at 32), counts read; every loss finite; the
+    saved EMA G served by Restorer(ckpt_path=...) and one POST /Restore/."""
+    import cv2
+    from image_restoration_tpu_torch.infer import PRODUCTION_GFPGAN, Restorer
+    from image_restoration_tpu_torch.serve.api import ServiceCore, make_server
+    from image_restoration_tpu_torch.train import train_pipeline
+    from image_restoration_tpu_torch.utils.img_util import tensor2img
+    write_plates(f"{root}/train", 8, 2600)
+    write_plates(f"{root}/val", TRAIN_VAL_IMAGES, 2700)
+    argv = train_options(root)
+    kernels = _counts_zero()
+    t0 = time.perf_counter()
+    model = train_pipeline(root, argv=argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    k1, k2, k3 = (k.launches for k in kernels)
+    val_forwards = 2 * TRAIN_VAL_IMAGES   # at 32 and after the last step
+    want = (TRAIN_ITERS * K1_PER_GD_STEP
+            + (TRAIN_ITERS // 16) * K1_PER_R1_STEP
+            + val_forwards * K1_LAUNCHES_PER_FORWARD)
+    log(f"train_pipeline: {TRAIN_ITERS} iterations in {wall:.2f} s (wall, "
+        f"build, validation and saves included); K1 {k1} launches "
+        f"(expected {want}), K2 {k2}, K3 {k3}; last losses "
+        + ", ".join(f"{k}={v:.4g}" for k, v in model.log_dict.items()))
+    require(k1 == want, f"train main path: K1 launched {k1}, expected {want}")
+    require(k2 == 0 and k3 == 0, "train main path launched K2 or K3")
+    require(model.iter == TRAIN_ITERS, f"model.iter {model.iter}")
+    require("l_d_r1" in model.log_dict, "R1 did not run at the last step")
+    require(all(math.isfinite(v) for v in model.log_dict.values()),
+            "a non-finite loss")
+    mdir = model.opt["path"]["models"]
+    ckpt = os.path.join(mdir, f"net_g_{TRAIN_ITERS}.pth")
+    require(os.path.exists(ckpt) and os.path.exists(
+        os.path.join(mdir, f"ckpt_{TRAIN_ITERS}.pth")), "no checkpoint")
+    val = model.validation(_val_loader(model.opt), TRAIN_ITERS)
+    log(f"validation PSNR of the EMA G (random init, 32 steps): {val}")
+
+    restorer = Restorer(PRODUCTION_GFPGAN, ckpt_path=ckpt, device="cuda")
+    x = plate_batch(2, 2800)
+    got = restorer.restore_batch(x)
+    want_out = model.test(torch.from_numpy((x - 0.5) / 0.5)).float().cpu()
+    ref = np.stack([tensor2img(want_out[i:i + 1].numpy(), min_max=(-1, 1))
+                    for i in range(2)])
+    lsb = int(np.abs(got.astype(np.int16) - ref.astype(np.int16)).max())
+    log(f"Restorer(ckpt_path=net_g_{TRAIN_ITERS}.pth) vs the trained EMA G: "
+        f"max {lsb} LSB")
+    require(lsb <= 1, f"checkpoint restore: {lsb} LSB")
+    core = ServiceCore(restorer)
+    server = make_server(core, "127.0.0.1", 0)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    try:
+        ok, buf = cv2.imencode(".jpg", plate_image(120, 360, seed=2900))
+        status, media, body = post(server.server_address[1], "/Restore/",
+                                   buf.tobytes())
+        img = cv2.imdecode(np.frombuffer(body, np.uint8), cv2.IMREAD_COLOR)
+        require(status == 200 and img is not None
+                and img.shape == (256, 256, 3),
+                f"/Restore/ with the trained checkpoint: {status}")
+        log(f"POST /Restore/ with the trained checkpoint -> {status} "
+            f"{img.shape}")
+    finally:
+        server.shutdown()
+        server.server_close()
+        core.close()
+        thread.join(timeout=30)
+    require(not thread.is_alive(), "server thread did not stop")
+    return model, dict(k1=k1, k1_expected=want, wall_s=wall,
+                       last_losses=model.log_dict, val=val)
+
+
+def _val_loader(opt):
+    from image_restoration_tpu_torch.data import (build_dataloader,
+                                                  build_dataset)
+    ds = opt["datasets"]["val"]
+    return build_dataloader(build_dataset(ds), ds)
+
+
+def timed_steps(model, bs, iters, seed):
+    """Seconds of each of `iters` optimize_parameters calls as a training
+    loop runs them: no synchronize between steps (the step waits for
+    nothing), a CUDA event after each, all read after the last; on batches
+    from a pool of synthetic plates. Also the host clock's mean s per step
+    from the call of step 5 to a synchronize after the last."""
+    pool = plate_batch(2 * bs, seed)
+    events = [torch.cuda.Event(enable_timing=True) for _ in range(iters + 1)]
+    torch.cuda.synchronize()
+    events[0].record()
+    for it in range(1, iters + 1):
+        if it == 5:
+            t0 = time.perf_counter()
+        model.optimize_parameters(
+            it, {"gt": pool[(it % 2) * bs:(it % 2 + 1) * bs]})
+        events[it].record()
+    torch.cuda.synchronize()
+    host_mean = (time.perf_counter() - t0) / (iters - 4)
+    return ([e0.elapsed_time(e1) / 1e3 for e0, e1 in zip(events, events[1:])],
+            host_mean)
+
+
+def phase_train_throughput(root, model4):
+    """Phase 27: s per step (median of steps 5-32 as `timed_steps` runs
+    them, the R1 steps 16 and 32 included in the run), trained imgs/s, the
+    R1 step's ms, peak MiB and achieved TFLOP/s against
+    analytic_gfpgan_flops, at bs 4 and 16, with PyTorch's default TF32
+    settings."""
+    log(f"timed runs: cudnn.allow_tf32={torch.backends.cudnn.allow_tf32} "
+        f"matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32}")
+    rows = {}
+    for bs in (4, 16):
+        model = model4 if bs == 4 else build_trainer(root, bs)[0]
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        times, host_mean = timed_steps(model, bs, TRAIN_ITERS, 3000 + bs)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 20
+        step = float(np.median(times[4:]))
+        gt = torch.from_numpy(plate_batch(bs, 3100)).cuda() * 2 - 1
+
+        def r1_step():
+            model.optimizer_d.zero_grad()
+            model.r1_loss(gt).backward()
+            model.optimizer_d.step()
+
+        r1_ms = host_time_ms(r1_step, [()], 5)
+        flops = analytic_gfpgan_flops(bs)
+        rows[bs] = dict(s_per_step=step, host_s_per_step=host_mean,
+                        steps_per_s=1 / step,
+                        imgs_per_s=bs / step, r1_step_ms=r1_ms,
+                        peak_mib=peak, tflops=flops / step / 1e12,
+                        steps_16_32_s=[times[15], times[31]])
+        log(f"GAN step bs={bs}: {step * 1e3:.2f} ms/step (median of steps "
+            f"5-32), host clock {host_mean * 1e3:.2f} ms/step (mean of "
+            f"5-32), {1 / step:.3f} steps/s, {bs / step:.2f} imgs/s, "
+            f"R1 step {r1_ms:.2f} ms, steps 16/32 (with R1) "
+            f"{times[15] * 1e3:.1f}/{times[31] * 1e3:.1f} ms, peak "
+            f"{peak:.0f} MiB, {flops / step / 1e12:.2f} TFLOP/s against "
+            "analytic_gfpgan_flops")
+        if bs != 4:
+            del model
+            torch.cuda.empty_cache()
+    return rows
+
+
+def phase_train_profile(model, step_ms):
+    """Phase 28: where one bs-4 G+D step's device time goes, all on
+    `optimize_parameters` itself. CUDA events at its parts' boundaries
+    (the model's `mark` hook; one run, synchronized before, so the parts
+    show the device timeline of the step run alone); a profiler trace of
+    another run for the device-busy share (of the profiled step's wall
+    time, and of phase 27's s per step, `step_ms`), the host's waits on
+    the device (and, from a run in sync debug mode, the lines of the ops
+    that synchronize), the FIR depthwise convs, K1's forward launches, K1's
+    PyTorch-op backward (its function wrapped in a profiler range for this
+    run) and the VGG forward (likewise); VGG forward + backward and D
+    forward + backward timed alone at the step's shapes."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+    from image_restoration_tpu_torch.ops import fused_act
+    batch = {"gt": plate_batch(4, 3200)}
+    it = 5
+    model.optimize_parameters(it, batch)
+    torch.cuda.synchronize()
+
+    events = []
+
+    def mark(name):
+        e = torch.cuda.Event(enable_timing=True)
+        e.record()
+        events.append((name, e))
+
+    model.mark = mark
+    try:
+        model.optimize_parameters(it, batch)
+    finally:
+        model.mark = None
+    torch.cuda.synchronize()
+    seg = {name: e0.elapsed_time(e1)
+           for (name, e0), (_, e1) in zip(events, events[1:])}
+    seg_ms = sum(seg.values())
+
+    # where the step makes the host wait: PyTorch warns at each op that
+    # synchronizes, from the Python line that called it
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            model.optimize_parameters(it, batch)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    sync_sites = [f"{os.path.relpath(w.filename)}:{w.lineno}"
+                  for w in caught
+                  if "called a synchronizing" in str(w.message)]
+
+    def ranged(name, fn):
+        def wrapped(*a, **k):
+            with record_function(name):
+                return fn(*a, **k)
+        return wrapped
+
+    vgg = model.cri_perceptual.vgg
+    patches = [mock.patch.object(fused_act, "fused_leaky_relu_backward",
+                                 ranged("irt.k1_backward",
+                                        fused_act.fused_leaky_relu_backward)),
+               mock.patch.object(vgg, "forward",
+                                 ranged("irt.vgg_forward", vgg.forward))]
+    for p in patches:
+        p.start()
+    try:
+        for _ in range(3):
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                model.optimize_parameters(it, batch)
+                torch.cuda.synchronize()
+                wall = (time.perf_counter() - t0) * 1e3
+            # drop the ranges, which also appear on the device's timeline
+            kernels = [k for k in _kernel_events(prof)
+                       if not k[2].startswith(("irt.", "Optimizer."))]
+            k1_n = sum(k[1] for k in kernels if "fused_bias_lrelu" in k[2])
+            if k1_n == K1_PER_GD_STEP:
+                break
+            log(f"profiler saw {k1_n} K1 launches: profiling again")
+    finally:
+        for p in patches:
+            p.stop()
+    require(k1_n == K1_PER_GD_STEP, f"step profile: {k1_n} K1 launches")
+    busy = sum(k[0] for k in kernels)
+
+    def op_ms(key):
+        return sum(getattr(e, "device_time_total",
+                           getattr(e, "cuda_time_total", 0.0)) / 1e3
+                   for e in prof.key_averages()
+                   if e.key == key and getattr(e, "device_type", None)
+                   == torch.autograd.DeviceType.CPU)
+
+    # the host's waits on the device inside the step: the profile's counts
+    # less those of a profile of the closing synchronize alone
+    def sync_calls(p):
+        return {e.key: e.count for e in p.key_averages()
+                if e.key in ("cudaStreamSynchronize", "cudaEventSynchronize",
+                             "cudaDeviceSynchronize")}
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as empty:
+        torch.cuda.synchronize()
+    base = sync_calls(empty)
+    waits = {k: v - base.get(k, 0) for k, v in sync_calls(prof).items()}
+    # cuDNN's grouped direct conv is the FIR forward, its c1/k1 dgrad the
+    # FIR backward (the depthwise convs' kernels in the restore's profiles)
+    parts = {"fir_depthwise": sum(k[0] for k in kernels if any(
+        key in k[2] for key in FIR_KERNEL_KEYS)),
+             "k1_forward": sum(k[0] for k in kernels
+                               if "fused_bias_lrelu" in k[2]),
+             "k1_backward_ops": op_ms("irt.k1_backward"),
+             "vgg_forward": op_ms("irt.vgg_forward")}
+    # VGG and D forward + backward alone, at the step's shapes
+    x = (torch.rand((4, 256, 256, 3), device="cuda") * 2 - 1)
+    xg = x.clone().requires_grad_(True)
+
+    def vgg_fb():
+        p, s = model.cri_perceptual(xg, x)
+        (p + s).backward()
+
+    def d_fb():
+        model.d_loss(xg, x)[0].backward()
+
+    alone = {"vgg_fwd_bwd": host_time_ms(vgg_fb, [()], 5),
+             "d_fwd_bwd_fake_real": host_time_ms(d_fb, [()], 5)}
+    model.net_d.zero_grad(set_to_none=True)
+    log(f"profile of optimize_parameters bs=4: wall {wall:.2f} ms under the "
+        f"profiler, device busy {busy:.2f} ms ({100 * busy / wall:.1f}% of "
+        f"that wall; {100 * busy / step_ms:.1f}% of phase 27's "
+        f"{step_ms:.2f} ms per step); host waits on the device in the step: "
+        f"{waits}; ops that synchronize (sync debug mode): "
+        f"{len(sync_sites)}")
+    for site in sync_sites:
+        log(f"    {site}")
+    log(f"  parts of the step alone (CUDA events at the model's marks): "
+        f"{seg_ms:.2f} ms")
+    for name, ms in seg.items():
+        log(f"  {name:25s} {ms:9.3f} ms  {100 * ms / seg_ms:5.1f}%")
+    for name, ms in parts.items():
+        log(f"  {name:25s} {ms:9.3f} ms  {100 * ms / busy:5.1f}% of busy")
+    for name, ms in alone.items():
+        log(f"  alone: {name:20s} {ms:9.3f} ms")
+    for t, n, name in kernels[:15]:
+        log(f"  {t:9.4f} ms  x{n:<4d} {name[:110]}")
+    return dict(segments_ms=seg, segments_total_ms=seg_ms,
+                step_ms=step_ms, wall_ms=wall,
+                busy_ms=busy, busy_share_of_wall=busy / wall,
+                busy_share_of_step=busy / step_ms, host_waits=waits,
+                sync_sites=sync_sites,
+                parts_ms=parts,
+                parts_share={k: v / busy for k, v in parts.items()},
+                alone_ms=alone,
+                top=[dict(ms=t, count=n, name=name[:200])
+                     for t, n, name in kernels[:25]])
+
+
+def phase_train(tmp):
+    """Path 6: phases 23-28."""
+    deg = phase_train_degradation(tmp)
+    step = phase_train_kernel_vs_plain(tmp)
+    tiny = phase_train_tiny_card_vs_cpu(tmp)
+    model, main_path = phase_train_main_path(tmp)
+    thr = phase_train_throughput(tmp, model)
+    prof = phase_train_profile(model, thr[4]["s_per_step"] * 1e3)
+    del model
+    torch.cuda.empty_cache()
+    return main_path["k1"], dict(degradation=deg, kernel_vs_plain=step,
+                                 tiny_card_vs_cpu=tiny, main_path=main_path,
+                                 throughput=thr, profile=prof)
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", default=None,
@@ -2348,6 +3000,12 @@ def main(argv=None):
         del pipe
         torch.cuda.empty_cache()
         dyn = phase_dyn_int8(restorer, exported)
+    exports = {k: v[1] for k, v in exported.items()}
+    del restorer, exported
+    torch.cuda.empty_cache()
+
+    with tempfile.TemporaryDirectory(prefix="irt_train_") as tmp:
+        train_k1, train = phase_train(tmp)
 
     a = agg[("float32", 16)]
     kernels = [{
@@ -2355,7 +3013,7 @@ def main(argv=None):
         "route": "cuda",
         "source": "image_restoration_tpu_torch/csrc/fused_bias_act.cu",
         "replaces": "image_restoration_tpu/ops/pallas/fused_act_kernel.py:43",
-        "launches": launches + pipe_launches + art_k1,
+        "launches": launches + pipe_launches + art_k1 + train_k1,
         "max_abs_err": worst,
         "ms": a["ms"],
         "plain_ms": a["plain_ms"],
@@ -2406,9 +3064,9 @@ def main(argv=None):
         pipeline_main_path_launches=pipe_launches,
         pipeline_forwards=pipe_forwards, pipeline_correctness=pipe_check,
         pipeline_throughput=pipe_thr,
-        exports={k: v[1] for k, v in exported.items()},
+        exports=exports,
         artifact_main_path_launches=dict(k1=art_k1, k2=art_k2),
-        artifact_correctness=art_check, dyn_int8=dyn,
+        artifact_correctness=art_check, dyn_int8=dyn, train=train,
         seconds=time.perf_counter() - t_start,
         note="kernels[].ms/plain_ms/bound_ms: device time (calls back to "
              "back, CUDA events) and bound, summed over the 39 K1 launches "
@@ -2420,8 +3078,8 @@ def main(argv=None):
              " has the same yardstick for the RRDB half); K3's is cuDNN's "
              "bf16 conv; "
              "K3's launches are those of probe_conv.main(); K1's launches "
-             "are those of the main-path phases of paths 1, 4 and 5 (4, "
-             "17, 21), K2's those of paths 2 and 5 (8, 21)")
+             "are those of the main-path phases of paths 1, 4, 5 and 6 (4, "
+             "17, 21, 26), K2's those of paths 2 and 5 (8, 21)")
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as f:

@@ -1,6 +1,7 @@
-"""StyleGAN2 block set + OCR generator — PyTorch, NHWC at every forward.
+"""StyleGAN2 block set, OCR generator and discriminator — PyTorch, NHWC at
+every forward.
 
-Port of `image_restoration_tpu/archs/stylegan2_arch.py:45-456`. Parameters
+Port of `image_restoration_tpu/archs/stylegan2_arch.py:45-514`. Parameters
 carry the reference checkpoint's names and layouts (convs OIHW, modulated
 weights (1, O, I, k, k), ConvLayer as a Sequential whose FusedLeakyReLU holds
 the activation bias), so a reference `.pth` loads with `load_state_dict`.
@@ -414,3 +415,57 @@ class StyleGAN2OCRGenerator(nn.Module):
         if return_latents:
             return skip, latent
         return skip, None
+
+
+@ARCH_REGISTRY.register()
+class StyleGAN2Discriminator(nn.Module):
+    """StyleGAN2 D with minibatch stddev (JAX `stylegan2_arch.py:473`).
+
+    Reference layout: `conv_body` (a 1×1 ConvLayer, then a ResBlock per
+    halving down to 4²), `final_conv` over the features plus the stddev
+    channel, and `final_linear` (a fused-lrelu EqualLinear, then one to a
+    logit). The final flatten is (C, H, W), as in the reference, so a
+    reference `net_d` loads; the JAX module flattens (H, W, C) and its
+    importer permutes.
+    """
+
+    def __init__(self, input_width: int = 256, input_height: int = 256,
+                 channel_multiplier: float = 2,
+                 resample_kernel: Sequence[int] = (1, 3, 3, 1),
+                 stddev_group: int = 4, narrow: float = 1.0, dtype=None):
+        super().__init__()
+        channels = stylegan_channels(channel_multiplier, narrow)
+        out_size = min(input_width, input_height)
+        log_size = int(math.log2(out_size))
+        self.ratio = int(input_width / input_height)
+        self.stddev_group = stddev_group
+        body = [ConvLayer(3, channels[out_size], 1, bias=True,
+                          activate=True, dtype=dtype)]
+        in_ch = channels[out_size]
+        for i in range(log_size, 2, -1):
+            out_ch = channels[2 ** (i - 1)]
+            body.append(ResBlock(in_ch, out_ch, resample_kernel,
+                                 dtype=dtype))
+            in_ch = out_ch
+        self.conv_body = nn.Sequential(*body)
+        self.final_conv = ConvLayer(in_ch + 1, channels[4], 3, bias=True,
+                                    activate=True, dtype=dtype)
+        self.final_linear = nn.Sequential(
+            EqualLinear(channels[4] * 4 * 4 * self.ratio, channels[4],
+                        bias=True, bias_init_val=0.0, lr_mul=1.0,
+                        activation="fused_lrelu", dtype=dtype),
+            EqualLinear(channels[4], 1, bias=True, bias_init_val=0.0,
+                        lr_mul=1.0, activation=None, dtype=dtype))
+
+    def forward(self, x):
+        out = self.conv_body(x)
+        b, h, w, c = out.shape
+        group = min(b, self.stddev_group)
+        grouped = out.reshape(group, b // group, h, w, c)
+        stddev = torch.sqrt(grouped.var(dim=0, unbiased=False) + 1e-8)
+        stddev = stddev.mean(dim=(1, 2, 3))            # (b // group,)
+        stat = stddev.repeat(group)[:, None, None, None]
+        out = torch.cat([out, stat.expand(b, h, w, 1).to(out.dtype)], dim=-1)
+        out = self.final_conv(out)
+        out = out.permute(0, 3, 1, 2).reshape(b, -1)   # (C, H, W) flatten
+        return self.final_linear(out)

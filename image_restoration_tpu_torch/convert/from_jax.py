@@ -16,7 +16,10 @@ becomes `layerN`, `activate`/`activation` is skipped, a fused activation's
 SRVGGNetCompact's Real-ESRGAN `body.N` keys map to flax's `body_i`,
 `prelu_i` and `conv_last` first (the JAX importer's rule, inverted).
 RRDBNet's `body.i.rdbK.convJ.weight` becomes flax's `body_i/rdbK/convJ/kernel`
-(flax's Conv names its weight `kernel`).
+(flax's Conv names its weight `kernel`). StyleGAN2Discriminator's
+`final_linear.0` is flax's `final_linear_0`, its input features reordered
+like GFPGAN's `final_linear`. VGG's torchvision `features.N` keys map to
+flax's `conv{block}_{i}` (`vgg_state_dict_from_jax`).
 
 Strict both ways: every port key must resolve and every flax leaf be used.
 """
@@ -82,6 +85,9 @@ def _flatten_fixes(net) -> Dict[str, Tuple[int, int, int]]:
     if type(net).__name__ == "GFPGANv1OCR":
         c4 = net.final_conv[0].weight.shape[0]
         return {"final_linear.": (c4, 4, 4 * net.ratio)}
+    if type(net).__name__ == "StyleGAN2Discriminator":
+        c4 = net.final_conv[0].weight.shape[0]
+        return {"final_linear.0.": (c4, 4, 4 * net.ratio)}
     return {}
 
 
@@ -211,6 +217,35 @@ def state_dict_from_jax(net: torch.nn.Module, flax_params: Dict) -> OrderedDict:
         arr = _fit(key, leaves[path], tuple(ref.shape), flat)
         out[key] = torch.from_numpy(arr.astype(np.float32))
     unused = sorted("/".join(p) for p in set(leaves) - used)
+    if unused:
+        raise KeyError(f"{len(unused)} flax params unused: {unused[:10]}")
+    return out
+
+
+def vgg_state_dict_from_jax(net: torch.nn.Module,
+                            flax_params: Dict) -> OrderedDict:
+    """The `state_dict` of the port's `VGGFeatureExtractor` holding the JAX
+    package's flax params (`conv{block}_{i}/{kernel,bias}`): torchvision's
+    `features.N` keys, convs HWIO → OIHW. Strict both ways."""
+    used = set()
+    out = OrderedDict()
+    for key, ref in net.state_dict().items():
+        idx, leaf = key.split(".")[1:]
+        name = net.names[int(idx)]
+        flax_leaf = "kernel" if leaf == "weight" else leaf
+        if name not in flax_params or flax_leaf not in flax_params[name]:
+            raise KeyError(f"port key {key!r} ({name}) has no flax "
+                           "counterpart")
+        used.add((name, flax_leaf))
+        arr = np.asarray(flax_params[name][flax_leaf], np.float32)
+        if arr.ndim == 4:
+            arr = arr.transpose(3, 2, 0, 1)
+        if arr.shape != tuple(ref.shape):
+            raise ValueError(f"{key}: flax {arr.shape} != port "
+                             f"{tuple(ref.shape)}")
+        out[key] = torch.from_numpy(np.ascontiguousarray(arr))
+    unused = sorted(f"{p}/{leaf}" for p, leaves in flax_params.items()
+                    for leaf in leaves if (p, leaf) not in used)
     if unused:
         raise KeyError(f"{len(unused)} flax params unused: {unused[:10]}")
     return out

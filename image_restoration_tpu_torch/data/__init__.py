@@ -1,0 +1,14 @@
+"""Data layer: degradation synthesis on the device, loading on the host."""
+
+from copy import deepcopy
+
+from ..utils.registry import DATASET_REGISTRY
+from .loader import build_dataloader, DataLoader, EnlargedSampler  # noqa: F401
+
+
+def build_dataset(opt):
+    """Instantiate a dataset from a config dict with a `type:` key."""
+    from . import datasets  # noqa: F401  (registration)
+    opt = deepcopy(opt)
+    dataset_type = opt.pop("type")
+    return DATASET_REGISTRY.get(dataset_type)(opt)

@@ -1,0 +1,66 @@
+"""PSNR / SSIM.
+
+Port of `image_restoration_tpu/metrics/psnr_ssim.py:23-78`, the host
+versions the validation calls: numpy float64 on HWC images in [0, 255],
+`crop_border`, `test_y_channel`; SSIM with an 11×11 σ=1.5 window per
+channel. The device batch versions are not ported.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+from ..utils.registry import METRIC_REGISTRY
+from .metric_util import reorder_image, to_y_channel
+
+
+def _prepare(img, img2, crop_border, input_order, test_y_channel):
+    assert img.shape == img2.shape
+    img = reorder_image(np.asarray(img), input_order).astype(np.float64)
+    img2 = reorder_image(np.asarray(img2), input_order).astype(np.float64)
+    if crop_border != 0:
+        img = img[crop_border:-crop_border, crop_border:-crop_border, ...]
+        img2 = img2[crop_border:-crop_border, crop_border:-crop_border, ...]
+    if test_y_channel:
+        img, img2 = to_y_channel(img), to_y_channel(img2)
+    return img, img2
+
+
+@METRIC_REGISTRY.register()
+def calculate_psnr(img, img2, crop_border: int, input_order: str = "HWC",
+                   test_y_channel: bool = False, **kwargs) -> float:
+    img, img2 = _prepare(img, img2, crop_border, input_order,
+                         test_y_channel)
+    mse = np.mean((img - img2) ** 2)
+    if mse == 0:
+        return float("inf")
+    return 20.0 * np.log10(255.0 / np.sqrt(mse))
+
+
+def _ssim_single(img: np.ndarray, img2: np.ndarray) -> float:
+    """Single-channel SSIM on [0,255] float64."""
+    import cv2
+    c1 = (0.01 * 255) ** 2
+    c2 = (0.03 * 255) ** 2
+    kernel = cv2.getGaussianKernel(11, 1.5)
+    window = np.outer(kernel, kernel.transpose())
+
+    mu1 = cv2.filter2D(img, -1, window)[5:-5, 5:-5]
+    mu2 = cv2.filter2D(img2, -1, window)[5:-5, 5:-5]
+    mu1_sq, mu2_sq, mu1_mu2 = mu1 ** 2, mu2 ** 2, mu1 * mu2
+    sigma1_sq = cv2.filter2D(img ** 2, -1, window)[5:-5, 5:-5] - mu1_sq
+    sigma2_sq = cv2.filter2D(img2 ** 2, -1, window)[5:-5, 5:-5] - mu2_sq
+    sigma12 = cv2.filter2D(img * img2, -1, window)[5:-5, 5:-5] - mu1_mu2
+
+    ssim_map = ((2 * mu1_mu2 + c1) * (2 * sigma12 + c2)) / \
+        ((mu1_sq + mu2_sq + c1) * (sigma1_sq + sigma2_sq + c2))
+    return float(ssim_map.mean())
+
+
+@METRIC_REGISTRY.register()
+def calculate_ssim(img, img2, crop_border: int, input_order: str = "HWC",
+                   test_y_channel: bool = False, **kwargs) -> float:
+    img, img2 = _prepare(img, img2, crop_border, input_order,
+                         test_y_channel)
+    return float(np.mean([_ssim_single(img[..., i], img2[..., i])
+                          for i in range(img.shape[2])]))

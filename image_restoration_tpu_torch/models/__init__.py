@@ -1,0 +1,16 @@
+"""Trainer registry: `build_model` dispatches on `model_type`."""
+
+from copy import deepcopy
+
+from ..utils.logger import get_root_logger
+from ..utils.registry import MODEL_REGISTRY
+
+
+def build_model(opt, device=None):
+    """The trainer of `opt["model_type"]` on `device` (None: cuda)."""
+    from . import gfpgan_model, sr_model  # noqa: F401  (registration)
+    opt = deepcopy(opt)
+    model = MODEL_REGISTRY.get(opt["model_type"])(opt, device=device)
+    get_root_logger().info(
+        f"Model [{model.__class__.__name__}] is created.")
+    return model

@@ -3,7 +3,12 @@
 Port of `image_restoration_tpu/ops/resize.py:49-56,111-192`: any separable
 resize is `out = R_h @ img @ R_w^T`, with the (out, in) weight matrices built
 in numpy (cv2 half-pixel centres, border-replicate taps). Used for the
-ConvUpLayer ×2 upsample and the Restorer input resize.
+ConvUpLayer ×2 upsample, the Restorer input resize and the GFPGAN trainer's
+GT pyramid.
+
+`dynamic_resize_matrix` (JAX `ops/resize.py:198`) builds the matrices for
+a per-sample scale held in a tensor, on its device, for a whole batch at
+once: the degradation chain's random down/up round trip.
 """
 
 from __future__ import annotations
@@ -58,3 +63,41 @@ def resize(img: torch.Tensor, out_hw, interpolation: str = "bilinear") -> torch.
     out = torch.matmul(rh, img.reshape(n, h, w * c)).reshape(n, oh, w, c)
     out = torch.matmul(rw, out)  # (ow, w) @ (n, oh, w, c) → (n, oh, ow, c)
     return out[0] if squeeze else out
+
+
+def dynamic_resize_matrix(out_length: int, in_length: int,
+                          scale: torch.Tensor, valid_out: torch.Tensor,
+                          interpolation: str = "bilinear") -> torch.Tensor:
+    """(..., out_length, in_length) weight matrices for per-sample scales.
+
+    `scale` (the src/dst step) and `valid_out` (the count of meaningful
+    output rows) are tensors of one shape (...), e.g. (N,); rows at or past
+    `valid_out` are zero. Modes: bilinear/linear, bicubic/cubic (cv2's
+    a = -0.75) and area (a triangle of width max(scale, 1), the smooth
+    surrogate of box coverage), as the JAX function has them.
+    """
+    scale = torch.as_tensor(scale, dtype=torch.float32)
+    dev = scale.device
+    valid_out = torch.as_tensor(valid_out, device=dev)
+    s = scale[..., None, None]
+    i = torch.arange(out_length, dtype=torch.float32, device=dev)[:, None]
+    j = torch.arange(in_length, dtype=torch.float32, device=dev)[None, :]
+    d = ((i + 0.5) * s - 0.5) - j
+    if interpolation in ("bilinear", "linear"):
+        w = torch.clamp(1.0 - torch.abs(d), min=0.0)
+    elif interpolation in ("bicubic", "cubic"):
+        a = -0.75
+        ad = torch.abs(d)
+        w = torch.where(ad <= 1, (a + 2) * ad ** 3 - (a + 3) * ad ** 2 + 1,
+                        torch.where(ad < 2, a * ad ** 3 - 5 * a * ad ** 2
+                                    + 8 * a * ad - 4 * a,
+                                    torch.zeros_like(ad)))
+    elif interpolation == "area":
+        width = torch.clamp(s, min=1.0)
+        w = torch.clamp(1.0 - torch.abs(d) / width, min=0.0)
+    else:
+        raise ValueError(f"unknown interpolation {interpolation!r}")
+    wsum = torch.sum(w, dim=-1, keepdim=True)
+    w = w / torch.clamp(wsum, min=1e-8)
+    row_valid = (i < valid_out[..., None, None]).to(w.dtype)
+    return w * row_valid

@@ -11,6 +11,12 @@ keep (the JAX module documents both at :13-20):
     before the correlation `F.conv2d` computes.
 
 Layout: NHWC in and out; the kernel is shared across channels.
+
+The depthwise conv is `_FIRConv`, whose backward is a
+transposed depthwise conv in differentiable ops: autograd's own double
+backward of a grouped conv runs one conv per channel group (512 launches
+for a 512-channel layer), which made R1's double backward through the
+discriminator take seconds on the card.
 """
 
 from __future__ import annotations
@@ -34,6 +40,28 @@ def make_resample_kernel(k) -> torch.Tensor:
 _resample_kernel = DeviceConstants(
     lambda k, factor2, device: make_resample_kernel(k).mul_(factor2).to(
         device), maxsize=32)
+
+
+class _FIRConv(torch.autograd.Function):
+    """F.conv2d(x, w, stride, groups=C) for a constant FIR weight w; the
+    backward, a transposed depthwise conv, is itself differentiable, so a
+    double backward takes one conv per layer."""
+
+    @staticmethod
+    def forward(ctx, x, w, stride):
+        ctx.save_for_backward(w)
+        ctx.stride, ctx.in_hw = stride, tuple(x.shape[-2:])
+        return F.conv2d(x, w, stride=stride, groups=x.shape[1])
+
+    @staticmethod
+    def backward(ctx, g):
+        (w,) = ctx.saved_tensors
+        s, (h, wd) = ctx.stride, ctx.in_hw
+        kh, kw = w.shape[-2:]
+        pad = (h - ((g.shape[-2] - 1) * s + kh),
+               wd - ((g.shape[-1] - 1) * s + kw))
+        return F.conv_transpose2d(g, w, stride=s, output_padding=pad,
+                                  groups=g.shape[1]), None, None
 
 
 def upfirdn2d(x: torch.Tensor, kernel: torch.Tensor, up: int = 1,
@@ -63,7 +91,7 @@ def upfirdn2d(x: torch.Tensor, kernel: torch.Tensor, up: int = 1,
     k = torch.flip(torch.as_tensor(kernel, dtype=x.dtype, device=x.device),
                    (0, 1))
     wgt = k[None, None].expand(c, 1, *k.shape)
-    out = F.conv2d(xc, wgt, stride=down, groups=c)
+    out = _FIRConv.apply(xc, wgt, down)
     return out.permute(0, 2, 3, 1).contiguous()
 
 

@@ -1,0 +1,148 @@
+"""Training pipeline on one device.
+
+Port of `image_restoration_tpu/train.py`:
+
+    python -m image_restoration_tpu_torch.train \\
+        -opt configs/train_gfpgan_plate_256.yml [--auto_resume] [--debug] \\
+        [--force_yml train:total_iter=100 ...]
+
+The device is cuda (it raises without a GPU); `train_pipeline(...,
+device="cpu")` runs the plain PyTorch path on the CPU. GT batches are read
+on the host; the degradation runs on the device inside each step, from the
+model's generator. Checkpoints are `ckpt_{iter}.pth` (the training state,
+which `--auto_resume` finds) and `net_g_{iter}.pth` (reference layout).
+"""
+
+from __future__ import annotations
+
+import os
+import time
+from os import path as osp
+
+from .data import build_dataloader, build_dataset
+from .models import build_model
+from .utils.logger import (AvgTimer, MessageLogger, get_env_info,
+                           get_root_logger, init_tb_logger)
+from .utils.misc import check_resume, make_exp_dirs, set_random_seed
+from .utils.options import dict2str, parse_options
+
+
+def load_resume_state(opt):
+    """The newest `ckpt_{iter}.pth` with --auto_resume, else
+    path.resume_state."""
+    if opt.get("auto_resume"):
+        state_dir = opt["path"]["models"]
+        if osp.isdir(state_dir):
+            iters = [int(f[len("ckpt_"):-len(".pth")])
+                     for f in os.listdir(state_dir)
+                     if f.startswith("ckpt_") and f.endswith(".pth")]
+            if iters:
+                path = osp.join(state_dir, f"ckpt_{max(iters)}.pth")
+                opt["path"]["resume_state"] = path
+                return path
+        return None
+    return opt["path"].get("resume_state") or None
+
+
+def create_train_val_dataloader(opt, logger):
+    train_loader, val_loader, train_dataset = None, None, None
+    for phase, dataset_opt in opt["datasets"].items():
+        if phase == "train":
+            train_dataset = build_dataset(dataset_opt)
+            train_loader = build_dataloader(train_dataset, dataset_opt,
+                                            seed=opt["manual_seed"])
+            logger.info(f"Training set [{dataset_opt['name']}]: "
+                        f"{len(train_dataset)} images, "
+                        f"{len(train_loader)} iters/epoch")
+        elif phase.split("_")[0] == "val":
+            val_dataset = build_dataset(dataset_opt)
+            val_loader = build_dataloader(val_dataset, dataset_opt)
+            logger.info(f"Validation set [{dataset_opt['name']}]: "
+                        f"{len(val_dataset)} images")
+    return train_loader, val_loader, train_dataset
+
+
+def train_pipeline(root_path: str | None = None, argv=None, device=None):
+    """Parse the CLI (`argv`), build data and model, train, validate and
+    save; returns the model. `device` None means cuda."""
+    opt, _ = parse_options(root_path, is_train=True, argv=argv)
+    set_random_seed(opt["manual_seed"])
+
+    resume_state_path = load_resume_state(opt)
+    if resume_state_path is None:
+        make_exp_dirs(opt)
+    os.makedirs(opt["path"]["log"], exist_ok=True)
+    log_file = osp.join(opt["path"]["log"],
+                        f"train_{opt['name']}_{int(time.time())}.log")
+    logger = get_root_logger(log_file=log_file)
+    logger.info(get_env_info())
+    logger.info(dict2str(opt))
+    tb_logger = None
+    if opt["logger"].get("use_tb_logger"):
+        tb_logger = init_tb_logger(osp.join(opt["path"]["experiments_root"],
+                                            "tb_logger"))
+
+    train_loader, val_loader, train_dataset = \
+        create_train_val_dataloader(opt, logger)
+
+    model = build_model(opt, device=device)
+    degrade_fn = train_dataset.device_pipeline()
+    if degrade_fn is not None:
+        model.set_degradation_pipeline(degrade_fn)
+
+    start_iter = 0
+    if resume_state_path:
+        check_resume(opt, 0)
+        model.resume(resume_state_path)
+        start_iter = model.iter
+        logger.info(f"Resuming training from iter {start_iter}")
+
+    msg_logger = MessageLogger(opt, start_iter + 1, tb_logger)
+    total_iters = int(opt["train"]["total_iter"])
+    val_opt = opt.get("val", {}) or {}
+    val_freq = int(val_opt.get("val_freq", 0) or 0)
+    save_freq = int(opt["logger"].get("save_checkpoint_freq", 0) or 0)
+    print_freq = int(opt["logger"].get("print_freq", 100))
+
+    current_iter = start_iter
+    epoch = 0
+    data_timer, iter_timer = AvgTimer(), AvgTimer()
+    logger.info(f"Start training from iter {current_iter}")
+    while current_iter < total_iters:
+        train_loader.set_epoch(epoch)
+        for batch in train_loader:
+            data_timer.record()
+            if current_iter >= total_iters:
+                break
+            current_iter += 1
+            model.optimize_parameters(current_iter, batch)
+            iter_timer.record()
+            if current_iter % print_freq == 0:
+                logs = {"epoch": epoch, "iter": current_iter,
+                        "lrs": model.current_learning_rates(current_iter),
+                        "time": iter_timer.get_avg_time(),
+                        "data_time": data_timer.get_avg_time()}
+                logs.update(model.log_dict)
+                msg_logger(logs)
+            if save_freq and current_iter % save_freq == 0:
+                model.save(current_iter)
+            if val_freq and val_loader is not None and \
+                    current_iter % val_freq == 0:
+                model.validation(val_loader, current_iter, tb_logger,
+                                 val_opt.get("save_img", False))
+            data_timer.start()
+            iter_timer.start()
+        epoch += 1
+
+    logger.info("End of training.")
+    model.save(current_iter)
+    if val_loader is not None:
+        model.validation(val_loader, current_iter, tb_logger,
+                         val_opt.get("save_img", False))
+    if tb_logger is not None:
+        tb_logger.close()
+    return model
+
+
+if __name__ == "__main__":
+    train_pipeline(osp.abspath(osp.join(__file__, osp.pardir, osp.pardir)))

@@ -56,3 +56,10 @@ class DeviceConstants:
             while len(self._cache) > self._maxsize:
                 self._cache.popitem(last=False)
         return t
+
+
+# torch.tensor(vals, dtype=dtype, device=device) for a small constant given
+# as a (nested) tuple, built once per (vals, dtype, device)
+const_tensor = DeviceConstants(
+    lambda vals, dtype, device: torch.tensor(vals, dtype=dtype,
+                                             device=device), maxsize=128)

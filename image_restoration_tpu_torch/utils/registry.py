@@ -1,8 +1,9 @@
 """Name → class registries with decorator registration.
 
 A copy of `image_restoration_tpu/utils/registry.py` (the port imports
-nothing of the JAX package): networks are dispatched from the ``type:`` key
-of a config dict under the same names. Only the arch registry exists so far.
+nothing of the JAX package): networks, datasets, losses, metrics and
+trainers are dispatched from the ``type:`` key of a config dict under the
+same names.
 """
 
 from __future__ import annotations
@@ -57,3 +58,7 @@ class Registry:
 
 
 ARCH_REGISTRY = Registry("arch")
+DATASET_REGISTRY = Registry("dataset")
+LOSS_REGISTRY = Registry("loss")
+METRIC_REGISTRY = Registry("metric")
+MODEL_REGISTRY = Registry("model")

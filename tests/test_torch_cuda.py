@@ -471,3 +471,128 @@ def test_exported_kernel_ops_launch_on_card(cuda_device, tmp_path):
         torch.cuda.synchronize()
         assert [k.launches - b for k, b in zip(kernels, before)] == [1, 1, 1]
         assert torch.equal(got, graph(x8))
+
+
+# ------------------------------------------------ the GFPGAN trainer
+
+def _tiny_gan_opt(tmp_path):
+    return {"is_train": True, "manual_seed": 0, "num_devices": 1,
+            "model_type": "GFPGANModel",
+            "path": {"models": str(tmp_path / "m")},
+            "network_g": dict(type="GFPGANv1OCR", input_width=64,
+                              input_height=64, num_style_feat=32,
+                              channel_multiplier=0.5, num_mlp=2,
+                              input_is_latent=True, different_w=True,
+                              narrow=0.5, sft_half=True),
+            "network_d": dict(type="StyleGAN2Discriminator",
+                              input_width=64, input_height=64,
+                              channel_multiplier=0.5, narrow=0.5),
+            "train": {"optim_g": {"type": "Adam", "lr": 2e-3},
+                      "optim_d": {"type": "Adam", "lr": 2e-3},
+                      "L1_opt": {"type": "L1Loss", "loss_weight": 1.0},
+                      "pixel_opt": {"type": "L1Loss", "loss_weight": 0.1},
+                      "gan_opt": {"type": "GANLoss",
+                                  "gan_type": "wgan_softplus",
+                                  "loss_weight": 0.1},
+                      "net_d_reg_every": 16, "r1_reg_weight": 10}}
+
+
+@pytest.mark.cuda
+def test_gan_d_and_r1_steps_kernel_match_plain(cuda_device, no_tf32,
+                                               tmp_path):
+    """The D logistic loss and the R1 penalty (a double backward through
+    K1's autograd formula) with K1's kernel against the same with K1's
+    plain version: losses within 1e-5 relative, D gradients within 1e-4 of
+    max|grad|; K1 launches 11 per D forward at 64² (1 + 2 for each of 4
+    ResBlocks + final conv + final linear) and none in the double
+    backward."""
+    from unittest import mock
+    from image_restoration_tpu_torch.models import build_model
+    from image_restoration_tpu_torch.ops import fused_act
+    model = build_model(_tiny_gan_opt(tmp_path), device=cuda_device)
+    g = torch.Generator().manual_seed(1)
+    fake = (torch.rand((4, 64, 64, 3), generator=g) * 2 - 1).to(cuda_device)
+    gt = (torch.rand((4, 64, 64, 3), generator=g) * 2 - 1).to(cuda_device)
+
+    def run():
+        model.net_d.zero_grad()
+        l_d, _, _ = model.d_loss(fake, gt)
+        l_d.backward()
+        gd = [p.grad.clone() for p in model.net_d.parameters()]
+        model.net_d.zero_grad()
+        l_r1 = model.r1_loss(gt)
+        l_r1.backward()
+        gr = [torch.zeros_like(p) if p.grad is None else p.grad.clone()
+              for p in model.net_d.parameters()]
+        return l_d.item(), l_r1.item(), gd, gr
+
+    fused_act.fused_leaky_relu.launches = 0
+    k = run()
+    assert fused_act.fused_leaky_relu.launches == 3 * 11
+    with mock.patch.object(fused_act, "fused_leaky_relu",
+                           fused_act.fused_leaky_relu_plain):
+        p = run()
+    for a, b in zip(k[:2], p[:2]):
+        assert abs(a - b) <= 1e-5 * abs(b), (a, b)
+    for ga, gb in zip(k[2] + k[3], p[2] + p[3]):
+        scale = max(float(gb.abs().max()), 1e-12)
+        assert float((ga - gb).abs().max()) <= 1e-4 * scale
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("stage", ["kernel", "median", "bilateral",
+                                   "noise", "jpeg", "down_up", "jitter",
+                                   "jitter_pt", "gray", "chain"])
+def test_degradation_apply_on_card_matches_cpu(cuda_device, no_tf32, stage):
+    """Each apply half of the production chain at the same drawn
+    parameters on the card and on the CPU: median's 8-bit levels bit-equal
+    (its values within an ulp: the card divides by 255 as a multiply by the
+    reciprocal); the float ops
+    within 1e-5; JPEG and the whole chain (which round DCT coefficients
+    and quantize to uint8) within 2/255 on ≥99% of values: two 8-bit levels
+    for JPEG, one for the chain, whose output is normalized by
+    (x − 0.5)/0.5."""
+    from image_restoration_tpu_torch.data import degradations as D
+    from image_restoration_tpu_torch.data import pipelines as P
+    deg = P.make_ffhq_degradation(P.FFHQDegradationConfig())
+    g = torch.Generator().manual_seed(2)
+    gt = torch.rand((4, 64, 64, 3), generator=g)
+    p = deg.sample(g, 4, 64, 64)
+    cfg = deg.cfg
+
+    def apply(x, q, dev):
+        if stage == "kernel":
+            return D.filter2d(x, D.mixed_kernel(q["kernel"], cfg.kernel_list,
+                                                21, deg.bank(dev)))
+        if stage == "median":
+            return D.median_blur(x, 15)
+        if stage == "bilateral":
+            return D.bilateral_blur(x, 15, q["bilateral_sigma"],
+                                    q["bilateral_sigma"])
+        if stage == "noise":
+            return D.add_gaussian_noise(x[:, :16, :16], q["noise"])
+        if stage == "jpeg":
+            return D.add_jpeg_compression(x, q["jpeg_quality"])
+        if stage == "down_up":
+            return D.random_down_up(x, q["down_scale"])[0]
+        if stage == "jitter":
+            return D.color_jitter(x, q["jitter"])
+        if stage == "jitter_pt":
+            return D.color_jitter_pt(x, q["jitter_pt"])
+        if stage == "gray":
+            return D.random_grayscale(x, torch.ones_like(q["gray"]))
+        return torch.cat(deg.apply(x, q), dim=-1)
+
+    if stage == "median":
+        gt = torch.round(gt * 255) / 255
+    want = apply(gt, p, torch.device("cpu"))
+    got = apply(gt.to(cuda_device), D.params_to(p, cuda_device),
+                cuda_device).cpu()
+    d = (got - want).abs()
+    if stage == "median":  # the levels; /255 on the card is ×(1/255)
+        assert torch.equal(torch.round(got * 255), torch.round(want * 255))
+        assert float(d.max()) <= 1e-7
+    elif stage in ("jpeg", "chain"):
+        assert float((d <= 2 / 255 + 1e-6).float().mean()) >= 0.99
+    else:
+        assert float(d.max()) <= 1e-5, float(d.max())
