@@ -3,8 +3,8 @@
 
     python3 chip_smoke.py [--out report.json]
 
-Drives the port's six main paths with random weights made from a seed, and
-fails loudly if any phase fails:
+Drives the port's seven main paths with random weights made from a seed,
+and fails loudly if any phase fails:
 
   1. device: the card's name and power limit (nvidia-smi);
   2. build: every hand-written kernel (K1, K2 and K3), from csrc/, one nvcc
@@ -153,6 +153,33 @@ plates, the degradation on the card inside each step:
      `optimize_parameters` for the device-busy share, the device time of
      each of its `gfpgan.*` ranges, the FIR depthwise convs, K1's forward
      launches, K1's PyTorch-op backward and the VGG forward.
+
+Path 7, the SR trainers: `train_pipeline` on configs/train_qat_srvgg_x4.yml,
+train_distill_rrdb_to_srvgg.yml and train_esrgan_x4.yml as written (full
+widths; synthetic seeded images in a temp dir, cut to 32 or 16 steps with
+--force_yml; random VGG taps, a seeded RRDBNet-23 teacher `.pth`), the
+Real-ESRGAN chain on the card, the int8 engine from the QAT checkpoint, and
+`test.py`:
+
+ 29. the Real-ESRGAN degradation's apply half on the card against the CPU
+     at one set of drawn parameters (bs 16, 256²), each stage on the same
+     input (float stages ≤1e-5, JPEG and the chain within 2 levels on ≥99%
+     of values), and its ms per batch;
+ 30. each SR trainer's tiny step (QAT SRVGG, distillation, ESRGAN with the
+     VGG-style D) on the card against the CPU, TF32 off: losses within
+     1e-5 relative, gradients within 1e-4 of max|grad|, D's refreshed
+     running statistics within 1e-5;
+ 31. QAT: 32 steps (SRVGG 64×32, gt 256, bs 16), its ckpt_32.pth built into
+     the int8 engine (tile 512, halo 8, 8 tiles per call, pack 2, uint8 IO)
+     and served with the counts at 0 (EngineRestorer on 1024×768 and POST
+     /SRx4/: K2 exactly 34 per engine call); the engine bit-equal to the
+     same chain on K2's plain version, ≥ 35 dB against qat_srvgg_forward at
+     the exported scales; s/step, imgs/s, busy share, peak MiB, tiles/s;
+ 32. distillation: 16 steps with the bf16 RRDBNet-23 teacher, the teacher
+     bit-unchanged, s/step;
+ 33. ESRGAN ×4: 16 steps (RRDBNet-23, gt 128, bs 16, conv5_4 perceptual,
+     vanilla GAN), then test.py with configs/test_esrgan_x4.yml on the run's
+     net_g_16.pth; s/step, imgs/s, busy share, PSNR/SSIM.
 
 The last line of stdout is {"ok": true, "device": {...}}; the line before it
 lists the kernels as JSON. Without a GPU, or without the port beside this
@@ -2941,6 +2968,513 @@ def phase_train(tmp):
                                  throughput=thr, profile=prof)
 
 
+# ------------------------------------------- path 7: the SR trainers
+
+QAT_CONFIG = "configs/train_qat_srvgg_x4.yml"
+DISTILL_CONFIG = "configs/train_distill_rrdb_to_srvgg.yml"
+ESRGAN_CONFIG = "configs/train_esrgan_x4.yml"
+ESRGAN_TEST_CONFIG = "configs/test_esrgan_x4.yml"
+QAT_ITERS = 32
+SR_TRAIN_ITERS = 16                 # distill and ESRGAN
+SR_BS = 16      # every SR config's batch_size_per_gpu, and the GT images
+                # of a GT-only set (enlarge ratio 1: one batch an epoch)
+QAT_GATE_DB = 35.0                  # tests/test_qat.py:30-52
+SR_STATS_TOL = 1e-5                 # D's refreshed running stats, card/CPU
+SR_TINY_G = dict(type="SRVGGNetCompact", num_feat=8, num_conv=2, upscale=4)
+SR_TINY_RRDB = dict(type="RRDBNet", num_feat=8, num_block=1, num_grow_ch=4,
+                    scale=4)
+
+
+def write_scenes(folder, n, seed, h, w):
+    import cv2
+    os.makedirs(folder, exist_ok=True)
+    for i in range(n):
+        cv2.imwrite(os.path.join(folder, f"scene_{i:03d}.png"),
+                    scene_image(h, w, seed + i)[..., ::-1])
+
+
+def write_pairs(root, n, seed, size):
+    """GT scenes of size², each with its LQ made by an area ×1/4 resize."""
+    import cv2
+    for d in ("gt", "lq"):
+        os.makedirs(os.path.join(root, d), exist_ok=True)
+    for i in range(n):
+        gt = scene_image(size, size, seed + i)[..., ::-1]
+        cv2.imwrite(os.path.join(root, "gt", f"img_{i:03d}.png"), gt)
+        cv2.imwrite(os.path.join(root, "lq", f"img_{i:03d}.png"), cv2.resize(
+            gt, (size // 4, size // 4), interpolation=cv2.INTER_AREA))
+
+
+def scene_batch(n, seed, size=256):
+    """(n, size, size, 3) RGB float [0, 1] synthetic scenes."""
+    return np.stack([scene_image(size, size, seed + i) for i in range(n)]
+                    ).astype(np.float32) / 255.0
+
+
+def phase_sr_degradation():
+    """Phase 29: the Real-ESRGAN chain's apply half on the card against the
+    CPU at one set of drawn parameters (bs 16, 256²), stage by stage, each
+    stage on the same CPU input (the Poisson counts drawn on the CPU and
+    replayed); then the whole chain, and its ms per batch."""
+    from image_restoration_tpu_torch.data import degradations as D
+    from image_restoration_tpu_torch.data.pipelines import (
+        RealESRGANDegradationConfig, make_realesrgan_degradation,
+        virtual_rescale)
+    cfg = RealESRGANDegradationConfig()
+    deg = make_realesrgan_degradation(cfg)
+    dev = torch.device("cuda")
+    gt = torch.from_numpy(scene_batch(SR_BS, 2900))
+    p = deg.sample(torch.Generator().manual_seed(29), SR_BS, 256, 256)
+    cpu_gen = torch.Generator().manual_seed(30)
+    stages = [
+        ("blur 1", lambda x, q: deg.blur_stage(x, q["blur1"],
+                                               cfg.kernel_list)),
+        ("rescale 1", lambda x, q: virtual_rescale(x, q["resize1"])),
+        ("noise 1", lambda x, q: deg.noise_stage(x, q["noise1"], cpu_gen)),
+        ("jpeg 1", lambda x, q: D.add_jpeg_compression(x, q["jpeg1"])),
+        ("blur 2", lambda x, q: deg.blur_stage(x, q["blur2"],
+                                               cfg.kernel_list2)),
+        ("rescale 2", lambda x, q: virtual_rescale(x, q["resize2"])),
+        ("noise 2", lambda x, q: deg.noise_stage(x, q["noise2"], cpu_gen)),
+        ("final", lambda x, q: deg.final_stage(x, q)),
+    ]
+    old = _tf32_off()
+    out = {}
+    try:
+        x = gt
+        for name, fn in stages:
+            want = fn(x, p)   # on the CPU first: it draws the Poisson counts
+            got = fn(x.to(dev), D.params_to(p, dev)).cpu()
+            d = (got - want).abs()
+            row = dict(max_abs=float(d.max()),
+                       within_2_levels=float((d <= 2 / 255 + 1e-6)
+                                             .float().mean()))
+            out[name] = row
+            log(f"Real-ESRGAN {name:9s} card vs CPU: max|d| "
+                f"{row['max_abs']:.3g}, share within 2/255 "
+                f"{row['within_2_levels']:.6f}")
+            if name in ("jpeg 1", "final"):
+                require(row["within_2_levels"] >= 0.99,
+                        f"Real-ESRGAN {name}: card vs CPU")
+            else:
+                require(row["max_abs"] <= 1e-5, f"Real-ESRGAN {name}")
+            x = want
+        want, _ = deg.apply(gt, p)
+        got, gt_out = deg.apply(gt.to(dev), D.params_to(p, dev))
+        d = (got.cpu() - want).abs()
+        row = dict(max_abs=float(d.max()),
+                   within_2_levels=float((d <= 2 / 255 + 1e-6)
+                                         .float().mean()))
+        out["chain"] = row
+        log(f"Real-ESRGAN chain     card vs CPU: max|d| {row['max_abs']:.3g}"
+            f", share within 2/255 {row['within_2_levels']:.6f}; lq "
+            f"{tuple(got.shape)}")
+        require(row["within_2_levels"] >= 0.99 and got.shape ==
+                (SR_BS, 64, 64, 3) and torch.equal(gt_out.cpu(), gt),
+                "Real-ESRGAN chain: card vs CPU")
+    finally:
+        _tf32_restore(old)
+    g = torch.Generator(dev).manual_seed(31)
+    x = gt.to(dev)
+    out["ms_bs16"] = host_time_ms(lambda: deg(g, x), [()], 10)
+    log(f"Real-ESRGAN chain bs={SR_BS} 256² on the card: "
+        f"{out['ms_bs16']:.3f} ms per batch (sample and apply)")
+    return out
+
+
+def sr_tiny_opt(root, kind):
+    """The CPU tests' tiny config of each trainer (bs 2–4, TF32 off)."""
+    train = {"optim_g": {"type": "Adam", "lr": 1e-3},
+             "pixel_opt": {"type": "L1Loss", "loss_weight": 1.0},
+             "ema_decay": 0.9}
+    opt = {"is_train": True, "manual_seed": 0, "num_devices": 1,
+           "scale": 4, "name": f"tiny_{kind}",
+           "path": {"models": f"{root}/tiny_{kind}", "visualization": root},
+           "network_g": dict(SR_TINY_G), "train": train}
+    if kind == "qat":
+        opt["model_type"] = "SRModel"
+        train["quant_opt"] = {"ema_decay": 0.99}
+    elif kind == "distill":
+        opt["model_type"] = "DistillModel"
+        opt["network_t"] = dict(SR_TINY_RRDB)
+        train.update(distill_opt={"type": "L1Loss", "loss_weight": 1.0},
+                     allow_random_teacher=True)
+    else:
+        opt["model_type"] = "ESRGANModel"
+        opt["network_g"] = dict(SR_TINY_RRDB)
+        opt["network_d"] = {"type": "VGGStyleDiscriminator128",
+                            "num_in_ch": 3, "num_feat": 4}
+        train.update(
+            optim_d={"type": "Adam", "lr": 1e-3},
+            perceptual_opt={"type": "PerceptualLoss",
+                            "layer_weights": {"conv1_2": 1},
+                            "range_norm": False, "style_weight": 0},
+            gan_opt={"type": "GANLoss", "gan_type": "vanilla",
+                     "loss_weight": 5e-3})
+    return opt
+
+
+def sr_pieces(model, lq, gt, out_d=None):
+    """Losses and gradients of one SR step, pieces only (no update): G's
+    loss terms and G's gradients; under QAT the batch maxima that move the
+    scales; for a GAN trainer D's losses and gradients at `out_d` (the
+    same detached output on both devices) and D's running statistics
+    refreshed from it."""
+    model.net_g.zero_grad(set_to_none=True)
+    if hasattr(model, "net_d"):
+        model.net_d.requires_grad_(False)
+    total, losses, out, batch_max = model.g_losses(lq, gt)
+    total.backward()
+    grads = dict(g=_grads(model.net_g))
+    losses = {k: float(v.detach()) for k, v in losses.items()}
+    if batch_max is not None:
+        losses.update({f"max_{i}": float(v) for i, v in
+                       enumerate(batch_max.tolist())})
+    stats = None
+    if hasattr(model, "net_d"):
+        model.net_d.requires_grad_(True)
+        model.net_d.zero_grad(set_to_none=True)
+        l_d, parts = model._gan_d_losses(out_d, gt)
+        l_d.backward()
+        grads["d"] = _grads(model.net_d)
+        losses.update({k: float(v.detach()) for k, v in parts.items()},
+                      l_d=float(l_d.detach()))
+        model.net_d.zero_grad(set_to_none=True)
+        model._refresh_d_stats(out_d, gt)
+        stats = {k: v.detach().cpu() for k, v in
+                 model.net_d.state_dict().items() if "running" in k}
+    model.net_g.zero_grad(set_to_none=True)
+    return (losses, out.detach(), grads), stats
+
+
+def phase_sr_tiny_card_vs_cpu(root):
+    """Phase 30: each SR trainer's tiny step pieces on the card against the
+    CPU at the same weights and batch (TF32 off): losses within 1e-5
+    relative, gradients within 1e-4 of max|grad|, D's refreshed running
+    statistics within 1e-5."""
+    from image_restoration_tpu_torch.models import build_model
+    res = {}
+    old = _tf32_off()
+    try:
+        for kind in ("qat", "distill", "esrgan"):
+            opt = sr_tiny_opt(root, kind)
+            cpu = build_model(opt, device="cpu")
+            card = build_model(opt, device="cuda")
+            nets = ["net_g"] + [n for n in ("net_t", "net_d")
+                                if hasattr(cpu, n)]
+            for i, name in enumerate(nets):
+                randomize_weights(getattr(cpu, name), seed=300 + i)
+                getattr(card, name).load_state_dict(
+                    getattr(cpu, name).state_dict())
+            if kind == "esrgan":
+                card.cri_perceptual.vgg.load_state_dict(
+                    cpu.cri_perceptual.vgg.state_dict())
+            n, hw = (4, 32) if kind == "esrgan" else (2, 16)
+            g = torch.Generator().manual_seed(30)
+            lq = torch.rand((n, hw, hw, 3), generator=g)
+            gt = torch.rand((n, 4 * hw, 4 * hw, 3), generator=g)
+            out_d = torch.rand(gt.shape, generator=g)
+            want, ws = sr_pieces(cpu, lq, gt, out_d)
+            got, gs = sr_pieces(card, lq.cuda(), gt.cuda(), out_d.cuda())
+            row = compare_pieces(got, want, f"SR tiny {kind}, card vs CPU "
+                                 "(TF32 off)")
+            if ws is not None:
+                worst = max(float((gs[k] - v).abs().max())
+                            for k, v in ws.items())
+                log(f"SR tiny {kind}: D's refreshed running stats card vs "
+                    f"CPU max|d| {worst:.3g}")
+                require(worst <= SR_STATS_TOL, f"{kind}: D stats {worst}")
+                row["d_stats_abs"] = worst
+            res[kind] = row
+    finally:
+        _tf32_restore(old)
+    return res
+
+
+def timed_sr_steps(model, batches, iters):
+    """s per step of `iters` optimize_parameters calls as a training loop
+    runs them (CUDA events, no synchronize between steps), cycling through
+    `batches`; and the peak device memory."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    events = [torch.cuda.Event(enable_timing=True) for _ in range(iters + 1)]
+    events[0].record()
+    for it in range(1, iters + 1):
+        model.optimize_parameters(model.iter + 1,
+                                  batches[it % len(batches)])
+        events[it].record()
+    torch.cuda.synchronize()
+    times = [a.elapsed_time(b) / 1e3 for a, b in zip(events, events[1:])]
+    return times, torch.cuda.max_memory_allocated() / 2 ** 20
+
+
+def step_busy(model, batch):
+    """(wall ms, device-busy ms) of one profiled step."""
+    model.optimize_parameters(model.iter + 1, batch)
+    wall, kernels, _ = profile_call(
+        lambda: model.optimize_parameters(model.iter + 1, batch),
+        "no kernel has this name", 0)
+    return wall, sum(k[0] for k in kernels)
+
+
+def sr_step_rates(name, model, batches, iters):
+    """Phase rows: s per step (median after the first 4), imgs/s, peak MiB
+    and the device-busy share of one profiled step."""
+    times, peak = timed_sr_steps(model, batches, iters)
+    step = float(np.median(times[4:]))
+    wall, busy = step_busy(model, batches[0])
+    row = dict(s_per_step=step, imgs_per_s=SR_BS / step, peak_mib=peak,
+               profiled_step_ms=wall, busy_ms=busy,
+               busy_share=busy / wall)
+    log(f"{name} bs={SR_BS}: {step * 1e3:.2f} ms/step (median of steps "
+        f"5-{iters}), {SR_BS / step:.2f} imgs/s, peak {peak:.0f} MiB; a "
+        f"profiled step: wall {wall:.2f} ms, device busy {busy:.2f} ms "
+        f"({100 * busy / wall:.1f}%)")
+    return row
+
+
+def sr_train(root, argv, what):
+    """`train_pipeline` with the counts at 0; no kernel of the port runs on
+    the SR trainers' paths (SRVGG's PReLU, RRDBNet's and the VGG-style D's
+    LeakyReLU are plain ops). Returns (model, wall s)."""
+    from image_restoration_tpu_torch.train import train_pipeline
+    kernels = _counts_zero()
+    t0 = time.perf_counter()
+    model = train_pipeline(root, argv=argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = [k.launches for k in kernels]
+    log(f"{what}: {model.iter} iterations in {wall:.2f} s (wall: build, "
+        f"validation and saves included); K1/K2/K3 launches {counts}; last "
+        "losses " + ", ".join(f"{k}={v:.4g}"
+                              for k, v in model.log_dict.items()))
+    require(counts == [0, 0, 0], f"{what}: a port kernel launched {counts}")
+    require(all(math.isfinite(v) for v in model.log_dict.values()),
+            f"{what}: a non-finite loss")
+    return model, wall
+
+
+def phase_qat(root):
+    """Phase 31, QAT: train_pipeline on configs/train_qat_srvgg_x4.yml as
+    written (SRVGG 64×32, gt 256, bs 16, the Real-ESRGAN chain on the card)
+    for 32 steps; its ckpt_32.pth built into the int8 engine (tile 512,
+    halo 8, 8 tiles per call, pack 2, uint8 IO), served with the counts at
+    0 (K2 34 per engine call) through EngineRestorer and POST /SRx4/; the
+    engine bit-equal to the same chain on K2's plain version, and ≥ 35 dB
+    against qat_srvgg_forward at the exported scales; s/step, imgs/s,
+    busy share, peak MiB and tiles/s."""
+    import cv2
+    from image_restoration_tpu_torch.ops import quantized_inference as qi
+    from image_restoration_tpu_torch.ops.int8_conv import (
+        int8_conv3x3_requant_plain)
+    from image_restoration_tpu_torch.ops.qat import qat_srvgg_forward
+    from image_restoration_tpu_torch.serve.api import ServiceCore, make_server
+    from image_restoration_tpu_torch.serve.engine_restorer import (
+        EngineRestorer)
+    from image_restoration_tpu_torch.serve.sr_engine import (
+        build_srvgg, load_qat_checkpoint)
+    write_scenes(f"{root}/gt", SR_BS, 3100, 320, 320)
+    write_scenes(f"{root}/val", 2, 3200, 256, 256)
+    model, wall = sr_train(root, [
+        "-opt", QAT_CONFIG, "--force_yml",
+        f"datasets:train:dataroot_gt={root}/gt",
+        f"datasets:val:dataroot_gt={root}/val", "path:pretrain_network_g=~",
+        f"train:total_iter={QAT_ITERS}", f"val:val_freq={QAT_ITERS}",
+        f"logger:save_checkpoint_freq={QAT_ITERS}", "logger:print_freq=8"],
+        "QAT train_pipeline")
+    require(model.iter == QAT_ITERS and bool((model.qscale > 0).all()),
+            "QAT: scales not trained")
+    log("QAT scales: " + " ".join(f"{v:.4g}" for v in model.qscale.tolist()))
+    ckpt = os.path.join(model.opt["path"]["models"], f"ckpt_{QAT_ITERS}.pth")
+    res = dict(train_wall_s=wall, last_losses=model.log_dict)
+
+    engine = EngineRestorer.build(qat_ckpt=ckpt, seed=0, device="cuda", **SR)
+    require(engine.meta["qat"], "engine meta: not a QAT engine")
+
+    def chunks(h, w):
+        return math.ceil(math.ceil(h / SR["tile"]) * math.ceil(w / SR["tile"])
+                         / SR["batch"])
+
+    kernels = _counts_zero()
+    img = scene_image(768, 1024, seed=3300)
+    out = engine(img)
+    require(out.shape == (3072, 4096, 3) and out.dtype == np.uint8,
+            f"QAT engine: {out.shape}")
+    core = ServiceCore(sr_engine=engine)
+    server = make_server(core, "127.0.0.1", 0)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    try:
+        bgr = np.ascontiguousarray(scene_image(360, 640, seed=3301)[..., ::-1])
+        ok, buf = cv2.imencode(".png", bgr)
+        status, media, body = post(server.server_address[1], "/SRx4/",
+                                   buf.tobytes())
+        got = cv2.imdecode(np.frombuffer(body, np.uint8), cv2.IMREAD_COLOR)
+        require(status == 200 and got is not None
+                and got.shape == (1440, 2560, 3), f"/SRx4/: {status}")
+    finally:
+        server.shutdown()
+        server.server_close()
+        core.close()
+        thread.join(timeout=30)
+    require(not thread.is_alive(), "server thread did not stop")
+    k1, k2, k3 = (k.launches for k in kernels)
+    want = K2_LAUNCHES_PER_CALL * (chunks(768, 1024) + chunks(360, 640))
+    log(f"QAT engine main path: EngineRestorer 1024x768 and POST /SRx4/ "
+        f"640x360 -> K2 {k2} launches (expected {want}, "
+        f"{K2_LAUNCHES_PER_CALL} per engine call), K1 {k1}, K3 {k3}")
+    require(k2 == want and k1 == 0 and k3 == 0, "QAT engine: launch counts")
+    res.update(k2=k2, k2_expected=want)
+
+    s = SR["tile"] + 2 * SR["halo"]
+    big = scene_image(2 * s, 4 * s, seed=3302)
+    x = torch.from_numpy(np.stack([big[i * s:(i + 1) * s, j * s:(j + 1) * s]
+                                   for i in range(2) for j in range(4)])
+                         ).cuda()
+    with torch.inference_mode():
+        got = engine.serve(x)
+        with mock.patch.object(qi, "int8_conv3x3_requant",
+                               int8_conv3x3_requant_plain):
+            plain = engine.serve(x)
+    torch.cuda.synchronize()
+    require(torch.equal(got, plain), "QAT engine: K2 vs plain K2 differ")
+    log(f"QAT engine on K2 vs on plain K2 (8 tiles of {s}², uint8 IO): "
+        "bit-equal")
+    sd, scales = load_qat_checkpoint(ckpt, SR["num_feat"], SR["num_conv"],
+                                     SR["upscale"])
+    net = build_srvgg(SR["num_feat"], SR["num_conv"], SR["upscale"],
+                      device="cpu")
+    net.load_state_dict(sd)
+    net = net.cuda()
+    old = _tf32_off()
+    try:
+        with torch.inference_mode():
+            xb = x.to(torch.bfloat16) / 255.0
+            q = qi.quantize_srvgg_params(net, scales, pack=2)
+            served = qi.quantized_srvgg_forward(q, xb, SR["num_conv"],
+                                                SR["upscale"], pack=2)
+            fake, _ = qat_srvgg_forward(net, xb.float(),
+                                        torch.tensor(scales, device="cuda"))
+    finally:
+        _tf32_restore(old)
+    db = span_psnr(fake, served)
+    log(f"QAT engine (int8, K2) vs qat_srvgg_forward at the exported scales: "
+        f"span-normalized PSNR {db:.2f} dB (gate >= {QAT_GATE_DB})")
+    require(db >= QAT_GATE_DB, f"QAT engine vs fake-quant: {db:.2f} dB")
+    res["engine_vs_fake_quant_db"] = db
+    del fake, served, xb, q
+
+    batches = [{"gt": scene_batch(SR_BS, 3400 + 20 * i)} for i in range(2)]
+    res["steps"] = sr_step_rates("QAT step", model, batches, QAT_ITERS)
+    med, lo, hi = median_ms(lambda: engine.serve(x), 10)
+    res.update(engine_ms_per_call=med,
+               engine_tiles_per_s=SR["batch"] / med * 1e3)
+    log(f"QAT engine: {med:.3f} ms per call of {SR['batch']} tiles (min "
+        f"{lo:.3f}, max {hi:.3f}) = {res['engine_tiles_per_s']:.2f} tiles/s")
+    del engine, model
+    torch.cuda.empty_cache()
+    return k2, res
+
+
+def phase_distill(root):
+    """Phase 32, distillation: train_pipeline on
+    configs/train_distill_rrdb_to_srvgg.yml with a bf16 RRDBNet-23 teacher
+    from a seeded .pth, 16 steps; the teacher bit-unchanged; s/step."""
+    from image_restoration_tpu_torch.archs import build_network
+    write_scenes(f"{root}/gt", SR_BS, 3500, 320, 320)
+    write_scenes(f"{root}/val", 2, 3600, 256, 256)
+    teacher = build_network(dict(type="RRDBNet", num_feat=64, num_block=23,
+                                 scale=4), torch.Generator().manual_seed(32))
+    randomize_weights(teacher, seed=33)
+    t_sd = {k: v.clone() for k, v in teacher.state_dict().items()}
+    torch.save({"params_ema": t_sd}, f"{root}/teacher.pth")
+    model, wall = sr_train(root, [
+        "-opt", DISTILL_CONFIG, "--force_yml",
+        f"datasets:train:dataroot_gt={root}/gt",
+        f"datasets:val:dataroot_gt={root}/val",
+        f"path:pretrain_network_t={root}/teacher.pth",
+        f"train:total_iter={SR_TRAIN_ITERS}",
+        f"val:val_freq={SR_TRAIN_ITERS}",
+        f"logger:save_checkpoint_freq={SR_TRAIN_ITERS}",
+        "logger:print_freq=8"], "distill train_pipeline")
+    require(model.net_t.dtype == torch.bfloat16, "teacher not bf16")
+    changed = [k for k, v in model.net_t.state_dict().items()
+               if not torch.equal(v.cpu(), t_sd[k])]
+    log(f"distill: teacher parameters after {model.iter} steps: "
+        f"{len(changed)} of {len(t_sd)} tensors changed (must be 0)")
+    require(not changed and model.iter == SR_TRAIN_ITERS,
+            f"distill: teacher changed {changed[:3]}")
+    batches = [{"gt": scene_batch(SR_BS, 3700 + 20 * i)} for i in range(2)]
+    res = dict(train_wall_s=wall, last_losses=model.log_dict)
+    res["steps"] = sr_step_rates("distill step", model, batches,
+                                 SR_TRAIN_ITERS)
+    del model
+    torch.cuda.empty_cache()
+    return res
+
+
+def phase_esrgan(root):
+    """Phase 33, ESRGAN ×4: train_pipeline on configs/train_esrgan_x4.yml
+    (RRDBNet-23, gt 128, bs 16, VGGStyleDiscriminator128, conv5_4
+    perceptual, vanilla GAN) on seeded GT with area ×1/4 LQ, 16 steps;
+    then test.py with configs/test_esrgan_x4.yml on the run's
+    net_g_16.pth; s/step, imgs/s, busy share, PSNR/SSIM."""
+    import cv2
+    from image_restoration_tpu_torch.test import test_pipeline
+    write_pairs(f"{root}/train", 8, 3800, 160)
+    write_pairs(f"{root}/val", 2, 3900, 128)
+    model, wall = sr_train(root, [
+        "-opt", ESRGAN_CONFIG, "--force_yml",
+        f"datasets:train:dataroot_gt={root}/train/gt",
+        f"datasets:train:dataroot_lq={root}/train/lq",
+        f"datasets:val:dataroot_gt={root}/val/gt",
+        f"datasets:val:dataroot_lq={root}/val/lq",
+        f"train:total_iter={SR_TRAIN_ITERS}",
+        f"val:val_freq={SR_TRAIN_ITERS}",
+        f"logger:save_checkpoint_freq={SR_TRAIN_ITERS}",
+        "logger:print_freq=8"], "ESRGAN train_pipeline")
+    require(model.iter == SR_TRAIN_ITERS and "l_g_gan" in model.log_dict,
+            "ESRGAN: the G step did not run")
+    ckpt = os.path.join(model.opt["path"]["models"],
+                        f"net_g_{SR_TRAIN_ITERS}.pth")
+    res = dict(train_wall_s=wall, last_losses=model.log_dict)
+    batches = []
+    for i in range(2):
+        gt = scene_batch(SR_BS, 4000 + 20 * i, 128)
+        lq = np.stack([cv2.resize(g, (32, 32), interpolation=cv2.INTER_AREA)
+                       for g in gt])
+        batches.append({"lq": lq, "gt": gt})
+    res["steps"] = sr_step_rates("ESRGAN step", model, batches,
+                                 SR_TRAIN_ITERS)
+    del model
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    metrics = test_pipeline(root, argv=[
+        "-opt", ESRGAN_TEST_CONFIG, "--force_yml",
+        f"datasets:test_1:dataroot_gt={root}/val/gt",
+        f"datasets:test_1:dataroot_lq={root}/val/lq",
+        f"path:pretrain_network_g={ckpt}"])
+    res["test_py"] = dict(metrics=metrics, wall_s=time.perf_counter() - t0)
+    log(f"test.py on net_g_{SR_TRAIN_ITERS}.pth (Set14 folder: 2 synthetic "
+        f"pairs): {metrics} in {res['test_py']['wall_s']:.2f} s; random "
+        "weights, random VGG taps and synthetic data: not a quality number")
+    m = metrics.get("Set14", {})
+    require(math.isfinite(m.get("psnr", float("nan")))
+            and -1 <= m.get("ssim", 2) <= 1, "test.py metrics")
+    return res
+
+
+def phase_sr_train(tmp):
+    """Path 7: phases 29-33."""
+    deg = phase_sr_degradation()
+    tiny = phase_sr_tiny_card_vs_cpu(tmp)
+    qat_k2, qat = phase_qat(os.path.join(tmp, "qat"))
+    distill = phase_distill(os.path.join(tmp, "distill"))
+    esrgan = phase_esrgan(os.path.join(tmp, "esrgan"))
+    return qat_k2, dict(degradation=deg, tiny_card_vs_cpu=tiny, qat=qat,
+                        distill=distill, esrgan=esrgan)
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", default=None,
@@ -3007,6 +3541,9 @@ def main(argv=None):
     with tempfile.TemporaryDirectory(prefix="irt_train_") as tmp:
         train_k1, train = phase_train(tmp)
 
+    with tempfile.TemporaryDirectory(prefix="irt_sr_train_") as tmp:
+        qat_k2, sr_trainers = phase_sr_train(tmp)
+
     a = agg[("float32", 16)]
     kernels = [{
         "name": "fused_bias_lrelu",
@@ -3025,7 +3562,7 @@ def main(argv=None):
         "route": "cuda",
         "source": "image_restoration_tpu_torch/csrc/int8_conv3x3.cu",
         "replaces": "image_restoration_tpu/ops/pallas/int8_conv.py:65",
-        "launches": k2_launches + art_k2,
+        "launches": k2_launches + art_k2 + qat_k2,
         "max_abs_err": max(r["max_abs_err"] for r in k2_rows),
         "ms": k2_call["ms"],
         "plain_ms": k2_call["plain_ms"],
@@ -3067,6 +3604,7 @@ def main(argv=None):
         exports=exports,
         artifact_main_path_launches=dict(k1=art_k1, k2=art_k2),
         artifact_correctness=art_check, dyn_int8=dyn, train=train,
+        sr_train=sr_trainers,
         seconds=time.perf_counter() - t_start,
         note="kernels[].ms/plain_ms/bound_ms: device time (calls back to "
              "back, CUDA events) and bound, summed over the 39 K1 launches "
@@ -3079,7 +3617,8 @@ def main(argv=None):
              "bf16 conv; "
              "K3's launches are those of probe_conv.main(); K1's launches "
              "are those of the main-path phases of paths 1, 4, 5 and 6 (4, "
-             "17, 21, 26), K2's those of paths 2 and 5 (8, 21)")
+             "17, 21, 26), K2's those of paths 2, 5 and 7 (8, 21, 31: the "
+             "engine built from the QAT checkpoint)")
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as f:

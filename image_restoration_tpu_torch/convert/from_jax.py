@@ -19,7 +19,11 @@ RRDBNet's `body.i.rdbK.convJ.weight` becomes flax's `body_i/rdbK/convJ/kernel`
 (flax's Conv names its weight `kernel`). StyleGAN2Discriminator's
 `final_linear.0` is flax's `final_linear_0`, its input features reordered
 like GFPGAN's `final_linear`. VGG's torchvision `features.N` keys map to
-flax's `conv{block}_{i}` (`vgg_state_dict_from_jax`).
+flax's `conv{block}_{i}` (`vgg_state_dict_from_jax`). The VGG-style and
+UNet-SN discriminators take flax's `params` and `batch_stats`
+(`discriminator_state_dict_from_jax`), and a QAT training state becomes
+the part of the port's checkpoint that the SR engine reads
+(`qat_checkpoint_from_jax`).
 
 Strict both ways: every port key must resolve and every flax leaf be used.
 """
@@ -249,3 +253,63 @@ def vgg_state_dict_from_jax(net: torch.nn.Module,
     if unused:
         raise KeyError(f"{len(unused)} flax params unused: {unused[:10]}")
     return out
+
+
+def discriminator_state_dict_from_jax(net: torch.nn.Module,
+                                      variables: Dict) -> OrderedDict:
+    """The `state_dict` of the port's `VGGStyleDiscriminator128/256` or
+    `UNetDiscriminatorSN` holding the JAX package's flax `variables`
+    (`params`, and `batch_stats` for the VGG-style ones): BatchNorm's
+    scale/bias/mean/var become weight/bias/running_mean/running_var, conv
+    kernels (a spectral-norm conv's is `weight_orig`) go HWIO → OIHW, dense
+    kernels (in, out) → (out, in), with linear1's input features reordered
+    from flax's (H, W, C) flatten to the reference's (C, H, W). Strict both
+    ways; `num_batches_tracked` is left out (a strict load fills it)."""
+    leaves = {(col,) + path: arr for col in ("params", "batch_stats")
+              for path, arr in _leaves(variables.get(col, {})).items()}
+    bn_modules = {name for name, m in net.named_modules()
+                  if isinstance(m, torch.nn.BatchNorm2d)}
+    used = set()
+    out = OrderedDict()
+    for key, ref in net.state_dict().items():
+        if key.endswith("num_batches_tracked"):
+            continue
+        module, leaf = key.rsplit(".", 1)
+        if module in bn_modules:
+            col, flax_leaf = _BN_LEAVES[leaf]
+        else:
+            col = "params"
+            flax_leaf = "bias" if leaf == "bias" else "kernel"
+        path = (col, module, flax_leaf)
+        if path not in leaves:
+            raise KeyError(f"port key {key!r} has no flax counterpart "
+                           f"({'/'.join(path)})")
+        used.add(path)
+        arr = leaves[path]
+        if arr.ndim == 4:
+            arr = arr.transpose(3, 2, 0, 1)
+        elif arr.ndim == 2:
+            arr = arr.T
+            if module == "linear1":  # a 4×4 map flattened
+                c = ref.shape[1] // 16
+                arr = arr.reshape(-1, 4, 4, c).transpose(0, 3, 1, 2) \
+                    .reshape(arr.shape[0], -1)
+        arr = np.ascontiguousarray(arr, np.float32)
+        if arr.shape != tuple(ref.shape):
+            raise ValueError(f"{key}: flax {arr.shape} != port "
+                             f"{tuple(ref.shape)}")
+        out[key] = torch.from_numpy(arr)
+    unused = sorted("/".join(p) for p in set(leaves) - used)
+    if unused:
+        raise KeyError(f"{len(unused)} flax leaves unused: {unused[:10]}")
+    return out
+
+
+def qat_checkpoint_from_jax(net: torch.nn.Module, state: Dict) -> Dict:
+    """A JAX SRModel's QAT training state (`params_g`, `ema_g`, `qscale`)
+    as the port's checkpoint holds it: the SRVGG state_dicts of both
+    parameter sets and the scales, which `serve.sr_engine.build_graph(
+    qat_ckpt=...)` reads once `torch.save`d."""
+    return {"params_g": state_dict_from_jax(net, state["params_g"]),
+            "ema_g": state_dict_from_jax(net, state["ema_g"]),
+            "qscale": torch.from_numpy(np.array(state["qscale"], np.float32))}

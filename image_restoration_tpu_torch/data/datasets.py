@@ -1,10 +1,14 @@
 """Host-side datasets: file IO, decode and resize only.
 
-Port of `image_restoration_tpu/data/datasets.py:33-128`: the degradation
-synthesis runs on the device (data/pipelines.py), so a dataset returns GT
-images and exposes `device_pipeline()`, the degradation for the step.
-Only the disk backend and `FFHQDegradationDataset` without
-`crop_components` are ported.
+Port of `image_restoration_tpu/data/datasets.py`: the degradation
+synthesis runs on the device (data/pipelines.py), so a GT-only dataset
+returns GT images and exposes `device_pipeline()`, the degradation for the
+step. Ported: `FFHQDegradationDataset` (without `crop_components`),
+`RealESRGANDataset` (with its `RealSRDegradationDataset` alias),
+`PairedImageDataset` and `SingleImageDataset`, on the disk backend. The
+random crops draw from numpy's global generator and the flips from
+Python's `random`, as in the JAX package, so one seed gives the same
+samples.
 """
 
 from __future__ import annotations
@@ -15,7 +19,9 @@ import numpy as np
 
 from ..utils.misc import scandir
 from ..utils.registry import DATASET_REGISTRY
-from .pipelines import FFHQDegradationConfig, make_ffhq_degradation
+from .pipelines import (FFHQDegradationConfig, RealESRGANDegradationConfig,
+                        make_ffhq_degradation, make_realesrgan_degradation)
+from .transforms import augment, paired_random_crop
 
 
 def _gather_paths(root: str, backend_opt: dict):
@@ -98,3 +104,120 @@ class FFHQDegradationDataset(_BaseDataset):
             use_hflip=opt.get("use_hflip", False),
             mean=tuple(self.mean), std=tuple(self.std))
         return make_ffhq_degradation(cfg)
+
+
+@DATASET_REGISTRY.register()
+class RealESRGANDataset(_BaseDataset):
+    """GT-only: a random gt_size² crop (GT smaller than that is resized up
+    first) and flips; the second-order Real-ESRGAN chain runs on the
+    device."""
+
+    def __init__(self, opt: dict):
+        super().__init__(opt)
+        self.io_backend_opt = opt.get("io_backend", {"type": "disk"})
+        self.paths = _gather_paths(opt["dataroot_gt"], self.io_backend_opt)
+        self.gt_size = opt.get("gt_size", 256)
+        self.use_hflip = opt.get("use_hflip", True)
+        self.use_rot = opt.get("use_rot", False)
+
+    def __getitem__(self, index: int):
+        import cv2
+        path = self.paths[index]
+        img = _read_bgr_float(path)
+        h, w = img.shape[:2]
+        if h < self.gt_size or w < self.gt_size:
+            img = cv2.resize(img, (max(w, self.gt_size),
+                                   max(h, self.gt_size)))
+            h, w = img.shape[:2]
+        top = np.random.randint(0, h - self.gt_size + 1)
+        left = np.random.randint(0, w - self.gt_size + 1)
+        img = img[top:top + self.gt_size, left:left + self.gt_size]
+        img = augment(img, self.use_hflip, self.use_rot)
+        return {"gt": img[..., ::-1].copy(), "gt_path": path}
+
+    def device_pipeline(self):
+        """The chain of the `RealESRGANDegradationConfig` fields the options
+        set (lists as tuples), the dataclass's defaults for the rest."""
+        kwargs = {}
+        for f in RealESRGANDegradationConfig.__dataclass_fields__:
+            if f in self.opt:
+                v = self.opt[f]
+                kwargs[f] = tuple(v) if isinstance(v, list) else v
+        return make_realesrgan_degradation(
+            RealESRGANDegradationConfig(**kwargs))
+
+
+RealSRDegradationDataset = DATASET_REGISTRY.register(
+    type("RealSRDegradationDataset", (RealESRGANDataset,), {}))
+
+
+def _normalized(img: np.ndarray, mean, std) -> np.ndarray:
+    return (img - np.asarray(mean, np.float32)) / np.asarray(std, np.float32)
+
+
+@DATASET_REGISTRY.register()
+class PairedImageDataset(_BaseDataset):
+    """LQ/GT pairs: the GT folder's images (or the names of a
+    `meta_info_file`), each with the LQ of the name `filename_tmpl` makes
+    from its stem, read from disk. In the train phase a paired random crop of gt_size and
+    flips; RGB [0, 1], normalized when `mean` is set."""
+
+    def __init__(self, opt: dict):
+        super().__init__(opt)
+        self.mean = opt.get("mean")
+        self.std = opt.get("std")
+        gt_folder, lq_folder = opt["dataroot_gt"], opt["dataroot_lq"]
+        tmpl = opt.get("filename_tmpl", "{}")
+
+        def lq_name(name):
+            stem, ext = osp.splitext(name)
+            return tmpl.format(stem) + ext
+
+        if opt.get("meta_info_file"):
+            with open(opt["meta_info_file"]) as f:
+                names = [line.strip().split(" ")[0] for line in f]
+        else:
+            names = sorted(scandir(gt_folder,
+                                   suffix=("png", "jpg", "jpeg", "bmp")))
+        self.paths = [(osp.join(lq_folder, lq_name(n)),
+                       osp.join(gt_folder, n)) for n in names]
+
+    def __getitem__(self, index: int):
+        lq_path, gt_path = self.paths[index]
+        img_lq = _read_bgr_float(lq_path)
+        img_gt = _read_bgr_float(gt_path)
+        if self.opt.get("phase") == "train":
+            scale = self.opt.get("scale", 1)
+            img_gt, img_lq = paired_random_crop(img_gt, img_lq,
+                                                self.opt["gt_size"], scale,
+                                                gt_path)
+            img_gt, img_lq = augment([img_gt, img_lq],
+                                     self.opt.get("use_hflip", True),
+                                     self.opt.get("use_rot", True))
+        out = {"lq": img_lq[..., ::-1].copy(),
+               "gt": img_gt[..., ::-1].copy(),
+               "lq_path": lq_path, "gt_path": gt_path}
+        if self.mean is not None:
+            out["lq"] = _normalized(out["lq"], self.mean, self.std)
+            out["gt"] = _normalized(out["gt"], self.mean, self.std)
+        return out
+
+
+@DATASET_REGISTRY.register()
+class SingleImageDataset(_BaseDataset):
+    """LQ only (a test set without GT); RGB [0, 1], normalized when `mean`
+    is set."""
+
+    def __init__(self, opt: dict):
+        super().__init__(opt)
+        self.io_backend_opt = opt.get("io_backend", {"type": "disk"})
+        self.paths = _gather_paths(opt["dataroot_lq"], self.io_backend_opt)
+        self.mean = opt.get("mean")
+        self.std = opt.get("std")
+
+    def __getitem__(self, index: int):
+        path = self.paths[index]
+        img = _read_bgr_float(path)[..., ::-1].copy()
+        if self.mean is not None:
+            img = _normalized(img, self.mean, self.std)
+        return {"lq": img, "lq_path": path}

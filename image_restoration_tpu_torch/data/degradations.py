@@ -118,7 +118,10 @@ def bivariate_plateau(kernel_size: int, sig_x, sig_y, theta, beta,
                                         beta[..., None, None]) + 1.0))
 
 
-def sinc_kernel_bank(kernel_size: int = 21, num: int = 64,
+SINC_BANK_SIZE = 64  # the bank's default length, as the JAX package's
+
+
+def sinc_kernel_bank(kernel_size: int = 21, num: int = SINC_BANK_SIZE,
                      cutoff_range=(np.pi / 3, np.pi)) -> np.ndarray:
     """Host-made bank of circular low-pass (sinc) kernels over a cutoff
     grid."""

@@ -8,7 +8,8 @@ from ..utils.registry import MODEL_REGISTRY
 
 def build_model(opt, device=None):
     """The trainer of `opt["model_type"]` on `device` (None: cuda)."""
-    from . import gfpgan_model, sr_model  # noqa: F401  (registration)
+    from . import (distill_model, esrgan_model, gfpgan_model,  # noqa: F401
+                   sr_model, srgan_model)  # (registration)
     opt = deepcopy(opt)
     model = MODEL_REGISTRY.get(opt["model_type"])(opt, device=device)
     get_root_logger().info(

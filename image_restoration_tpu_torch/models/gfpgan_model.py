@@ -30,7 +30,6 @@ which `Restorer(ckpt_path=...)` serves.
 from __future__ import annotations
 
 import math
-from os import path as osp
 
 import torch
 from torch.utils.checkpoint import checkpoint
@@ -40,10 +39,6 @@ from ..losses.losses import r1_penalty
 from ..ops.resize import resize
 from ..utils.registry import MODEL_REGISTRY
 from .sr_model import SRModel
-
-
-def _cpu(sd):
-    return {k: v.detach().cpu() for k, v in sd.items()}
 
 
 @MODEL_REGISTRY.register()
@@ -64,12 +59,10 @@ class GFPGANModel(SRModel):
         super().__init__(opt, device)
         self.log_size = int(math.log2(min(self._hw)))
         self.ratio = self._hw[1] // self._hw[0]
-        self.generator = torch.Generator(self.device).manual_seed(self.seed)
         self.mark = None
-        if not self.is_train:
-            return
 
-        train_opt = opt["train"]
+    def init_training_settings(self, train_opt: dict) -> None:
+        net_g_opt = self.opt["network_g"]
         self.ema_decay = 0.5 ** (32 / (10 * 1000))
         frozen = "stylegan_decoder" if net_g_opt.get("fix_decoder") else None
         self.optimizer_g = self.make_optimizer("optim_g", self.net_g,
@@ -79,7 +72,7 @@ class GFPGANModel(SRModel):
             getattr(self.net_g, frozen).requires_grad_(False)
 
         self.net_d = self.build_net("network_d")
-        pre_d = opt["path"].get("pretrain_network_d")
+        pre_d = self.opt["path"].get("pretrain_network_d")
         if pre_d and pre_d.endswith((".pth", ".pt")):
             self.load_pretrain_torch(self.net_d, pre_d)
 
@@ -189,12 +182,7 @@ class GFPGANModel(SRModel):
         begins and with None after the last (a profiler's hook)."""
         gen = generator or self.generator
         self._mark("degradation")
-        gt = self.to_device(batch["gt"])
-        if self.degrade_fn is not None:
-            with torch.no_grad():
-                lq, gt = self.degrade_fn(gen, gt)
-        else:
-            lq = self.to_device(batch["lq"])
+        lq, gt = self.degrade(batch, gen)
         update_g = (current_iter % self.net_d_iters == 0
                     and current_iter > self.net_d_init_iters)
         noise = self.draw_noise(gen)
@@ -243,27 +231,11 @@ class GFPGANModel(SRModel):
     # -------------------------------------------------------- checkpoints
 
     def training_state(self) -> dict:
-        return {"params_g": self.net_g.state_dict(),
-                "ema_g": self.net_g_ema.state_dict(),
-                "opt_g": self.optimizer_g.state_dict(),
-                "params_d": self.net_d.state_dict(),
-                "opt_d": self.optimizer_d.state_dict(),
-                "iter": self.iter}
+        return dict(super().training_state(),
+                    params_d=self.net_d.state_dict(),
+                    opt_d=self.optimizer_d.state_dict())
 
     def load_training_state(self, state: dict) -> None:
-        self.net_g.load_state_dict(state["params_g"])
-        self.net_g_ema.load_state_dict(state["ema_g"])
-        self.optimizer_g.load_state_dict(state["opt_g"])
+        super().load_training_state(state)
         self.net_d.load_state_dict(state["params_d"])
         self.optimizer_d.load_state_dict(state["opt_d"])
-        self.iter = int(state["iter"])
-
-    def save(self, current_iter: int):
-        """The training state, and `net_g_{iter}.pth` in the reference's
-        {"params", "params_ema"} layout."""
-        path = super().save(current_iter)
-        net_path = osp.join(osp.dirname(path), f"net_g_{current_iter}.pth")
-        torch.save({"params": _cpu(self.net_g.state_dict()),
-                    "params_ema": _cpu(self.net_g_ema.state_dict())},
-                   net_path)
-        return path

@@ -1,8 +1,8 @@
 """Per-sample 2D filtering and unsharp masking.
 
 Port of `image_restoration_tpu/ops/filter2d.py`. `filter2d` correlates every
-image of a batch with its own kernel (reflect padding of k//2, no kernel
-flip, as F.conv2d): the batch folds into the channel axis and one grouped
+image of a batch with its own kernel (numpy's reflect padding of k//2, also
+where k//2 reaches past the image, no kernel flip, as F.conv2d): the batch folds into the channel axis and one grouped
 conv (groups = N·C) does the whole batch, with no loop over samples.
 """
 
@@ -15,6 +15,28 @@ import torch.nn.functional as F
 from ..utils.device import DeviceConstants
 
 
+def _reflect_index(length: int, pad: int, device) -> torch.Tensor:
+    """Source rows of numpy's "reflect" padding by `pad` on each side, which
+    reflects again where `pad` reaches past the other edge (as `jnp.pad`
+    does; F.pad's reflect refuses a pad of `length` or more)."""
+    idx = torch.arange(-pad, length + pad, device=device)
+    if length == 1:
+        return torch.zeros_like(idx)
+    period = 2 * (length - 1)
+    idx = idx.abs() % period
+    return torch.where(idx >= length, period - idx, idx)
+
+
+def reflect_pad(x: torch.Tensor, pad: int) -> torch.Tensor:
+    """(..., H, W) padded by `pad` on each side of both axes, numpy's
+    "reflect" mode at any size."""
+    h, w = x.shape[-2:]
+    if pad < h and pad < w:
+        return F.pad(x, (pad, pad, pad, pad), mode="reflect")
+    x = x.index_select(-2, _reflect_index(h, pad, x.device))
+    return x.index_select(-1, _reflect_index(w, pad, x.device))
+
+
 def filter2d(x: torch.Tensor, kernel: torch.Tensor) -> torch.Tensor:
     """x: (N, H, W, C); kernel: (N, kh, kw) per sample, or (kh, kw) shared."""
     n, h, w, c = x.shape
@@ -24,7 +46,7 @@ def filter2d(x: torch.Tensor, kernel: torch.Tensor) -> torch.Tensor:
     pad = kh // 2
     # (1, N·C, H, W), channel index n·C + c
     xr = x.permute(0, 3, 1, 2).reshape(1, n * c, h, w)
-    xp = F.pad(xr, (pad, pad, pad, pad), mode="reflect")
+    xp = reflect_pad(xr, pad)
     wk = kernel.to(x.dtype).repeat_interleave(c, dim=0)[:, None]
     out = F.conv2d(xp, wk, groups=n * c)
     return out.reshape(n, c, h, w).permute(0, 2, 3, 1)

@@ -2,7 +2,9 @@
 
 Port of the repo-root `scripts/export_restorer.py`. It builds
 SRVGGNetCompact (random weights from `--seed`, or `--pth`), applies the
-int8 PTQ with pack-2 weights (or, with `--bf16`, the packed bf16 path),
+int8 PTQ with pack-2 weights (or, with `--bf16`, the packed bf16 path;
+or, with `--qat-ckpt`, the int8 weights and scales of a quantization-aware
+training run's `ckpt_{iter}.pth`),
 exports the serving function with `torch.export` at the frozen
 (batch, tile + 2·halo, tile + 2·halo, 3) input, checks the round trip
 before it writes (the exported program against the live function, the JAX
@@ -15,8 +17,9 @@ for `serve.engine_restorer.EngineRestorer(<out>)` and the server's
 `IRT_SR_ENGINE`:
 
     python -m image_restoration_tpu_torch.scripts.export_restorer \\
-        --out engine_sr/ [--pth realesr.pth] [--tile 512] [--halo 8] \\
-        [--batch 8] [--bf16] [--u8-io] [--device cuda]
+        --out engine_sr/ [--pth realesr.pth | --qat-ckpt ckpt_40000.pth] \\
+        [--tile 512] [--halo 8] [--batch 8] [--bf16] [--u8-io] \\
+        [--device cuda]
 
 The artifact runs only on the device type it was exported on.
 """
@@ -75,8 +78,9 @@ def main(argv=None):
                    help="uint8 tiles in and out, /255 and clip/round inside "
                         "the graph")
     p.add_argument("--qat-ckpt", default=None,
-                   help="quantization-aware-training checkpoint (not "
-                        "ported yet; raises)")
+                   help="ckpt_{iter}.pth of a train.quant_opt run: export "
+                        "its EMA weights at the learned activation scales "
+                        "(implies int8)")
     p.add_argument("--num_feat", type=int, default=64)
     p.add_argument("--upscale", type=int, default=4)
     p.add_argument("--seed", type=int, default=0)

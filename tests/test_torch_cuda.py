@@ -596,3 +596,134 @@ def test_degradation_apply_on_card_matches_cpu(cuda_device, no_tf32, stage):
         assert float((d <= 2 / 255 + 1e-6).float().mean()) >= 0.99
     else:
         assert float(d.max()) <= 1e-5, float(d.max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("stage", ["blur", "rescale", "noise", "final",
+                                   "chain"])
+def test_realesrgan_apply_on_card_matches_cpu(cuda_device, no_tf32, stage):
+    """Each stage of the Real-ESRGAN chain, and the chain, at the same drawn
+    parameters (Poisson counts drawn on the CPU and replayed) on the card
+    and on the CPU: float stages within 1e-5; the final stage (JPEG) and
+    the chain within 2/255 on ≥99% of values."""
+    from image_restoration_tpu_torch.data import degradations as D
+    from image_restoration_tpu_torch.data import pipelines as P
+    cfg = P.RealESRGANDegradationConfig()
+    deg = P.make_realesrgan_degradation(cfg)
+    g = torch.Generator().manual_seed(3)
+    gt = torch.rand((4, 64, 64, 3), generator=g)
+    p = deg.sample(g, 4, 64, 64)
+
+    def apply(x, q):
+        if stage == "blur":
+            return deg.blur_stage(x, q["blur1"], cfg.kernel_list)
+        if stage == "rescale":
+            return P.virtual_rescale(x, q["resize1"])
+        if stage == "noise":
+            return deg.noise_stage(x, q["noise1"], g)
+        if stage == "final":
+            return deg.final_stage(x, q)
+        return deg.apply(x, q, g)[0]
+
+    want = apply(gt, p)  # the CPU first: it draws the Poisson counts
+    got = apply(gt.to(cuda_device), D.params_to(p, cuda_device)).cpu()
+    d = (got - want).abs()
+    if stage in ("final", "chain"):
+        assert float((d <= 2 / 255 + 1e-6).float().mean()) >= 0.99
+    else:
+        assert float(d.max()) <= 1e-5, float(d.max())
+
+
+@pytest.mark.cuda
+def test_qat_checkpoint_engine_on_card(cuda_device, tmp_path):
+    """The int8 engine built from a QAT checkpoint on the card: one K2
+    launch per int8 conv, bit-equal to the same engine on the CPU (K2's
+    plain version), and to the trained model's `export_quantized`."""
+    from image_restoration_tpu_torch.models import build_model
+    from image_restoration_tpu_torch.ops import quantized_inference as tq
+    from image_restoration_tpu_torch.ops.int8_conv import int8_conv3x3_requant
+    from image_restoration_tpu_torch.serve.sr_engine import build_graph
+    num_conv = 4
+    opt = {"is_train": True, "manual_seed": 0, "model_type": "SRModel",
+           "path": {"models": str(tmp_path)},
+           "network_g": {"type": "SRVGGNetCompact", "num_feat": 16,
+                         "num_conv": num_conv, "upscale": 4},
+           "train": {"optim_g": {"type": "Adam", "lr": 1e-3},
+                     "pixel_opt": {"type": "L1Loss"}, "quant_opt": {}}}
+    model = build_model(opt, device="cpu")
+    rng = np.random.default_rng(5)
+    model.optimize_parameters(1, {
+        "lq": rng.random((2, 16, 16, 3)).astype(np.float32),
+        "gt": rng.random((2, 64, 64, 3)).astype(np.float32)})
+    ckpt = model.save(1)
+    kw = dict(num_feat=16, num_conv=num_conv, upscale=4, tile=16, halo=2,
+              batch=2, io="bf16", qat_ckpt=ckpt)
+    cpu_graph, _ = build_graph(device="cpu", **kw)
+    card_graph, meta = build_graph(device=cuda_device, **kw)
+    assert meta["qat"]
+    x = torch.from_numpy(rng.random((2, 20, 20, 3)).astype(
+        np.float32)).bfloat16()
+    with torch.inference_mode():
+        want = cpu_graph(x)
+        before = int8_conv3x3_requant.launches
+        got = card_graph(x.to(cuda_device))
+        torch.cuda.synchronize()
+    assert int8_conv3x3_requant.launches == before + num_conv + 2
+    assert torch.equal(got.cpu(), want)
+    ref = tq.quantized_srvgg_forward(model.export_quantized(), x, num_conv,
+                                     4)
+    assert torch.equal(want, ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("model_type", ["SRModel", "ESRGANModel"])
+def test_sr_trainer_step_on_card_matches_cpu(cuda_device, no_tf32, tmp_path,
+                                             model_type):
+    """One step of an SR trainer (QAT SRVGG; ESRGAN with the VGG-style D)
+    on the card and on the CPU from the same weights and batch, with SGD
+    (Adam's first step turns a gradient within float rounding of 0 into a
+    step of up to lr): losses within 1e-5 relative, parameters after the
+    step within 1e-5 of max|p|, D's running statistics (refreshed by the
+    updated D) within 1e-4."""
+    from image_restoration_tpu_torch.models import build_model
+    sgd = {"type": "SGD", "lr": 1e-3}
+    train = {"optim_g": sgd, "pixel_opt": {"type": "L1Loss"}}
+    opt = {"is_train": True, "manual_seed": 0, "model_type": model_type,
+           "path": {"models": str(tmp_path)}, "train": train}
+    if model_type == "SRModel":
+        opt["network_g"] = {"type": "SRVGGNetCompact", "num_feat": 8,
+                            "num_conv": 2, "upscale": 4}
+        train["quant_opt"] = {}
+        n, hw = 2, 16
+    else:
+        opt["network_g"] = {"type": "RRDBNet", "num_feat": 8,
+                            "num_block": 1, "num_grow_ch": 4}
+        opt["network_d"] = {"type": "VGGStyleDiscriminator128",
+                            "num_feat": 4}
+        train.update(optim_d=sgd,
+                     gan_opt={"type": "GANLoss", "gan_type": "vanilla",
+                              "loss_weight": 5e-3})
+        n, hw = 4, 32
+    cpu = build_model(opt, device="cpu")
+    card = build_model(opt, device=cuda_device)
+    for name in ("net_g", "net_g_ema", "net_d"):
+        if hasattr(cpu, name):
+            getattr(card, name).load_state_dict(
+                getattr(cpu, name).state_dict())
+    g = torch.Generator().manual_seed(6)
+    batch = {"lq": torch.rand((n, hw, hw, 3), generator=g),
+             "gt": torch.rand((n, 4 * hw, 4 * hw, 3), generator=g)}
+    want = cpu.optimize_parameters(1, batch)
+    got = card.optimize_parameters(1, batch)
+    for k, v in want.items():
+        assert abs(float(got[k]) - float(v)) <= 1e-5 * abs(float(v)), k
+    for name in ("net_g", "net_d"):
+        if not hasattr(cpu, name):
+            continue
+        want_sd = getattr(cpu, name).state_dict()
+        got_sd = getattr(card, name).state_dict()
+        scale = max(float(v.abs().max()) for k, v in want_sd.items()
+                    if "running" not in k)
+        for k, v in want_sd.items():
+            d = float((got_sd[k].cpu().float() - v.float()).abs().max())
+            assert d <= (1e-4 if "running" in k else 1e-5 * scale), k
