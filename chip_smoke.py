@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py [--out report.json]
 
-Drives the port's seven main paths with random weights made from a seed,
+Drives the port's eight main paths with random weights made from a seed,
 and fails loudly if any phase fails:
 
   1. device: the card's name and power limit (nvidia-smi);
@@ -181,6 +181,36 @@ Real-ESRGAN chain on the card, the int8 engine from the QAT checkpoint, and
      vanilla GAN), then test.py with configs/test_esrgan_x4.yml on the run's
      net_g_16.pth; s/step, imgs/s, busy share, PSNR/SSIM.
 
+Path 8, the StyleGAN2 family: FUSE_UP / FUSE_DOWN on the restore, and
+`train_pipeline` (`python -m image_restoration_tpu_torch.train -opt
+configs/options/train/StyleGAN/train_StyleGAN2_256_Cmul2_FFHQ.yml`) at the
+config's full width (StyleGAN2Generator 256², 512 style features, 8 MLP
+layers, channel multiplier 2; the D at 2; batch 3) with style mixing, R1,
+the path-length penalty through K1's double backward, and the EMA G sampled
+from its checkpoint:
+
+ 34. the restore at PRODUCTION_GFPGAN in the four FUSE settings (off, up,
+     down, both): each flagged forward against the unflagged one (TF32
+     off; float32 ≤1 LSB and ≤2e-4·max|y|, dyn-int8 ≥30 dB), K1 39 per
+     forward in each; device ms of a bs-16 forward, imgs/s at bs 1, 16 and
+     32, and the FIR depthwise convs' and the fused ops' shares of a bs-16
+     forward's device time;
+ 35. the tiny config's (32²) D+G, R1 and path-length pieces on the card
+     against the CPU with one style and with two (losses ≤1e-5 relative,
+     gradients ≤1e-4 of max|grad|, mean_path_length ≤1e-5), and one
+     full-width path-length step with K1 against plain K1;
+ 36. main path: counts set to 0, then `train_pipeline` on the config with
+     --force_yml (the disk backend over 16 seeded 256² images, 32
+     iterations, a checkpoint at 32), counts read (K1 exactly 21 per G
+     forward with one code, 29 with two, 15 per D forward, from the
+     model's own draws; K2 and K3 never); every loss finite; `net_g_32.pth`
+     in a fresh StyleGAN2Generator samples what the trained EMA G samples
+     at truncation 0.7 around `mean_latent(4096)`;
+ 37. s per step (median of steps 5-32, no synchronize between steps),
+     imgs/s and peak MiB at bs 3 and 24, the R1 and path-length steps' ms,
+     and the device-busy share of a profiled bs-3 step with K1's forward
+     and its PyTorch-op backward.
+
 The last line of stdout is {"ok": true, "device": {...}}; the line before it
 lists the kernels as JSON. Without a GPU, or without the port beside this
 file, it exits non-zero before printing a result.
@@ -189,6 +219,7 @@ file, it exits non-zero before printing a result.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import math
 import os
@@ -298,23 +329,24 @@ def host_time_ms(fn, arg_sets, iters):
     return start.elapsed_time(end) / iters
 
 
-def device_time_ms(fn, arg_sets, iters):
+def device_time_ms(fn, arg_sets, iters, calls=HOLD_CALLS,
+                   cycles=HOLD_CYCLES):
     """Mean device ms per call over `iters` calls run back to back.
 
-    In windows of HOLD_CALLS calls, a sleep kernel holds the stream while
-    the host enqueues the window, so the CUDA events time the device alone
-    and not the host's launch path, which dominates small calls. A window
-    whose sleep ended before the host finished is timed again; the run
-    fails after three."""
+    In windows of `calls` calls, a sleep kernel of `cycles` holds the
+    stream while the host enqueues the window, so the CUDA events time the
+    device alone and not the host's launch path, which dominates small
+    calls. A window whose sleep ended before the host finished is timed
+    again; the run fails after three."""
     _warm_up(fn, arg_sets)
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     total = 0.0
-    for first in range(0, iters, HOLD_CALLS):
+    for first in range(0, iters, calls):
         for _ in range(3):
-            torch.cuda._sleep(HOLD_CYCLES)
+            torch.cuda._sleep(cycles)
             start.record()
-            for i in range(first, min(iters, first + HOLD_CALLS)):
+            for i in range(first, min(iters, first + calls)):
                 fn(*arg_sets[i % len(arg_sets)])
             end.record()
             held = not start.query()
@@ -3475,6 +3507,653 @@ def phase_sr_train(tmp):
                         distill=distill, esrgan=esrgan)
 
 
+# ------------------------------------- path 8: the StyleGAN2 family
+
+SG2_CONFIG = "configs/options/train/StyleGAN/train_StyleGAN2_256_Cmul2_FFHQ.yml"
+SG2_ITERS = 32               # R1 at 16 and 32, the path step every 4
+SG2_IMAGES = 16
+SG2_BATCHES = (3, 24)        # the config's batch and its name's B24
+# K1 per G forward at 256²: 8 style-MLP layers per code, 13 StyleConvs;
+# per D forward (channel multiplier 2): the 1×1 ConvLayer, two in each of
+# 6 ResBlocks, final_conv and final_linear's first layer
+K1_PER_SG2_G = {1: 8 + 13, 2: 2 * 8 + 13}
+K1_PER_SG2_D = 15
+# the four FUSE settings: (FUSE_UP, FUSE_DOWN)
+FUSE_SETTINGS = {"off": (False, False), "up": (True, False),
+                 "down": (False, True), "both": (True, True)}
+FUSE_SPEED_BATCHES = (1, 16, 32)
+FUSED_FLOAT_TOL = 2e-4       # of max|y|, flagged vs unflagged float output
+# the path piece at 512 channels: the card's error against float64 at most
+# this many times the CPU's largest float32 error (plus LOSS_RTOL or
+# GRAD_TOL)
+PATH_F64_FACTOR = 4
+# the tiny overrides of tests/test_option_zoo.py:309-323
+SG2_TINY = ["network_g:out_size=32", "network_g:num_style_feat=16",
+            "network_g:num_mlp=2", "network_g:channel_multiplier=0.25",
+            "network_d:out_size=32", "network_d:channel_multiplier=0.25",
+            "train:net_d_reg_every=2", "train:net_g_reg_every=2"]
+
+
+@contextlib.contextmanager
+def fuse_flags(up, down):
+    """`ops/fused_resample.py`'s FUSE_UP / FUSE_DOWN set inside the block
+    (the callers read them at every call), restored after."""
+    from image_restoration_tpu_torch.ops import fused_resample as fr
+    old = (fr.FUSE_UP, fr.FUSE_DOWN)
+    fr.FUSE_UP, fr.FUSE_DOWN = up, down
+    try:
+        yield
+    finally:
+        fr.FUSE_UP, fr.FUSE_DOWN = old
+
+
+def _ranged(name, fn):
+    from torch.profiler import record_function
+
+    def wrapped(*a, **k):
+        with record_function(name):
+            return fn(*a, **k)
+    return wrapped
+
+
+def _range_ms(prof, key):
+    """Device ms under the profiler range `key` (its CPU-side events)."""
+    return sum(getattr(e, "device_time_total",
+                       getattr(e, "cuda_time_total", 0.0)) / 1e3
+               for e in prof.key_averages()
+               if e.key == key and getattr(e, "device_type", None)
+               == torch.autograd.DeviceType.CPU)
+
+
+def _fused_op_ranges():
+    """Patches that wrap each fused-resample call site in the profiler
+    range irt.fused_resample."""
+    from image_restoration_tpu_torch.archs import stylegan2_arch
+    from image_restoration_tpu_torch.ops import modulated_conv
+    return [mock.patch.object(mod, name, _ranged("irt.fused_resample",
+                                                 getattr(mod, name)))
+            for mod, name in ((modulated_conv, "conv_up_fir"),
+                              (modulated_conv, "conv_down_fir"),
+                              (stylegan2_arch, "conv_down_fir"))]
+
+
+def phase_fuse_restore():
+    """Phase 34: FUSE_UP / FUSE_DOWN on the restore at PRODUCTION_GFPGAN,
+    in the four settings. TF32 off: each flagged forward against the
+    unflagged one at the same weights (float32: ≤1 LSB on the uint8
+    output, ≤2e-4·max|y| on the float one; dyn-int8, where the fused path
+    quantizes the FIR-folded weight, so the operands differ: ≥30 dB, the
+    serving gate, with the worst LSB printed), and K1 39 per forward in
+    every setting. TF32 at PyTorch's defaults: device ms of a bs-16
+    forward (calls back to back), imgs/s at bs 1, 16 and 32, and a profile
+    of a bs-16 forward with the FIR depthwise convs' and the fused ops'
+    shares of device time."""
+    from image_restoration_tpu_torch.infer import PRODUCTION_GFPGAN, Restorer
+    from image_restoration_tpu_torch.ops import fused_act
+    restorer = Restorer(PRODUCTION_GFPGAN, device="cuda", seed=0)
+    randomize_weights(restorer.net, seed=1)
+    q = Restorer(PRODUCTION_GFPGAN, quant="dyn-int8", device="cuda", seed=0)
+    q.net.load_state_dict(restorer.net.state_dict())
+    imgs = np.stack([plate_image(256, 256, seed=3400 + i)[..., ::-1]
+                     for i in range(32)])
+    u8 = {bs: imgs[:bs].copy() for bs in FUSE_SPEED_BATCHES}
+    x4 = torch.from_numpy(imgs[:4].copy()).cuda().float() / 255.0
+    x4 = (x4 - restorer._mean_t) / restorer._std_t
+
+    def run(r):
+        return (r.restore_batch_u8(imgs[:4]), r._fwd(x4).float())
+
+    old = _tf32_off()
+    try:
+        ref = {name: run(r) for name, r in (("float32", restorer),
+                                            ("dyn-int8", q))}
+        check = {}
+        for setting, flags in FUSE_SETTINGS.items():
+            with fuse_flags(*flags):
+                for name, r in (("float32", restorer), ("dyn-int8", q)):
+                    fused_act.fused_leaky_relu.launches = 0
+                    r.restore_batch_u8(imgs[:1])
+                    torch.cuda.synchronize()
+                    k1 = fused_act.fused_leaky_relu.launches
+                    require(k1 == K1_LAUNCHES_PER_FORWARD,
+                            f"FUSE {setting} {name}: K1 {k1} per forward")
+                    got_u8, got_f = run(r)
+                    lsb = _lsb(got_u8, ref[name][0])
+                    dfloat = float((got_f - ref[name][1]).abs().max()
+                                   / ref[name][1].abs().max())
+                    db = _psnr_u8(got_u8, ref[name][0])
+                    require(bool(torch.isfinite(got_f).all()),
+                            f"FUSE {setting} {name}: non-finite output")
+                    if name == "float32":
+                        require(lsb <= 1 and dfloat <= FUSED_FLOAT_TOL,
+                                f"FUSE {setting} float32 vs unflagged: "
+                                f"{lsb} LSB, {dfloat:.3g} of max|y|")
+                    else:
+                        require(db >= DYN_INT8_GATE_DB,
+                                f"FUSE {setting} dyn-int8 vs unflagged: "
+                                f"{db:.2f} dB")
+                    check[f"{setting}/{name}"] = dict(
+                        max_lsb=lsb, float_rel=dfloat, psnr_db=db, k1=k1)
+                    log(f"FUSE {setting:4s} {name:8s} vs unflagged (TF32 "
+                        f"off, bs 4): max {lsb} LSB, float max|d| "
+                        f"{dfloat:.3g} of max|y|, {db:.2f} dB; K1 {k1} "
+                        "per forward")
+    finally:
+        _tf32_restore(old)
+
+    log(f"timed runs: cudnn.allow_tf32={torch.backends.cudnn.allow_tf32} "
+        f"matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32}")
+    x16 = torch.from_numpy(u8[16]).cuda().float() / 255.0
+    x16 = (x16 - restorer._mean_t) / restorer._std_t
+    speed = {}
+    for setting, flags in FUSE_SETTINGS.items():
+        with fuse_flags(*flags):
+            # a whole forward takes the host longer to enqueue than the
+            # device to run, and its ≈ 600 launches fill much of the CUDA
+            # launch queue: windows of one forward behind a ≈ 300 ms sleep
+            fwd_ms = device_time_ms(lambda: restorer._fwd(x16), [()], 6,
+                                    calls=1, cycles=15 * HOLD_CYCLES)
+            rates = {}
+            for bs in FUSE_SPEED_BATCHES:
+                for _ in range(3):
+                    restorer.restore_batch_u8(u8[bs])
+                torch.cuda.synchronize()
+                times = []
+                for _ in range(20 if bs > 1 else 40):
+                    t0 = time.perf_counter()
+                    restorer.restore_batch_u8(u8[bs])
+                    times.append(time.perf_counter() - t0)
+                rates[bs] = bs / float(np.median(times))
+            patches = _fused_op_ranges()
+            for p in patches:
+                p.start()
+            try:
+                from torch.profiler import ProfilerActivity, profile
+                for _ in range(3):
+                    with profile(activities=[ProfilerActivity.CPU,
+                                             ProfilerActivity.CUDA]) as prof:
+                        t0 = time.perf_counter()
+                        restorer._fwd(x16)
+                        torch.cuda.synchronize()
+                        wall = (time.perf_counter() - t0) * 1e3
+                    kernels = [k for k in _kernel_events(prof)
+                               if not k[2].startswith("irt.")]
+                    k1_n = sum(k[1] for k in kernels
+                               if "fused_bias_lrelu" in k[2])
+                    if k1_n == K1_LAUNCHES_PER_FORWARD:
+                        break
+                    log(f"profiler saw {k1_n} K1 launches: profiling again")
+            finally:
+                for p in patches:
+                    p.stop()
+            busy = sum(k[0] for k in kernels)
+            fir = sum(k[0] for k in kernels
+                      if any(key in k[2] for key in FIR_KERNEL_KEYS))
+            fused_ms = _range_ms(prof, "irt.fused_resample")
+        speed[setting] = dict(fwd_bs16_device_ms=fwd_ms,
+                              imgs_per_s={str(b): v for b, v in
+                                          rates.items()},
+                              profile_wall_ms=wall, busy_ms=busy,
+                              fir_ms=fir, fir_share=fir / busy,
+                              fused_ms=fused_ms, fused_share=fused_ms / busy,
+                              top=[dict(ms=t, count=n, name=name[:160])
+                                   for t, n, name in kernels[:8]])
+        log(f"FUSE {setting:4s}: bs-16 forward {fwd_ms:.4f} device ms; "
+            "imgs/s " + ", ".join(f"bs {b} {v:.2f}" for b, v in
+                                  rates.items())
+            + f"; profile bs 16: busy {busy:.3f} of {wall:.3f} ms, FIR "
+            f"depthwise {fir:.3f} ms ({100 * fir / busy:.1f}%), fused ops "
+            f"{fused_ms:.3f} ms ({100 * fused_ms / busy:.1f}%)")
+        for t, n, name in kernels[:6]:
+            log(f"  {t:9.4f} ms  x{n:<4d} {name[:110]}")
+    best = min(speed, key=lambda s: speed[s]["fwd_bs16_device_ms"])
+    log(f"FUSE: fastest bs-16 forward on the device: {best}")
+    del restorer, q
+    torch.cuda.empty_cache()
+    return dict(check=check, speed=speed, fastest_device=best)
+
+
+def sg2_options(root, extra=()):
+    """The StyleGAN2 config (`parse_options`) with `extra` --force_yml
+    overrides and its GT folder in `root`."""
+    from image_restoration_tpu_torch.utils.options import parse_options
+    argv = ["-opt", SG2_CONFIG, "--force_yml",
+            f"datasets:train:dataroot_gt={root}/gt",
+            "datasets:train:io_backend={type: disk}", *extra]
+    return parse_options(root, argv=argv)[0]
+
+
+def sg2_path_piece(model, codes, index, noise, img_noise):
+    """The path-length penalty (batch of `img_noise`) and its G grads, no
+    update: ({l_g_path, path_length, mean_path_length}, grads)."""
+    model.net_g.zero_grad(set_to_none=True)
+    pb = img_noise.shape[0]
+    l_path, path_len, new_mean = model.path_loss(
+        [c[:pb] for c in codes], index, noise, img_noise)
+    l_path.backward()
+    grads = _grads(model.net_g)
+    model.net_g.zero_grad(set_to_none=True)
+    return {"l_g_path": float(l_path.detach()),
+            "path_length": float(path_len),
+            "mean_path_length": float(new_mean)}, grads
+
+
+def sg2_pieces(model, real, codes, index, noise, img_noise):
+    """Losses and gradients of the StyleGAN2 step's pieces, no update: the
+    D loss at a no-grad fake and its D grads, the G loss and G grads, R1
+    and its D grads, and `sg2_path_piece`."""
+    g, d = model.net_g, model.net_d
+    g.zero_grad(set_to_none=True)
+    d.zero_grad(set_to_none=True)
+    with torch.no_grad():
+        fake = model.g_forward(codes, index, noise)
+    d.requires_grad_(True)
+    l_d, real_s, fake_s = model.d_loss(fake, real)
+    l_d.backward()
+    d_grads = _grads(d)
+    d.zero_grad(set_to_none=True)
+    d.requires_grad_(False)
+    l_g = model.g_loss(codes, index, noise)
+    l_g.backward()
+    g_grads = _grads(g)
+    g.zero_grad(set_to_none=True)
+    d.requires_grad_(True)
+    l_r1 = model.r1_loss(real)
+    l_r1.backward()
+    r1_grads = _grads(d)
+    d.zero_grad(set_to_none=True)
+    path, path_grads = sg2_path_piece(model, codes, index, noise, img_noise)
+    losses = dict(l_d=l_d, real_score=real_s, fake_score=fake_s, l_g=l_g,
+                  l_d_r1=l_r1)
+    return (dict({k: float(v.detach()) for k, v in losses.items()}, **path),
+            fake.detach(), dict(d=d_grads, g=g_grads, r1=r1_grads,
+                                path=path_grads))
+
+
+def _without_path(pieces):
+    losses, out, grads = pieces
+    return ({k: v for k, v in losses.items()
+             if k not in ("l_g_path", "path_length", "mean_path_length")},
+            out, {k: v for k, v in grads.items() if k != "path"})
+
+
+def compare_path_to_float64(cases, what):
+    """The path-length pieces of the card (float32) and of the CPU
+    (float32) against the CPU in float64 (`sg2_path_piece` results), over
+    `cases` of (name, card, cpu, float64) on one network: float32's own
+    error here is the CPU's largest over the cases (each loss relative, the
+    G grads of max|grad|), and the card's error in each case must stay
+    within PATH_F64_FACTOR times it, plus LOSS_RTOL or GRAD_TOL."""
+    def errs(got, ref):
+        scale = max(float(g.abs().max()) for g in ref[1])
+        out = {k: abs(got[0][k] - r) / abs(r) for k, r in ref[0].items()}
+        out["grads"] = max(float((a.double().cpu() - b).abs().max())
+                           for a, b in zip(got[1], ref[1])) / scale
+        return out
+
+    card = {name: errs(c, r) for name, c, _, r in cases}
+    cpu = {name: errs(c, r) for name, _, c, r in cases}
+    pooled = {k: max(e[k] for e in cpu.values())
+              for k in next(iter(cpu.values()))}
+    for name, e in card.items():
+        log(f"{what}, {name}: error against float64 (card / CPU float32): "
+            + ", ".join(f"{k} {v:.3g}/{cpu[name][k]:.3g}"
+                        for k, v in e.items()))
+        for k, v in e.items():
+            floor = GRAD_TOL if k == "grads" else LOSS_RTOL
+            require(v <= PATH_F64_FACTOR * pooled[k] + floor,
+                    f"{what}, {name}: {k} card {v:.3g} from float64, CPU "
+                    f"float32 up to {pooled[k]:.3g}")
+    return dict(card=card, cpu=cpu)
+
+
+def _sg2_inputs(model, bs, seed, device):
+    g = torch.Generator().manual_seed(seed)
+    real = (torch.rand((bs, *model._hw, 3), generator=g) * 2 - 1)
+    codes = [torch.randn((bs, model.num_style_feat), generator=g)
+             for _ in range(2)]
+    noise = [torch.randn(s, generator=g) for s in model.net_g.noise_shapes()]
+    img_noise = torch.randn((model.path_batch(bs), *model._hw, 3),
+                            generator=g)
+    return (real.to(device), [c.to(device) for c in codes],
+            [n.to(device) for n in noise], img_noise.to(device))
+
+
+def _cuda(xs):
+    return [x.cuda() for x in xs]
+
+
+def _sg2_pair(root, extra, seed):
+    """The StyleGAN2 model of the config with `extra` overrides on the CPU
+    and on the card, at the same random weights."""
+    from image_restoration_tpu_torch.models import build_model
+    opt = sg2_options(root, extra)
+    cpu = build_model(opt, device="cpu")
+    card = build_model(opt, device="cuda")
+    randomize_weights(cpu.net_g, seed=seed)
+    randomize_weights(cpu.net_d, seed=seed + 1)
+    for name in ("net_g", "net_d"):
+        getattr(card, name).load_state_dict(getattr(cpu, name).state_dict())
+    return cpu, card
+
+
+def phase_sg2_card_vs_cpu(root):
+    """Phase 35, TF32 off and cuDNN deterministic: the tiny StyleGAN2 config
+    (32²) on the card against the CPU, the pieces of a D+G, an R1 and a
+    path-length step with one style and with two (index 3). Losses within
+    1e-5 relative, gradients within 1e-4 of max|grad|, mean_path_length
+    within 1e-5, except the path-length piece at the overrides' 512
+    channels: there float32 itself is 1e-3 from float64 (the demodulation
+    makes G nearly invariant to a style's scale, so the path gradient is a
+    difference of near-equal terms), so the card and the CPU are each held
+    against the CPU in float64, the card at most PATH_F64_FACTOR times as
+    far as the CPU's float32 is at its farthest over the two cases
+    (`compare_path_to_float64`); at narrow 1/8 the whole path piece is
+    held card vs CPU at the tolerances above. Then one full-width
+    path-length step (the config's G, path batch 1, two styles) with K1's
+    kernel against the same on K1's plain version: K1's double backward,
+    at the tolerances above, K1 29 launches."""
+    import copy
+    from image_restoration_tpu_torch.models import build_model
+    from image_restoration_tpu_torch.ops import fused_act
+    old = _tf32_off()
+    old_det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    res = {}
+    try:
+        cpu, card = _sg2_pair(root, SG2_TINY, 35)
+        cpu64 = copy.deepcopy(cpu)
+        cpu64.net_g.double()
+        real, codes, noise, img_noise = _sg2_inputs(cpu, 4, 35, "cpu")
+        cases = []
+        for n, index in ((1, None), (2, 3)):
+            what = f"tiny StyleGAN2, {n} style(s), card vs CPU (TF32 off)"
+            want = sg2_pieces(cpu, real, codes[:n], index, noise, img_noise)
+            got = sg2_pieces(card, real.cuda(), _cuda(codes[:n]), index,
+                             _cuda(noise), img_noise.cuda())
+            res[f"styles_{n}"] = compare_pieces(
+                _without_path(got), _without_path(want), what)
+            ref = sg2_path_piece(cpu64, [c.double() for c in codes[:n]],
+                                 index, [x.double() for x in noise],
+                                 img_noise.double())
+            cases.append((f"{n} style(s)", (got[0], got[2]["path"]),
+                          (want[0], want[2]["path"]), ref))
+        res["path_vs_float64"] = compare_path_to_float64(
+            cases, "tiny StyleGAN2 path-length piece")
+        del cpu, card, cpu64
+        narrow = [f"network_{n}:narrow=0.125" for n in ("g", "d")]
+        cpu, card = _sg2_pair(root, SG2_TINY + narrow, 38)
+        real, codes, noise, img_noise = _sg2_inputs(cpu, 4, 38, "cpu")
+        want = sg2_pieces(cpu, real, codes, 3, noise, img_noise)
+        got = sg2_pieces(card, real.cuda(), _cuda(codes), 3, _cuda(noise),
+                         img_noise.cuda())
+        res["narrow_styles_2"] = compare_pieces(
+            got, want, "tiny StyleGAN2 at narrow 1/8, 2 styles, card vs CPU "
+            "(TF32 off)")
+        del cpu, card
+
+        full = build_model(sg2_options(root), device="cuda")
+        randomize_weights(full.net_g, seed=37)
+        _, codes, noise, img_noise = _sg2_inputs(full, 3, 37, "cuda")
+        codes = [c[:1] for c in codes]
+
+        def path_piece():
+            fused_act.fused_leaky_relu.launches = 0
+            losses, grads = sg2_path_piece(full, codes, 7, noise, img_noise)
+            torch.cuda.synchronize()
+            k1 = fused_act.fused_leaky_relu.launches
+            with torch.no_grad():
+                fake = full.g_forward(codes, 7, noise)
+            return (losses, fake, dict(path=grads)), k1
+
+        k, k1 = path_piece()
+        require(k1 == K1_PER_SG2_G[2], f"full-width path step: K1 {k1}, "
+                f"expected {K1_PER_SG2_G[2]}")
+        with mock.patch.object(fused_act, "fused_leaky_relu",
+                               fused_act.fused_leaky_relu_plain):
+            p, _ = path_piece()
+    finally:
+        _tf32_restore(old)
+        torch.backends.cudnn.deterministic = old_det
+    require(all(math.isfinite(v) for v in k[0].values()), "non-finite loss")
+    res["full_width_path_k1_vs_plain"] = dict(
+        compare_pieces(k, p, "full-width path-length step, K1 vs plain K1 "
+                       "(TF32 off)"), losses=k[0], k1=k1)
+    del full
+    torch.cuda.empty_cache()
+    return res
+
+
+def write_faces(folder, n, seed):
+    import cv2
+    os.makedirs(folder, exist_ok=True)
+    for i in range(n):
+        cv2.imwrite(os.path.join(folder, f"{i:05d}.png"),
+                    scene_image(256, 256, seed + i))
+
+
+def phase_sg2_main_path(root):
+    """Phase 36, the main path: counts at 0, then `train_pipeline` on the
+    StyleGAN2 config as written (StyleGAN2Generator 256², 512 style
+    features, 8 MLP layers, channel multiplier 2; the D at 2; batch 3),
+    cut with --force_yml to the disk backend over 16 seeded 256² images
+    and 32 iterations with a checkpoint at 32; K1 exactly what the step's
+    forwards predict from the model's own draws, K2 and K3 never; every
+    loss finite; `net_g_32.pth` in a fresh StyleGAN2Generator samples 8
+    images at truncation 0.7 around `mean_latent(4096)` equal to the
+    trained EMA G's on the same codes and noise."""
+    from image_restoration_tpu_torch.archs import build_network
+    from image_restoration_tpu_torch.convert.pth import load_pth
+    from image_restoration_tpu_torch.train import train_pipeline
+    write_faces(f"{root}/gt", SG2_IMAGES, 3600)
+    argv = ["-opt", SG2_CONFIG, "--force_yml",
+            f"datasets:train:dataroot_gt={root}/gt",
+            "datasets:train:io_backend={type: disk}",
+            f"train:total_iter={SG2_ITERS}",
+            f"logger:save_checkpoint_freq={SG2_ITERS}", "logger:print_freq=8"]
+    log("path 8 cuts (--force_yml): " + " ".join(argv[3:]))
+    kernels = _counts_zero()
+    t0 = time.perf_counter()
+    model = train_pipeline(root, argv=argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    k1, k2, k3 = (k.launches for k in kernels)
+    draws = dict(model.style_draws)
+    n_r1 = SG2_ITERS // model.net_d_reg_every
+    g_forwards = sum(c * K1_PER_SG2_G[n] for (_, n), c in draws.items())
+    d_forwards = SG2_ITERS * 3 + n_r1
+    want = g_forwards + d_forwards * K1_PER_SG2_D
+    log(f"StyleGAN2 train_pipeline: {SG2_ITERS} iterations in {wall:.2f} s "
+        "(wall: build and saves included); drawn G forwards (part, codes): "
+        f"{sorted(draws.items())}; K1 expected = Σ draws × (21 one code, 29 "
+        f"two) + (3·{SG2_ITERS} + {n_r1} R1) D forwards × {K1_PER_SG2_D} = "
+        f"{g_forwards} + {d_forwards * K1_PER_SG2_D} = {want}; K1 {k1}, "
+        f"K2 {k2}, K3 {k3}; last losses "
+        + ", ".join(f"{k}={v:.4g}" for k, v in model.log_dict.items()))
+    require(k1 == want, f"StyleGAN2 main path: K1 {k1}, expected {want}")
+    require(k2 == 0 and k3 == 0, "StyleGAN2 main path launched K2 or K3")
+    require(model.iter == SG2_ITERS, f"model.iter {model.iter}")
+    require({"l_d_r1", "l_g_path"} <= set(model.log_dict),
+            "R1 or the path step did not run at the last step")
+    require(all(math.isfinite(v) for v in model.log_dict.values()),
+            "a non-finite loss")
+    require(sum(c for (p, n), c in draws.items() if n == 2) > 0,
+            "no step mixed styles")
+    mdir = model.opt["path"]["models"]
+    pth = os.path.join(mdir, f"net_g_{SG2_ITERS}.pth")
+    require(os.path.exists(pth) and os.path.exists(
+        os.path.join(mdir, f"ckpt_{SG2_ITERS}.pth")), "no checkpoint")
+
+    fresh = build_network(model.opt["network_g"]).cuda().eval()
+    fresh.load_state_dict(load_pth(pth, "params_ema"), strict=True)
+    g = torch.Generator("cuda").manual_seed(36)
+    codes = [torch.randn((8, model.num_style_feat), generator=g,
+                         device="cuda")]
+    noise = [torch.randn(s, generator=g, device="cuda")
+             for s in fresh.noise_shapes()]
+    with torch.no_grad():
+        mean = fresh.mean_latent(4096, torch.Generator("cuda").manual_seed(4))
+        got = fresh(codes, noise=noise, truncation=0.7,
+                    truncation_latent=mean)[0]
+        want_mean = model.net_g_ema.mean_latent(
+            4096, torch.Generator("cuda").manual_seed(4))
+        want_img = model.net_g_ema(codes, noise=noise, truncation=0.7,
+                                   truncation_latent=want_mean)[0]
+    require(got.shape == (8, 256, 256, 3) and bool(torch.isfinite(got).all()),
+            f"samples {tuple(got.shape)} not finite")
+    d = float((got - want_img).abs().max())
+    log(f"net_g_{SG2_ITERS}.pth in a fresh StyleGAN2Generator: 8 samples at "
+        f"truncation 0.7 around mean_latent(4096), max|d| {d:.3g} against "
+        f"the trained EMA G; sample std {got.std().item():.4f}")
+    require(torch.equal(got, want_img), f"samples differ by {d}")
+    return model, dict(k1=k1, k1_expected=want, draws={
+        f"{p}/{n}": c for (p, n), c in draws.items()}, wall_s=wall,
+        last_losses=model.log_dict, sample_max_abs_diff=d)
+
+
+def sg2_timed_steps(model, pool, iters):
+    """Seconds of each of `iters` optimize_parameters calls as a training
+    loop runs them (CUDA events, no synchronize between steps), on numpy
+    batches from `pool`; and the peak device MiB."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    events = [torch.cuda.Event(enable_timing=True) for _ in range(iters + 1)]
+    events[0].record()
+    for it in range(1, iters + 1):
+        model.optimize_parameters(it, {"gt": pool[it % len(pool)]})
+        events[it].record()
+    torch.cuda.synchronize()
+    return ([a.elapsed_time(b) / 1e3 for a, b in zip(events, events[1:])],
+            torch.cuda.max_memory_allocated() / 2 ** 20)
+
+
+def sg2_step_profile(model, batch, it):
+    """(wall ms, busy ms, K1 forward ms, K1 backward-ops ms, K1 launches
+    seen, K1 launches the step's draws predict, kernels) of one profiled
+    optimize_parameters at iteration `it`; taken again (up to 3 times)
+    while the profiler shows another K1 count than the draws predict. The
+    profiler can drop device events late in a long process (1 of 103 of
+    them in a whole run of this script on an H100), so the last profile is
+    kept then and the count it missed is logged: the wrapper's own count
+    holds K1 on the main path (phase 36)."""
+    from torch.profiler import ProfilerActivity, profile
+    from image_restoration_tpu_torch.ops import fused_act
+    patch = mock.patch.object(
+        fused_act, "fused_leaky_relu_backward",
+        _ranged("irt.k1_backward", fused_act.fused_leaky_relu_backward))
+    patch.start()
+    try:
+        for _ in range(3):
+            before = dict(model.style_draws)
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                model.optimize_parameters(it, batch)
+                torch.cuda.synchronize()
+                wall = (time.perf_counter() - t0) * 1e3
+            new = {k: v - before.get(k, 0)
+                   for k, v in model.style_draws.items()}
+            d_fwd = 3 + (it % model.net_d_reg_every == 0)
+            want = sum(c * K1_PER_SG2_G[n] for (_, n), c in new.items()) \
+                + d_fwd * K1_PER_SG2_D
+            kernels = [k for k in _kernel_events(prof)
+                       if not k[2].startswith(("irt.", "Optimizer."))]
+            k1_n = sum(k[1] for k in kernels if "fused_bias_lrelu" in k[2])
+            if k1_n == want:
+                break
+            log(f"profiler saw {k1_n} of {want} K1 launches: profiling again")
+    finally:
+        patch.stop()
+    if k1_n != want:
+        log(f"StyleGAN2 step profile: the profiler shows {k1_n} of {want} "
+            "K1 launches; busy ms below misses those events")
+    busy = sum(k[0] for k in kernels)
+    k1_fwd = sum(k[0] for k in kernels if "fused_bias_lrelu" in k[2])
+    return wall, busy, k1_fwd, _range_ms(prof, "irt.k1_backward"), k1_n, \
+        want, kernels
+
+
+def phase_sg2_throughput(root, model3):
+    """Phase 37: s per step (median of steps 5-32 of a loop with no
+    synchronize between steps; R1 at 16 and 32, the path step every 4),
+    imgs/s and peak MiB at bs 3 (the trained model) and bs 24 (a fresh
+    one); the R1 step's and the path-length step's ms alone; the
+    device-busy share of one profiled bs-3 D+G step and of one with the
+    path step, with K1's forward and its PyTorch-op backward. TF32 at
+    PyTorch's defaults."""
+    from image_restoration_tpu_torch.models import build_model
+    log(f"timed runs: cudnn.allow_tf32={torch.backends.cudnn.allow_tf32} "
+        f"matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32}")
+    faces = np.stack([scene_image(256, 256, 3700 + i)[..., ::-1]
+                      for i in range(48)]).astype(np.float32) / 127.5 - 1
+    rows = {}
+    for bs in SG2_BATCHES:
+        model = model3 if bs == 3 else build_model(sg2_options(root),
+                                                   device="cuda")
+        pool = [faces[i * bs:(i + 1) * bs] for i in range(48 // bs)]
+        times, peak = sg2_timed_steps(model, pool, SG2_ITERS)
+        step = float(np.median(times[4:]))
+        real = torch.from_numpy(pool[0]).cuda()
+        pb = model.path_batch(bs)
+
+        def r1_step():
+            model.optimizer_d.zero_grad()
+            model.r1_loss(real).backward()
+            model.optimizer_d.step()
+
+        def path_step():
+            codes, index = model.mixing_noise(pb, part="timing")
+            noise = model.draw_noise()
+            img_noise = torch.randn((pb, 256, 256, 3), device="cuda")
+            model.optimizer_g.zero_grad()
+            model.path_loss(codes, index, noise, img_noise)[0].backward()
+            model.optimizer_g.step()
+
+        r1_ms = host_time_ms(r1_step, [()], 5)
+        path_ms = host_time_ms(path_step, [()], 5)
+        rows[bs] = dict(s_per_step=step, imgs_per_s=bs / step,
+                        peak_mib=peak, r1_step_ms=r1_ms,
+                        path_step_ms=path_ms, path_batch=pb,
+                        steps_16_32_s=[times[15], times[31]])
+        log(f"StyleGAN2 step bs={bs}: {step * 1e3:.2f} ms/step (median of "
+            f"steps 5-{SG2_ITERS}), {bs / step:.2f} imgs/s, peak {peak:.0f} "
+            f"MiB; R1 step {r1_ms:.2f} ms, path step (batch {pb}) "
+            f"{path_ms:.2f} ms; steps 16/32 (R1 + path) "
+            f"{times[15] * 1e3:.1f}/{times[31] * 1e3:.1f} ms")
+        if bs != 3:
+            del model
+            torch.cuda.empty_cache()
+    batch = {"gt": faces[:3]}
+    prof = {}
+    for it, what in ((5, "D+G"), (4, "D+G + path")):
+        wall, busy, k1f, k1b, k1_n, k1_want, kernels = sg2_step_profile(
+            model3, batch, it)
+        prof[what] = dict(wall_ms=wall, busy_ms=busy, busy_share=busy / wall,
+                          k1_forward_ms=k1f, k1_backward_ops_ms=k1b,
+                          k1_launches_seen=k1_n, k1_launches=k1_want,
+                          top=[dict(ms=t, count=n, name=name[:160])
+                               for t, n, name in kernels[:10]])
+        log(f"profile of a bs-3 {what} step: wall {wall:.2f} ms, device busy "
+            f"{busy:.2f} ms ({100 * busy / wall:.1f}%), K1 forward "
+            f"{k1f:.3f} ms over {k1_n} launches, K1's PyTorch-op backward "
+            f"{k1b:.3f} ms")
+        for t, n, name in kernels[:6]:
+            log(f"  {t:9.4f} ms  x{n:<4d} {name[:110]}")
+    return dict(rows={str(k): v for k, v in rows.items()}, profile=prof)
+
+
+def phase_stylegan2(tmp):
+    """Path 8: phases 34-37."""
+    fuse = phase_fuse_restore()
+    tiny = phase_sg2_card_vs_cpu(tmp)
+    model, main_path = phase_sg2_main_path(tmp)
+    thr = phase_sg2_throughput(tmp, model)
+    del model
+    torch.cuda.empty_cache()
+    return main_path["k1"], dict(fuse_restore=fuse, card_vs_cpu=tiny,
+                                 main_path=main_path, throughput=thr)
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", default=None,
@@ -3544,13 +4223,16 @@ def main(argv=None):
     with tempfile.TemporaryDirectory(prefix="irt_sr_train_") as tmp:
         qat_k2, sr_trainers = phase_sr_train(tmp)
 
+    with tempfile.TemporaryDirectory(prefix="irt_stylegan2_") as tmp:
+        sg2_k1, stylegan2 = phase_stylegan2(tmp)
+
     a = agg[("float32", 16)]
     kernels = [{
         "name": "fused_bias_lrelu",
         "route": "cuda",
         "source": "image_restoration_tpu_torch/csrc/fused_bias_act.cu",
         "replaces": "image_restoration_tpu/ops/pallas/fused_act_kernel.py:43",
-        "launches": launches + pipe_launches + art_k1 + train_k1,
+        "launches": launches + pipe_launches + art_k1 + train_k1 + sg2_k1,
         "max_abs_err": worst,
         "ms": a["ms"],
         "plain_ms": a["plain_ms"],
@@ -3604,7 +4286,7 @@ def main(argv=None):
         exports=exports,
         artifact_main_path_launches=dict(k1=art_k1, k2=art_k2),
         artifact_correctness=art_check, dyn_int8=dyn, train=train,
-        sr_train=sr_trainers,
+        sr_train=sr_trainers, stylegan2=stylegan2,
         seconds=time.perf_counter() - t_start,
         note="kernels[].ms/plain_ms/bound_ms: device time (calls back to "
              "back, CUDA events) and bound, summed over the 39 K1 launches "
@@ -3616,8 +4298,8 @@ def main(argv=None):
              " has the same yardstick for the RRDB half); K3's is cuDNN's "
              "bf16 conv; "
              "K3's launches are those of probe_conv.main(); K1's launches "
-             "are those of the main-path phases of paths 1, 4, 5 and 6 (4, "
-             "17, 21, 26), K2's those of paths 2, 5 and 7 (8, 21, 31: the "
+             "are those of the main-path phases of paths 1, 4, 5, 6 and 8 "
+             "(4, 17, 21, 26, 36), K2's those of paths 2, 5 and 7 (8, 21, 31: the "
              "engine built from the QAT checkpoint)")
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)

@@ -1,5 +1,5 @@
-"""StyleGAN2 block set, OCR generator and discriminator — PyTorch, NHWC at
-every forward.
+"""StyleGAN2 block set, OCR and square generators and the discriminator —
+PyTorch, NHWC at every forward.
 
 Port of `image_restoration_tpu/archs/stylegan2_arch.py:45-514`. Parameters
 carry the reference checkpoint's names and layouts (convs OIHW, modulated
@@ -27,7 +27,9 @@ import torch.nn.functional as F
 from ..utils.registry import ARCH_REGISTRY
 from ..ops import fused_act
 from ..ops.fused_act import FusedLeakyReLU, ScaledLeakyReLU
-from ..ops.modulated_conv import conv2d, modulated_conv2d
+from ..ops import fused_resample
+from ..ops.fused_resample import conv_down_fir
+from ..ops.modulated_conv import conv2d, fused_valid_conv, modulated_conv2d
 from ..ops.upfirdn import upfirdn_smooth, upfirdn_upsample
 
 
@@ -144,7 +146,10 @@ class ConvLayer(nn.Sequential):
     """[FIR-smooth↓] + EqualConv2d + [FusedLeakyReLU | ScaledLeakyReLU].
 
     A Sequential as in the reference, so its keys are `N.weight` for the
-    conv and `N.bias` for the fused activation's bias.
+    conv and `N.bias` for the fused activation's bias. Under
+    `fused_resample.FUSE_DOWN` a downsampling layer runs the smooth and
+    the strided conv as one `conv_down_fir` (JAX :154-160), on the same
+    parameters.
     """
 
     def __init__(self, in_channels: int, out_channels: int, kernel_size: int,
@@ -165,10 +170,22 @@ class ConvLayer(nn.Sequential):
             layers.append(FusedLeakyReLU(out_channels) if bias
                           else ScaledLeakyReLU(0.2))
         super().__init__(*layers)
+        self.downsample = downsample
+        self.resample_kernel = tuple(resample_kernel)
         self.dtype = dtype
 
     def forward(self, x):
-        return super().forward(_cast(x, self.dtype))
+        x = _cast(x, self.dtype)
+        if not (self.downsample and fused_resample.FUSE_DOWN):
+            return super().forward(x)
+        conv = self[1]
+        out = conv_down_fir(x, conv.weight * conv.scale, self.resample_kernel,
+                            conv_fn=fused_valid_conv)
+        if conv.bias is not None:
+            out = out + conv.bias.to(out.dtype)
+        for layer in list(self)[2:]:
+            out = layer(out)
+        return out
 
 
 class ResBlock(nn.Module):
@@ -295,15 +312,18 @@ class ConstantInput(nn.Module):
 
 @ARCH_REGISTRY.register()
 class StyleGAN2OCRGenerator(nn.Module):
-    """Rectangle-aware StyleGAN2 generator.
+    """Rectangle-aware StyleGAN2 generator (JAX :300-458).
 
-    `forward(styles, conditions, ...)` takes a one-element list: a
-    (b, num_style_feat) code, or (b, num_latent, num_style_feat) per-layer
-    codes with `input_is_latent` (truncation and style mixing, which serving
-    never uses, are not ported yet). `conditions` are the SFT scale/shift maps, merged
-    between the two convs of each resolution (JAX :441-449).
-    `with_style_mlp=False` leaves out the style MLP, which a generator fed
-    latents never runs (its reference keys are then dropped on load).
+    `forward(styles, conditions, ...)` takes a list of one or two
+    (b, num_style_feat) codes, or one (b, num_latent, num_style_feat) of
+    per-layer codes with `input_is_latent`. Two codes mix: the first
+    drives the layers before `inject_index` (default num_latent // 2, as
+    in JAX), the second the rest. `truncation` < 1 pulls each code towards
+    `truncation_latent` (see `mean_latent`). `conditions` are the SFT
+    scale/shift maps, merged between the two convs of each resolution
+    (JAX :441-449). `with_style_mlp=False` leaves out the style MLP, which
+    a generator fed latents never runs (its reference keys are then
+    dropped on load).
     """
 
     def __init__(self, input_width: int = 768, input_height: int = 32,
@@ -370,27 +390,51 @@ class StyleGAN2OCRGenerator(nn.Module):
             raise RuntimeError("generator built with with_style_mlp=False")
         return self.style_mlp(x)
 
-    def _prepare(self, styles, input_is_latent, noise, randomize_noise,
-                 generator):
-        if len(styles) != 1:
-            raise NotImplementedError("style mixing is not ported yet")
-        style = styles[0] if input_is_latent else self.style_forward(styles[0])
+    def mean_latent(self, num_samples: int,
+                    generator: Optional[torch.Generator] = None):
+        """The mean W latent of `num_samples` codes drawn from `generator`
+        on the parameters' device, (1, num_style_feat)."""
+        dev = self.constant_input.weight.device
+        z = torch.randn((num_samples, self.num_style_feat),
+                        generator=generator, device=dev)
+        return self.style_forward(z).mean(dim=0, keepdim=True)
+
+    def latent_codes(self, styles, input_is_latent=False, truncation=1.0,
+                     truncation_latent=None, inject_index=None):
+        """The (b, num_latent, num_style_feat) latent of the forward: the
+        style MLP (unless `input_is_latent`), truncation, and the tiling or
+        mixing of one or two codes (JAX `_prepare`, :393-423)."""
+        if not input_is_latent:
+            styles = [self.style_forward(s) for s in styles]
+        if truncation < 1:
+            styles = [truncation_latent + truncation * (s - truncation_latent)
+                      for s in styles]
+        if len(styles) == 1:
+            if styles[0].dim() < 3:
+                return styles[0][:, None, :].repeat(1, self.num_latent, 1)
+            return styles[0]
+        if len(styles) == 2:
+            if inject_index is None:
+                inject_index = self.num_latent // 2
+            return torch.cat([
+                styles[0][:, None, :].repeat(1, inject_index, 1),
+                styles[1][:, None, :].repeat(
+                    1, self.num_latent - inject_index, 1)], dim=1)
+        raise ValueError("styles must have 1 or 2 entries")
+
+    def forward(self, styles, conditions=None, input_is_latent=False,
+                noise=None, randomize_noise=True, truncation=1.0,
+                truncation_latent=None, inject_index=None,
+                return_latents=False, generator=None):
+        latent = self.latent_codes(styles, input_is_latent, truncation,
+                                   truncation_latent, inject_index)
         if noise is None:
             if randomize_noise and generator is not None:
                 noise = [torch.randn(s, generator=generator,
-                                     device=style.device)
+                                     device=latent.device)
                          for s in self.noise_shapes()]
             else:
                 noise = [None] * self.num_layers
-        if style.dim() < 3:
-            style = style[:, None, :].repeat(1, self.num_latent, 1)
-        return style, noise
-
-    def forward(self, styles, conditions=None, input_is_latent=False,
-                noise=None, randomize_noise=True, return_latents=False,
-                generator=None):
-        latent, noise = self._prepare(styles, input_is_latent, noise,
-                                      randomize_noise, generator)
         out = self.constant_input(latent.shape[0])
         out = self.style_conv1(out, latent[:, 0], noise=noise[0])
         skip = self.to_rgb1(out, latent[:, 1])
@@ -415,6 +459,19 @@ class StyleGAN2OCRGenerator(nn.Module):
         if return_latents:
             return skip, latent
         return skip, None
+
+
+@ARCH_REGISTRY.register()
+class StyleGAN2Generator(StyleGAN2OCRGenerator):
+    """The square generator, under the reference's `out_size` (JAX
+    :463-470); `build_network` turns `out_size` into the width and the
+    height, as the JAX builder does."""
+
+    def __init__(self, out_size: Optional[int] = None, **kwargs):
+        if out_size is not None:
+            kwargs.setdefault("input_width", out_size)
+            kwargs.setdefault("input_height", out_size)
+        super().__init__(**kwargs)
 
 
 @ARCH_REGISTRY.register()

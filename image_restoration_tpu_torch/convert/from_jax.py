@@ -13,6 +13,10 @@ becomes `layerN`, `activate`/`activation` is skipped, a fused activation's
                                  features reordered from (H, W, C) to (C, H, W)
     constant input (1, H, W, C) → (1, C, H, W)
 
+The StyleGAN2 generators (`StyleGAN2OCRGenerator`, the square
+`StyleGAN2Generator`) take the general rules: the reference's
+`style_mlp.N` (N ≥ 1, after the parameter-free NormStyleCode) is flax's
+`style_mlp_{N-1}`.
 SRVGGNetCompact's Real-ESRGAN `body.N` keys map to flax's `body_i`,
 `prelu_i` and `conv_last` first (the JAX importer's rule, inverted).
 RRDBNet's `body.i.rdbK.convJ.weight` becomes flax's `body_i/rdbK/convJ/kernel`

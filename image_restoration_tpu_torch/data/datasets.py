@@ -4,8 +4,9 @@ Port of `image_restoration_tpu/data/datasets.py`: the degradation
 synthesis runs on the device (data/pipelines.py), so a GT-only dataset
 returns GT images and exposes `device_pipeline()`, the degradation for the
 step. Ported: `FFHQDegradationDataset` (without `crop_components`),
-`RealESRGANDataset` (with its `RealSRDegradationDataset` alias),
-`PairedImageDataset` and `SingleImageDataset`, on the disk backend. The
+`FFHQDataset` (GT only, for StyleGAN2Model), `RealESRGANDataset` (with its
+`RealSRDegradationDataset` alias), `PairedImageDataset` and
+`SingleImageDataset`, on the disk backend. The
 random crops draw from numpy's global generator and the flips from
 Python's `random`, as in the JAX package, so one seed gives the same
 samples.
@@ -104,6 +105,27 @@ class FFHQDegradationDataset(_BaseDataset):
             use_hflip=opt.get("use_hflip", False),
             mean=tuple(self.mean), std=tuple(self.std))
         return make_ffhq_degradation(cfg)
+
+
+@DATASET_REGISTRY.register()
+class FFHQDataset(_BaseDataset):
+    """GT only, for StyleGAN2 pretraining (JAX :302-321): a random
+    horizontal flip, BGR → RGB and (x − mean)/std; no degradation."""
+
+    def __init__(self, opt: dict):
+        super().__init__(opt)
+        self.io_backend_opt = opt.get("io_backend", {"type": "disk"})
+        self.paths = _gather_paths(opt["dataroot_gt"], self.io_backend_opt)
+        self.mean = np.asarray(opt.get("mean", (0.5, 0.5, 0.5)), np.float32)
+        self.std = np.asarray(opt.get("std", (0.5, 0.5, 0.5)), np.float32)
+
+    def __getitem__(self, index: int):
+        path = self.paths[index]
+        img = augment(_read_bgr_float(path),
+                      hflip=self.opt.get("use_hflip", True), rotation=False)
+        img = img[..., ::-1]
+        return {"gt": ((img - self.mean) / self.std).astype(np.float32),
+                "gt_path": path}
 
 
 @DATASET_REGISTRY.register()

@@ -304,8 +304,14 @@ def g_path_regularize(fake_fn: Callable, latents: torch.Tensor,
     """StyleGAN2 path-length regularizer. `noise` is a standard normal
     draw of the fake image's shape (the JAX function draws it from a key).
     Returns (penalty, mean path length, new running mean), the last two
-    detached."""
-    latents = latents.detach().requires_grad_(True)
+    detached.
+
+    The gradient is taken with respect to `latents` as given, and kept in
+    the graph: when the latents come from a network (the style MLP), the
+    penalty's gradient reaches its parameters, as JAX's does. Only a
+    latent tensor without grad is made a leaf that requires it."""
+    if not latents.requires_grad:
+        latents = latents.detach().requires_grad_(True)
     fake_img = fake_fn(latents)
     h, w = fake_img.shape[1], fake_img.shape[2]
     noise = noise / math.sqrt(h * w)

@@ -1,9 +1,9 @@
 """Convolutions in NHWC and the StyleGAN2 modulated convolution.
 
 Port of `image_restoration_tpu/ops/modulated_conv.py:35-174`: the default
-paths and the dynamic-int8 serving mode (`int8_serving`); the
-fused-resample paths (FUSE_UP / FUSE_DOWN) are not ported yet, but
-`fused_valid_conv`, their inner conv, is.
+paths, the fused-resample paths (`fused_resample.FUSE_UP` / `FUSE_DOWN`,
+read at every call, with `fused_valid_conv` as their inner conv) and the
+dynamic-int8 serving mode (`int8_serving`).
 
 Layout: activations NHWC, weights OIHW (the reference checkpoint's layout).
 A conv runs on `x.permute(0, 3, 1, 2)`, an NCHW-shaped tensor in
@@ -27,7 +27,8 @@ function is traced; here it is read at every call, so it is a ContextVar:
 nor another thread sees it. The int8 product is what JAX leaves to XLA's
 int8 conv: an explicit NHWC im2col and `torch._int_mm` (int8 × int8 →
 int32, exact), K and N padded with zeros to multiples of 8. The FIR
-depthwise convs (`upfirdn.py`) stay float, as in JAX.
+depthwise convs (`upfirdn.py`) stay float, as in JAX; under FUSE_UP /
+FUSE_DOWN the FIR is folded into the weight that is quantized.
 """
 
 from __future__ import annotations
@@ -38,6 +39,8 @@ from contextlib import contextmanager
 import torch
 import torch.nn.functional as F
 
+from . import fused_resample
+from .fused_resample import conv_down_fir, conv_up_fir
 from .upfirdn import upfirdn_smooth
 
 _INT8_SERVING = contextvars.ContextVar("irt_int8_serving", default=False)
@@ -194,20 +197,30 @@ def modulated_conv2d(x: torch.Tensor, weight: torch.Tensor,
     kh = weight.shape[-2]
     demod = None
     if demodulate:
-        w32 = weight.float()
-        s32 = style.float()
-        w_sq = torch.einsum("oihw,ni->no", w32 * w32, s32 * s32)
+        # in float32 (float64 stays float64)
+        dt = torch.promote_types(weight.dtype, torch.float32)
+        wf, sf = weight.to(dt), style.to(dt)
+        w_sq = torch.einsum("oihw,ni->no", wf * wf, sf * sf)
         demod = torch.rsqrt(w_sq + eps)  # (N, Cout)
 
     xs = x * style[:, None, None, :].to(x.dtype)
     if sample_mode == "upsample":
-        out = conv_transpose2d(xs, weight, stride=2)
-        out = upfirdn_smooth(out, smooth_kernel, upsample_factor=2,
-                             kernel_size=kh)
+        if fused_resample.FUSE_UP:
+            # one subpixel conv with the FIR folded into the weight
+            out = conv_up_fir(xs, weight, smooth_kernel,
+                              conv_fn=fused_valid_conv)
+        else:
+            out = conv_transpose2d(xs, weight, stride=2)
+            out = upfirdn_smooth(out, smooth_kernel, upsample_factor=2,
+                                 kernel_size=kh)
     elif sample_mode == "downsample":
-        xs = upfirdn_smooth(xs, smooth_kernel, downsample_factor=2,
-                            kernel_size=kh)
-        out = conv2d(xs, weight, stride=2, padding=0)
+        if fused_resample.FUSE_DOWN:
+            out = conv_down_fir(xs, weight, smooth_kernel,
+                                conv_fn=fused_valid_conv)
+        else:
+            xs = upfirdn_smooth(xs, smooth_kernel, downsample_factor=2,
+                                kernel_size=kh)
+            out = conv2d(xs, weight, stride=2, padding=0)
     else:
         out = conv2d(xs, weight, stride=1, padding=kh // 2)
 

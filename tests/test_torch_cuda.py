@@ -727,3 +727,70 @@ def test_sr_trainer_step_on_card_matches_cpu(cuda_device, no_tf32, tmp_path,
         for k, v in want_sd.items():
             d = float((got_sd[k].cpu().float() - v.float()).abs().max())
             assert d <= (1e-4 if "running" in k else 1e-5 * scale), k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("op", ["up", "down"])
+def test_fused_resample_on_card_matches_cpu(cuda_device, no_tf32, op):
+    """`conv_up_fir` / `conv_down_fir` on the card against the CPU (TF32
+    off): within 1e-5 of max|CPU|."""
+    from image_restoration_tpu_torch.ops import fused_resample
+    fn = getattr(fused_resample, f"conv_{op}_fir")
+    g = torch.Generator().manual_seed(3)
+    x = torch.randn((2, 16, 24, 32), generator=g)
+    w = torch.randn((48, 32, 3, 3), generator=g) / 17
+    want = fn(x, w)
+    got = fn(x.to(cuda_device), w.to(cuda_device)).cpu()
+    assert got.shape == want.shape
+    assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
+
+
+@pytest.mark.cuda
+def test_stylegan2_path_step_kernel_matches_plain(cuda_device, no_tf32,
+                                                  tmp_path):
+    """StyleGAN2Model's path-length penalty (a double backward through the
+    generator and K1's autograd formula) with K1's kernel against the same
+    with K1's plain version, two codes mixed at index 3: the penalty within
+    1e-5 relative, G gradients within 1e-4 of max|grad|; K1 launches
+    2·2 + 7 in the forward (two codes through the 2-layer MLP, 7
+    StyleConvs at 32²) and none in the double backward."""
+    from unittest import mock
+    from image_restoration_tpu_torch.models import build_model
+    from image_restoration_tpu_torch.ops import fused_act
+    g_opt = dict(type="StyleGAN2Generator", out_size=32, num_style_feat=16,
+                 num_mlp=2, channel_multiplier=0.25, narrow=0.125)
+    d_opt = dict(type="StyleGAN2Discriminator", out_size=32,
+                 channel_multiplier=0.25, narrow=0.125)
+    model = build_model({
+        "is_train": True, "manual_seed": 0, "model_type": "StyleGAN2Model",
+        "path": {"models": str(tmp_path / "m")}, "network_g": g_opt,
+        "network_d": d_opt,
+        "train": {"optim_g": {"type": "Adam", "lr": 2e-3},
+                  "optim_d": {"type": "Adam", "lr": 2e-3},
+                  "gan_opt": {"type": "GANLoss", "gan_type": "wgan_softplus",
+                              "loss_weight": 1.0}}}, device=cuda_device)
+    g = torch.Generator().manual_seed(4)
+    codes = [torch.randn((2, 16), generator=g).to(cuda_device)
+             for _ in range(2)]
+    noise = [torch.randn(s, generator=g).to(cuda_device)
+             for s in model.net_g.noise_shapes()]
+    img_noise = torch.randn((2, 32, 32, 3), generator=g).to(cuda_device)
+
+    def run():
+        model.net_g.zero_grad()
+        loss = model.path_loss(codes, 3, noise, img_noise)[0]
+        loss.backward()
+        return loss.item(), [torch.zeros_like(p) if p.grad is None
+                             else p.grad.clone()
+                             for p in model.net_g.parameters()]
+
+    fused_act.fused_leaky_relu.launches = 0
+    k = run()
+    assert fused_act.fused_leaky_relu.launches == 2 * 2 + 7
+    with mock.patch.object(fused_act, "fused_leaky_relu",
+                           fused_act.fused_leaky_relu_plain):
+        p = run()
+    assert abs(k[0] - p[0]) <= 1e-5 * abs(p[0]), (k[0], p[0])
+    scale = max(float(gb.abs().max()) for gb in p[1])
+    for ga, gb in zip(k[1], p[1]):
+        assert float((ga - gb).abs().max()) <= 1e-4 * scale

@@ -316,6 +316,51 @@ def test_gradient_penalty_and_path_length_match_jax(disc):
         _rel(g, wv, 1e-5)
 
 
+def test_path_length_gradient_reaches_the_latents_producer():
+    """The path-length penalty differentiates through what made the
+    latents, as StyleGAN2Model's style MLP makes them: the gradients with
+    respect to the map that produces the latents (a tanh layer) and to
+    `fake_fn`'s own weights equal `jax.grad` of JAX's
+    `g_path_regularize` at the same weights and noise (1e-5 relative)."""
+    rng = np.random.default_rng(16)
+    z = rng.standard_normal((2, 5)).astype(np.float32)
+    wm = rng.standard_normal((5, 5)).astype(np.float32) * 0.5
+    bm = rng.standard_normal(5).astype(np.float32) * 0.1
+    wf = rng.standard_normal((5, 4 * 4 * 3)).astype(np.float32) * 0.5
+    nkey = jax.random.PRNGKey(17)
+    noise = jax.random.normal(nkey, (2, 4, 4, 3))
+
+    def jpenalty(params):
+        lat = jnp.tanh(jnp.asarray(z) @ params["wm"] + params["bm"])
+        lat = jnp.tile(lat[:, None, :], (1, 3, 1))
+
+        def fake(latents):
+            return jnp.tanh(latents.mean(1) @ params["wf"]).reshape(
+                2, 4, 4, 3)
+
+        return JL.g_path_regularize(fake, lat, 0.5, nkey)[0]
+
+    jparams = {"wm": jnp.asarray(wm), "bm": jnp.asarray(bm),
+               "wf": jnp.asarray(wf)}
+    want, jgrads = jax.value_and_grad(jpenalty)(jparams)
+    tparams = {k: _t(v, grad=True) for k, v in
+               (("wm", wm), ("bm", bm), ("wf", wf))}
+    lat = torch.tanh(_t(z) @ tparams["wm"] + tparams["bm"])
+    lat = lat[:, None, :].repeat(1, 3, 1)
+
+    def tfake(latents):
+        return torch.tanh(latents.mean(1) @ tparams["wf"]).reshape(2, 4, 4, 3)
+
+    got = TL.g_path_regularize(tfake, lat, 0.5, _t(noise))[0]
+    got.backward()
+    _rel(got, want, 1e-5)
+    for k, p in tparams.items():
+        assert p.grad is not None and float(p.grad.abs().max()) > 0, k
+        np.testing.assert_allclose(p.grad.numpy(), np.asarray(jgrads[k]),
+                                   rtol=1e-5, atol=1e-5 * float(
+                                       np.abs(jgrads[k]).max()))
+
+
 # ------------------------------------------------- schedules, optimizer
 
 
