@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py [--out report.json]
 
-Drives the port's eight main paths with random weights made from a seed,
+Drives the port's nine main paths with random weights made from a seed,
 and fails loudly if any phase fails:
 
   1. device: the card's name and power limit (nvidia-smi);
@@ -210,6 +210,35 @@ from its checkpoint:
      imgs/s and peak MiB at bs 3 and 24, the R1 and path-length steps' ms,
      and the device-busy share of a profiled bs-3 step with K1's forward
      and its PyTorch-op backward.
+
+Path 9, the char-component discriminators and the identity loss:
+`train_pipeline` on configs/train_gfpgan_plate_256x64_component.yml as
+written (GFPGANv1OCR 256x64, StyleGAN2Discriminator at channel multiplier
+1, the ten char Ds as one grouped FacialComponentDiscriminator, batch 4)
+and on configs/train_gfpgan_plate_256_identity.yml (a random frozen
+IResNet18), on seeded synthetic plates and char boxes:
+
+ 38. K1 against its plain version at every (M, C) of a pass of the ten
+     char Ds at bs 4 (f32: 4·64²×640, 4·32²×1280 twice, 4·16²×2560 twice),
+     with device times and the bound; `roi_align` card vs CPU (forward
+     ≤1e-6, gradient ≤1e-5 of max|grad|); the tiny (32²) component +
+     identity step's pieces card vs CPU, and one full-width G+D and R1
+     step of the component config with K1's kernel against the same on
+     K1's plain version (TF32 off; losses ≤1e-5 relative, gradients ≤1e-4
+     of max|grad|, 1e-4 of elements to 1e-3); K1 exactly G + 3·D + 20 + D
+     launches, G and D counted on the nets at 256x64;
+ 39. main path: counts set to 0, then 32 iterations of the component
+     config (R1 at 16 and 32, validation and a checkpoint at 32), counts
+     read (K1 exactly 32·(G + 3·D + 20) + 2·D + the validation forwards,
+     K2 and K3 never); every loss finite, every char D moved;
+     --auto_resume from ckpt_32.pth restores the char Ds and their Adam
+     bit-equal; then 16 iterations of the identity config, counted
+     likewise: l_identity finite, the IResNet bit-unchanged;
+ 40. s per step (median of steps 5-32, no synchronize between steps),
+     imgs/s and peak MiB of both configs at bs 4; from a profiled step of
+     each, the device-busy share and the device ms under the forward
+     ranges of roi_align, the char Ds and the IResNet; their forward +
+     backward timed alone at the step's shapes.
 
 The last line of stdout is {"ok": true, "device": {...}}; the line before it
 lists the kernels as JSON. Without a GPU, or without the port beside this
@@ -2456,30 +2485,43 @@ def _grads(net):
             for p in net.parameters()]
 
 
-def gan_pieces(model, lq, gt, noise):
+def gan_pieces(model, lq, gt, noise, boxes=None):
     """Losses and gradients of one G+D step and one R1 step, pieces only
     (no optimizer update): G loss terms and G grads, the D loss and D
-    grads at the detached output, R1 and its D grads."""
+    grads at the detached output, R1 and its D grads; with the component
+    Ds (`boxes` given), their per-char losses and grads at the detached
+    output too."""
+    comp = getattr(model, "use_facial_disc", False)
+    ds = [model.net_d] + ([model.net_d_char] if comp else [])
     model.net_g.zero_grad(set_to_none=True)
-    model.net_d.requires_grad_(False)
-    total, losses, out = model.g_losses(lq, gt, noise, 1.0)
+    for d in ds:
+        d.requires_grad_(False)
+    total, losses, out = model.g_losses(lq, gt, noise, 1.0, boxes)
     total.backward()
-    model.net_d.requires_grad_(True)
+    for d in ds:
+        d.requires_grad_(True)
     g_grads = _grads(model.net_g)
     model.net_d.zero_grad(set_to_none=True)
     l_d, real_s, fake_s = model.d_loss(out.detach(), gt)
     l_d.backward()
-    d_grads = _grads(model.net_d)
+    grads = dict(g=g_grads, d=_grads(model.net_d))
+    if comp:
+        model.net_d_char.zero_grad(set_to_none=True)
+        per = model.component_d_losses(out.detach(), gt, boxes)
+        per.sum().backward()
+        grads["dc"] = _grads(model.net_d_char)
+        model.net_d_char.zero_grad(set_to_none=True)
+        losses.update({f"l_d_char_{i}": per[i] for i in range(len(per))})
     model.net_d.zero_grad(set_to_none=True)
     l_r1 = model.r1_loss(gt)
     l_r1.backward()
-    r1_grads = _grads(model.net_d)
+    grads["r1"] = _grads(model.net_d)
     model.net_g.zero_grad(set_to_none=True)
     model.net_d.zero_grad(set_to_none=True)
     losses = dict(losses, l_d=l_d, real_score=real_s, fake_score=fake_s,
                   l_d_r1=l_r1)
     return ({k: float(v.detach()) for k, v in losses.items()}, out.detach(),
-            dict(g=g_grads, d=d_grads, r1=r1_grads))
+            grads)
 
 
 def compare_pieces(a, b, what):
@@ -4154,6 +4196,519 @@ def phase_stylegan2(tmp):
                                  main_path=main_path, throughput=thr)
 
 
+# -------------------- path 9: the component Ds and the identity loss
+
+COMP_CONFIG = "configs/train_gfpgan_plate_256x64_component.yml"
+IDENTITY_CONFIG = "configs/train_gfpgan_plate_256_identity.yml"
+COMP_ITERS = 32                     # R1 at 16 and 32, a checkpoint at 32
+IDENTITY_ITERS = 16                 # R1 at 16
+COMP_BS = 4                         # both configs' batch_size_per_gpu
+COMP_HW = (64, 256)                 # the component config's plates
+NUM_CHARS = 10
+# one pass of the ten char Ds: five grouped ConvLayers, one K1 each
+K1_PER_CHAR_PASS = 5
+# a G+D step adds the char Ds on the fake and the real crops in the G loss
+# (the real ones for the style loss) and on both in their own update
+K1_PER_COMP_STEP = 4 * K1_PER_CHAR_PASS
+
+
+def write_plate_set(folder, n, seed, hw=COMP_HW):
+    """n synthetic plates of hw and the (n, 10, 4) char boxes of each, in
+    `folder` and `folder`.npz."""
+    import cv2
+    os.makedirs(folder, exist_ok=True)
+    for i in range(n):
+        cv2.imwrite(os.path.join(folder, f"plate_{i:03d}.png"),
+                    plate_image(hw[0], hw[1], seed + i))
+    np.savez(f"{folder}.npz", boxes=char_boxes(n, seed, hw))
+
+
+def char_boxes(n, seed, hw=COMP_HW):
+    """(n, 10, 4) float32 [x1, y1, x2, y2]: ten char cells across a plate
+    of hw, each jittered by a pixel or two."""
+    h, w = hw
+    rng = np.random.default_rng(seed)
+    cell = w / (NUM_CHARS + 1)
+    x1 = cell / 2 + cell * np.arange(NUM_CHARS) + rng.uniform(
+        -2, 2, (n, NUM_CHARS))
+    y1 = h * 0.2 + rng.uniform(-2, 2, (n, NUM_CHARS))
+    return np.stack([x1, y1, x1 + cell * 0.8, y1 + h * 0.6],
+                    -1).astype(np.float32)
+
+
+def comp_options(root, iters=COMP_ITERS, config=COMP_CONFIG):
+    """argv for `train_pipeline` on a config of path 9 with its dataroots
+    (and the component config's boxes) in `root`, cut to `iters` steps."""
+    argv = ["-opt", config, "--force_yml",
+            f"datasets:train:dataroot_gt={root}/train",
+            f"datasets:val:dataroot_gt={root}/val",
+            f"train:total_iter={iters}", f"val:val_freq={iters}",
+            f"logger:save_checkpoint_freq={iters}", "logger:print_freq=8"]
+    if config == COMP_CONFIG:
+        argv += [f"datasets:train:component_path={root}/train.npz",
+                 f"datasets:val:component_path={root}/val.npz"]
+    return argv
+
+
+def build_comp_trainer(root, config=COMP_CONFIG, device="cuda"):
+    """The config's GFPGANModel (random weights from manual_seed) with its
+    degradation pipeline."""
+    from image_restoration_tpu_torch.models import build_model
+    from image_restoration_tpu_torch.utils.options import parse_options
+    opt, _ = parse_options(root, argv=comp_options(root, config=config))
+    model = build_model(opt, device=device)
+    model.set_degradation_pipeline(train_degradation(opt, root))
+    return model
+
+
+def k1_calls(fn):
+    """The K1 calls fn() makes, counted on K1's plain version (nothing is
+    launched)."""
+    from image_restoration_tpu_torch.ops import fused_act
+    n = [0]
+    plain = fused_act.fused_leaky_relu_plain
+
+    def count(*a, **k):
+        n[0] += 1
+        return plain(*a, **k)
+
+    with mock.patch.object(fused_act, "fused_leaky_relu", count), \
+            torch.no_grad():
+        fn()
+    return n[0]
+
+
+def net_k1_counts(model, hw):
+    """K1 calls of one training G forward, one D forward and one
+    validation forward (the EMA G) of `model`'s nets at hw, counted on the
+    nets themselves."""
+    x = torch.zeros((1, hw[0], hw[1], 3), device=model.device)
+    g = k1_calls(lambda: model.g_forward(x, model.draw_noise()))
+    d = k1_calls(lambda: model.net_d(x))
+    test = k1_calls(lambda: model._test_out(x))
+    return g, d, test
+
+
+def comp_batch(n, seed, hw=COMP_HW):
+    """A GT batch of n synthetic plates (RGB float [0, 1]) at hw and its
+    char boxes."""
+    gt = np.stack([plate_image(hw[0], hw[1], seed + i)[..., ::-1]
+                   for i in range(n)]).astype(np.float32) / 255.0
+    return {"gt": gt, "char_boxes": char_boxes(n, seed, hw)}
+
+
+def phase_comp_card_checks(root):
+    """Phase 38, TF32 off and cuDNN deterministic: K1 against its plain
+    version at every (M, C) of a pass of the ten char Ds at bs 4 (f32, with
+    device times); `roi_align` card vs CPU (forward and the gradient to
+    the image); the tiny (32²) component + identity step's pieces card vs
+    CPU; one full-width G+D and R1 step of the component config with K1's
+    kernel against the same on K1's plain version."""
+    from image_restoration_tpu_torch.archs import build_network
+    from image_restoration_tpu_torch.models import build_model
+    from image_restoration_tpu_torch.ops import fused_act
+    from image_restoration_tpu_torch.ops.roi_align import roi_align
+    res = {}
+    # K1 at the char Ds' shapes: (B·64², 640), (B·32², 1280) ×2,
+    # (B·16², 2560) ×2
+    dc = build_network(dict(type="FacialComponentDiscriminator",
+                            groups=NUM_CHARS)).cuda()
+    crops = torch.zeros((NUM_CHARS, COMP_BS, 64, 64, 3), device="cuda")
+    shapes = []
+    plain = fused_act.fused_leaky_relu_plain
+
+    def rec(x, bias=None, negative_slope=0.2, scale=fused_act.SQRT2):
+        shapes.append((x.numel() // x.shape[-1], x.shape[-1]))
+        return plain(x, bias, negative_slope, scale)
+
+    with mock.patch.object(fused_act, "fused_leaky_relu", rec), \
+            torch.no_grad():
+        dc.forward_stacked(crops)
+    require(len(shapes) == K1_PER_CHAR_PASS, f"char D pass: {shapes}")
+    del dc, crops
+    gen = torch.Generator(device="cuda").manual_seed(38)
+    rows = []
+    for m, c in sorted(set(shapes)):
+        x = torch.randn((m, c), generator=gen, device="cuda")
+        b = torch.randn((c,), generator=gen, device="cuda")
+        got = fused_act.fused_leaky_relu(x, b)
+        want = plain(x, b)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        require(err <= 1e-6 * max(1.0, float(want.abs().max())),
+                f"K1 at the char D shape M={m} C={c}: max|d|={err}")
+        xs = [(torch.randn((m, c), generator=gen, device="cuda"),)
+              for _ in range(8)]
+        row = dict(M=m, C=c, per_pass=shapes.count((m, c)), max_abs_err=err,
+                   ms=device_time_ms(lambda t: fused_act.fused_leaky_relu(
+                       t, b), xs, 100),
+                   plain_ms=device_time_ms(lambda t: plain(t, b), xs, 100),
+                   bound_ms=k1_bound_ms(m, c, 4))
+        rows.append(row)
+        log(f"K1 char D f32 M={m:7d} C={c:4d} x{row['per_pass']}/pass  "
+            f"ms={row['ms']:.5f}  plain_ms={row['plain_ms']:.5f}  "
+            f"bound_ms={row['bound_ms']:.5f}  max|d|={err:.3g}")
+    per_pass = {k: sum(r[k] * r["per_pass"] for r in rows)
+                for k in ("ms", "plain_ms", "bound_ms")}
+    log(f"K1 per pass of the ten char Ds (bs {COMP_BS}): "
+        + ", ".join(f"{k}={v:.4f}" for k, v in per_pass.items()))
+    res["k1_char_d"] = dict(rows=rows, per_pass=per_pass)
+
+    old = _tf32_off()
+    old_det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        # roi_align, card vs CPU: forward and the gradient to the image
+        b = comp_batch(COMP_BS, 3800)
+        img = torch.from_numpy(b["gt"]) * 2 - 1
+        boxes = torch.from_numpy(b["char_boxes"])
+        g = torch.randn((COMP_BS, NUM_CHARS, 64, 64, 3),
+                        generator=torch.Generator().manual_seed(38))
+        outs = {}
+        for dev in ("cpu", "cuda"):
+            x = img.to(dev).clone().requires_grad_(True)
+            y = roi_align(x, boxes.to(dev), 64)
+            (y * g.to(dev)).sum().backward()
+            outs[dev] = (y.detach().cpu(), x.grad.cpu())
+        d_fwd = float((outs["cuda"][0] - outs["cpu"][0]).abs().max())
+        d_grad = float((outs["cuda"][1] - outs["cpu"][1]).abs().max())
+        g_scale = float(outs["cpu"][1].abs().max())
+        log(f"roi_align card vs CPU (bs {COMP_BS}, {COMP_HW[0]}x"
+            f"{COMP_HW[1]}, 10 boxes, 64²): forward max|d| {d_fwd:.3g}, "
+            f"gradient max|d| {d_grad:.3g} (max|grad| {g_scale:.3g})")
+        require(d_fwd <= 1e-6 and d_grad <= 1e-5 * g_scale,
+                "roi_align card vs CPU")
+        res["roi_align_card_vs_cpu"] = dict(fwd=d_fwd, grad=d_grad,
+                                            grad_scale=g_scale)
+
+        # the tiny component + identity step, card vs CPU
+        opt = comp_tiny_opt(root)
+        cpu = build_model(opt, device="cpu")
+        card = build_model(opt, device="cuda")
+        randomize_weights(cpu.net_g, seed=38)
+        randomize_weights(cpu.net_d, seed=39)
+        randomize_weights(cpu.net_d_char, seed=40)
+        for name in ("net_g", "net_d", "net_d_char", "net_identity"):
+            getattr(card, name).load_state_dict(
+                getattr(cpu, name).state_dict())
+        card.cri_perceptual.vgg.load_state_dict(
+            cpu.cri_perceptual.vgg.state_dict())
+        g41 = torch.Generator().manual_seed(41)
+        gt = torch.rand((2, 32, 32, 3), generator=g41) * 2 - 1
+        lq = (gt + 0.2 * torch.randn(gt.shape, generator=g41)).clamp(-1, 1)
+        bx = torch.from_numpy(char_boxes(2, 41, (32, 32)))
+        noise = [torch.randn(s, generator=g41)
+                 for s in cpu.net_g.stylegan_decoder.noise_shapes()]
+        want = gan_pieces(cpu, lq, gt, noise, bx)
+        got = gan_pieces(card, lq.cuda(), gt.cuda(), [n.cuda() for n in noise],
+                         bx.cuda())
+        res["tiny_card_vs_cpu"] = compare_pieces(
+            got, want, "tiny component + identity step, card vs CPU "
+            "(TF32 off)")
+        del cpu, card
+
+        # one full-width step of the component config, K1 vs plain K1
+        model = build_comp_trainer(root)
+        randomize_weights(model.net_g, seed=42)
+        randomize_weights(model.net_d, seed=43)
+        randomize_weights(model.net_d_char, seed=44)
+        g_k1, d_k1, test_k1 = net_k1_counts(model, COMP_HW)
+        step_want = g_k1 + 3 * d_k1 + K1_PER_COMP_STEP + d_k1
+        b = comp_batch(COMP_BS, 3900)
+        gen_c = torch.Generator("cuda").manual_seed(42)
+        with torch.no_grad():
+            lq, gtn = model.degrade_fn(gen_c, torch.from_numpy(b["gt"]).cuda())
+        noise = model.draw_noise(gen_c)
+        bx = torch.from_numpy(b["char_boxes"]).cuda()
+        fused_act.fused_leaky_relu.launches = 0
+        k = gan_pieces(model, lq, gtn, noise, bx)
+        torch.cuda.synchronize()
+        k1 = fused_act.fused_leaky_relu.launches
+        require(k1 == step_want, f"full-width component step: K1 {k1}, "
+                f"expected {step_want}")
+        with mock.patch.object(fused_act, "fused_leaky_relu", plain):
+            p = gan_pieces(model, lq, gtn, noise, bx)
+    finally:
+        _tf32_restore(old)
+        torch.backends.cudnn.deterministic = old_det
+    require(all(math.isfinite(v) for v in k[0].values()), "non-finite loss")
+    res["full_width_k1_vs_plain"] = dict(
+        compare_pieces(k, p, "full-width component G+D and R1 step, K1 vs "
+                       "plain K1 (TF32 off)"), losses=k[0], k1=k1,
+        g_k1=g_k1, d_k1=d_k1)
+    log(f"K1 launches at {COMP_HW[0]}x{COMP_HW[1]}: G {g_k1} and D {d_k1} "
+        f"per forward (counted on the nets), the char Ds "
+        f"{K1_PER_CHAR_PASS} per pass; one G+D and R1 step {k1}")
+    del model
+    torch.cuda.empty_cache()
+    return res, (g_k1, d_k1, test_k1)
+
+
+def comp_tiny_opt(root):
+    """The tiny config (32²) with the component Ds and the identity loss
+    (IResNet18 at 512 features), the production losses besides."""
+    opt = tiny_train_opt(root)
+    opt["path"]["models"] = f"{root}/tiny_comp"
+    opt.update(use_component_loss=True,
+               network_d_char={"type": "FacialComponentDiscriminator"},
+               network_identity={"type": "IResNet18"})
+    opt["train"] = dict(
+        opt["train"], optim_component={"type": "Adam", "lr": 2e-3},
+        gan_component_opt={"type": "GANLoss", "gan_type": "vanilla",
+                           "loss_weight": 1.0},
+        comp_style_weight=200, identity_weight=10)
+    return opt
+
+
+def _check_trained(model, iters, keys):
+    require(model.iter == iters, f"model.iter {model.iter}")
+    require(set(keys) <= set(model.log_dict),
+            f"missing losses {sorted(set(keys) - set(model.log_dict))}")
+    require(all(math.isfinite(v) for v in model.log_dict.values()),
+            "a non-finite loss")
+
+
+def phase_comp_main_path(root, g_k1, d_k1, test_k1):
+    """Phase 39, the main path: counts at 0, then `train_pipeline` on the
+    component config as written (GFPGANv1OCR 256x64, StyleGAN2Discriminator
+    at channel multiplier 1, the ten char Ds, batch 4), cut with
+    --force_yml to seeded synthetic plates and boxes in `root` and 32
+    iterations (R1 at 16 and 32, validation and a checkpoint at 32);
+    counts read: K1 exactly 32·(G + 3·D + 20) + 2·D + the validation's G
+    forwards, from the nets' own counts, K2 and K3 never; every loss
+    finite, every char D moved; --auto_resume from ckpt_32.pth restores
+    the char Ds and their Adam bit-equal. Then the identity config for 16
+    iterations with a random frozen IResNet18, counts likewise: l_identity
+    finite, the IResNet unchanged."""
+    from image_restoration_tpu_torch.models import build_model
+    from image_restoration_tpu_torch.train import train_pipeline
+    argv = comp_options(root)
+    log("path 9 cuts (--force_yml): " + " ".join(argv[3:]))
+    kernels = _counts_zero()
+    t0 = time.perf_counter()
+    model = train_pipeline(root, argv=argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    k1, k2, k3 = (k.launches for k in kernels)
+    val_forwards = 2 * TRAIN_VAL_IMAGES   # at 32 and after the last step
+    want = (COMP_ITERS * (g_k1 + 3 * d_k1 + K1_PER_COMP_STEP)
+            + (COMP_ITERS // 16) * d_k1 + val_forwards * test_k1)
+    log(f"component train_pipeline: {COMP_ITERS} iterations in {wall:.2f} s "
+        f"(wall: build, validation and saves included); K1 {k1} launches "
+        f"(expected {COMP_ITERS}·({g_k1} G + 3·{d_k1} D + "
+        f"{K1_PER_COMP_STEP} char Ds) + {COMP_ITERS // 16}·{d_k1} R1 + "
+        f"{val_forwards}·{test_k1} validation = {want}), K2 {k2}, K3 {k3}; "
+        "last losses " + ", ".join(f"{k}={v:.4g}"
+                                   for k, v in model.log_dict.items()))
+    require(k1 == want, f"component main path: K1 {k1}, expected {want}")
+    require(k2 == 0 and k3 == 0, "component main path launched K2 or K3")
+    keys = ([f"l_g_gan_char_{i}" for i in range(NUM_CHARS)]
+            + [f"l_d_char_{i}" for i in range(NUM_CHARS)]
+            + ["l_g_comp_style_loss", "l_d_r1", "l_g_gan"])
+    fresh = build_model(model.opt, device="cuda")
+    _check_trained(model, COMP_ITERS, keys)
+    for i in range(NUM_CHARS):
+        a = model.net_d_char.char_state_dict(i)
+        b = fresh.net_d_char.char_state_dict(i)
+        require(all(not torch.equal(a[k], b[k]) for k in a),
+                f"char D {i} did not move")
+    mdir = model.opt["path"]["models"]
+    require(os.path.exists(os.path.join(mdir, f"ckpt_{COMP_ITERS}.pth")),
+            "no checkpoint")
+    resumed = train_pipeline(root, argv=argv + ["--auto_resume"])
+    require(resumed.iter == COMP_ITERS, f"resumed at {resumed.iter}")
+    for k, v in resumed.net_d_char.state_dict().items():
+        require(torch.equal(v, model.net_d_char.state_dict()[k]),
+                f"resumed char D {k} differs")
+    sa = resumed.optimizer_dc.opt.state_dict()["state"]
+    sb = model.optimizer_dc.opt.state_dict()["state"]
+    require(sa.keys() == sb.keys() and all(
+        torch.equal(sa[i][k], sb[i][k]) for i in sa
+        for k in ("exp_avg", "exp_avg_sq")), "resumed char D Adam differs")
+    log(f"--auto_resume from ckpt_{COMP_ITERS}.pth: the ten char Ds and "
+        "their Adam bit-equal")
+    del resumed, fresh
+    torch.cuda.empty_cache()
+    main = dict(k1=k1, k1_expected=want, wall_s=wall,
+                last_losses=model.log_dict)
+
+    # the identity config: 256² plates, a random frozen IResNet18
+    id_root = f"{root}/identity"
+    write_plates(f"{id_root}/train", 8, 4200)
+    write_plates(f"{id_root}/val", TRAIN_VAL_IMAGES, 4300)
+    id_argv = comp_options(id_root, IDENTITY_ITERS, IDENTITY_CONFIG)
+    id_model_probe = build_comp_trainer(id_root, IDENTITY_CONFIG)
+    id_g, id_d, id_test = net_k1_counts(id_model_probe, (256, 256))
+    id_before = {k: v.clone() for k, v in
+                 id_model_probe.net_identity.state_dict().items()}
+    del id_model_probe
+    kernels = _counts_zero()
+    t0 = time.perf_counter()
+    id_model = train_pipeline(id_root, argv=id_argv)
+    torch.cuda.synchronize()
+    id_wall = time.perf_counter() - t0
+    id_k1, k2, k3 = (k.launches for k in kernels)
+    id_want = (IDENTITY_ITERS * (id_g + 3 * id_d)
+               + (IDENTITY_ITERS // 16) * id_d
+               + 2 * TRAIN_VAL_IMAGES * id_test)
+    log(f"identity train_pipeline: {IDENTITY_ITERS} iterations in "
+        f"{id_wall:.2f} s; K1 {id_k1} (expected {IDENTITY_ITERS}·({id_g} + "
+        f"3·{id_d}) + {id_d} R1 + {2 * TRAIN_VAL_IMAGES}·{id_test} validation "
+        f"= {id_want}), K2 {k2}, K3 {k3}; l_identity "
+        f"{id_model.log_dict.get('l_identity')}")
+    require(id_k1 == id_want, f"identity main path: K1 {id_k1}, "
+            f"expected {id_want}")
+    require(k2 == 0 and k3 == 0, "identity main path launched K2 or K3")
+    _check_trained(id_model, IDENTITY_ITERS,
+                   ["l_identity", "l_d_r1", "l_g_gan"])
+    for k, v in id_model.net_identity.state_dict().items():
+        require(torch.equal(v, id_before[k]), f"the IResNet moved: {k}")
+    log("the frozen IResNet18 is bit-unchanged after "
+        f"{IDENTITY_ITERS} iterations")
+    main["identity"] = dict(k1=id_k1, k1_expected=id_want, wall_s=id_wall,
+                            g_k1=id_g, d_k1=id_d,
+                            last_losses=id_model.log_dict)
+    return model, id_model, main
+
+
+def comp_timed_steps(model, pool, iters):
+    """Seconds of each of `iters` optimize_parameters calls as a training
+    loop runs them (CUDA events, no synchronize between steps), on batches
+    from `pool`; the peak device MiB."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    events = [torch.cuda.Event(enable_timing=True) for _ in range(iters + 1)]
+    events[0].record()
+    for it in range(1, iters + 1):
+        model.optimize_parameters(it, pool[it % len(pool)])
+        events[it].record()
+    torch.cuda.synchronize()
+    return ([a.elapsed_time(b) / 1e3 for a, b in zip(events, events[1:])],
+            torch.cuda.max_memory_allocated() / 2 ** 20)
+
+
+def comp_step_profile(model, batch, it, ranges):
+    """(wall ms, busy ms, device ms under each range) of one profiled
+    optimize_parameters; `ranges` maps a range name to (object, attribute)
+    wrapped in it for this run."""
+    from torch.profiler import ProfilerActivity, profile
+    patches = [mock.patch.object(obj, attr, _ranged(name,
+                                                    getattr(obj, attr)))
+               for name, (obj, attr) in ranges.items()]
+    for p in patches:
+        p.start()
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            model.optimize_parameters(it, batch)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+    finally:
+        for p in patches:
+            p.stop()
+    kernels = [k for k in _kernel_events(prof)
+               if not k[2].startswith(("irt.", "Optimizer."))]
+    busy = sum(k[0] for k in kernels)
+    return wall, busy, {name: _range_ms(prof, name) for name in ranges}, \
+        kernels
+
+
+def phase_comp_throughput(comp_model, id_model):
+    """Phase 40: s per step (median of steps 5-32 of a loop with no
+    synchronize between steps; R1 at 16 and 32), trained imgs/s and peak
+    MiB of the component and the identity config at bs 4; from a profiled
+    step of each, the device-busy share and the device ms under the
+    forward ranges of roi_align, the char Ds and the IResNet; the char
+    Ds', roi_align's and the IResNet's forward + backward timed alone at
+    the step's shapes."""
+    from image_restoration_tpu_torch.models import gfpgan_model
+    log(f"timed runs: cudnn.allow_tf32={torch.backends.cudnn.allow_tf32} "
+        f"matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32}")
+    rows = {}
+    pools = {"component": [comp_batch(COMP_BS, 4400 + 10 * i)
+                           for i in range(2)],
+             "identity": [{"gt": plate_batch(COMP_BS, 4500 + 10 * i)}
+                          for i in range(2)]}
+    for name, model in (("component", comp_model), ("identity", id_model)):
+        torch.cuda.empty_cache()
+        times, peak = comp_timed_steps(model, pools[name], COMP_ITERS)
+        step = float(np.median(times[4:]))
+        if name == "component":
+            ranges = {"irt.roi_align": (gfpgan_model, "roi_align"),
+                      "irt.char_ds_forward": (model.net_d_char, "forward")}
+        else:
+            ranges = {"irt.iresnet_forward": (model.net_identity, "forward")}
+        wall, busy, range_ms, kernels = comp_step_profile(
+            model, pools[name][0], 5, ranges)
+        rows[name] = dict(s_per_step=step, imgs_per_s=COMP_BS / step,
+                          peak_mib=peak, steps_16_32_s=[times[15],
+                                                        times[31]],
+                          profile_wall_ms=wall, busy_ms=busy,
+                          busy_share_of_wall=busy / wall,
+                          busy_share_of_step=busy / (step * 1e3),
+                          range_ms=range_ms,
+                          top=[dict(ms=t, count=n, name=k[:200])
+                               for t, n, k in kernels[:12]])
+        log(f"{name} step bs={COMP_BS}: {step * 1e3:.2f} ms/step (median of "
+            f"steps 5-32), {COMP_BS / step:.2f} imgs/s, steps 16/32 (with "
+            f"R1) {times[15] * 1e3:.1f}/{times[31] * 1e3:.1f} ms, peak "
+            f"{peak:.0f} MiB; profiled step: wall {wall:.2f} ms, device "
+            f"busy {busy:.2f} ms ({100 * busy / wall:.1f}% of that wall, "
+            f"{100 * busy / (step * 1e3):.1f}% of the median step); "
+            + ", ".join(f"{k} {v:.3f} ms" for k, v in range_ms.items()))
+        for t, n, k in kernels[:8]:
+            log(f"  {t:9.4f} ms  x{n:<4d} {k[:110]}")
+
+    # forward + backward alone at the step's shapes
+    m = comp_model
+    b = comp_batch(COMP_BS, 4600)
+    x = torch.from_numpy(b["gt"]).cuda() * 2 - 1
+    xg = x.clone().requires_grad_(True)
+    bx = torch.from_numpy(b["char_boxes"]).cuda()
+
+    def roi_fb():
+        gfpgan_model.roi_align(xg, bx, 64).sum().backward()
+
+    def g_side_fb():
+        m.net_d_char.requires_grad_(False)
+        l_char, l_cs = m.component_g_losses(xg, x, bx)
+        (l_char.sum() + l_cs).backward()
+        m.net_d_char.requires_grad_(True)
+
+    def d_side_fb():
+        m.component_d_losses(x, x.flip(1), bx).sum().backward()
+
+    xi = torch.from_numpy(plate_batch(COMP_BS, 4700)).cuda() * 2 - 1
+    xig = xi.clone().requires_grad_(True)
+
+    def id_fb():
+        id_model.identity_loss(xig, xi).backward()
+
+    alone = {"roi_align_fwd_bwd": host_time_ms(roi_fb, [()], 10),
+             "char_ds_g_side_fwd_bwd": host_time_ms(g_side_fb, [()], 10),
+             "char_ds_d_side_fwd_bwd": host_time_ms(d_side_fb, [()], 10),
+             "iresnet_identity_fwd_bwd": host_time_ms(id_fb, [()], 10)}
+    m.net_d_char.zero_grad(set_to_none=True)
+    for k, v in alone.items():
+        log(f"  alone: {k:28s} {v:9.3f} ms")
+    return dict(rows=rows, alone_ms=alone)
+
+
+def phase_components(tmp):
+    """Path 9: phases 38-40, on 8 plates (and their boxes) to train on and
+    4 to validate."""
+    write_plate_set(f"{tmp}/train", 8, 4000)
+    write_plate_set(f"{tmp}/val", TRAIN_VAL_IMAGES, 4100)
+    checks, counts = phase_comp_card_checks(tmp)
+    comp, ident, main_path = phase_comp_main_path(tmp, *counts)
+    thr = phase_comp_throughput(comp, ident)
+    del comp, ident
+    torch.cuda.empty_cache()
+    return main_path["k1"] + main_path["identity"]["k1"], dict(
+        card_checks=checks, main_path=main_path, throughput=thr)
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", default=None,
@@ -4226,13 +4781,17 @@ def main(argv=None):
     with tempfile.TemporaryDirectory(prefix="irt_stylegan2_") as tmp:
         sg2_k1, stylegan2 = phase_stylegan2(tmp)
 
+    with tempfile.TemporaryDirectory(prefix="irt_components_") as tmp:
+        comp_k1, components = phase_components(tmp)
+
     a = agg[("float32", 16)]
     kernels = [{
         "name": "fused_bias_lrelu",
         "route": "cuda",
         "source": "image_restoration_tpu_torch/csrc/fused_bias_act.cu",
         "replaces": "image_restoration_tpu/ops/pallas/fused_act_kernel.py:43",
-        "launches": launches + pipe_launches + art_k1 + train_k1 + sg2_k1,
+        "launches": (launches + pipe_launches + art_k1 + train_k1 + sg2_k1
+                     + comp_k1),
         "max_abs_err": worst,
         "ms": a["ms"],
         "plain_ms": a["plain_ms"],
@@ -4286,7 +4845,7 @@ def main(argv=None):
         exports=exports,
         artifact_main_path_launches=dict(k1=art_k1, k2=art_k2),
         artifact_correctness=art_check, dyn_int8=dyn, train=train,
-        sr_train=sr_trainers, stylegan2=stylegan2,
+        sr_train=sr_trainers, stylegan2=stylegan2, components=components,
         seconds=time.perf_counter() - t_start,
         note="kernels[].ms/plain_ms/bound_ms: device time (calls back to "
              "back, CUDA events) and bound, summed over the 39 K1 launches "
@@ -4298,8 +4857,9 @@ def main(argv=None):
              " has the same yardstick for the RRDB half); K3's is cuDNN's "
              "bf16 conv; "
              "K3's launches are those of probe_conv.main(); K1's launches "
-             "are those of the main-path phases of paths 1, 4, 5, 6 and 8 "
-             "(4, 17, 21, 26, 36), K2's those of paths 2, 5 and 7 (8, 21, 31: the "
+             "are those of the main-path phases of paths 1, 4, 5, 6, 8 and 9 "
+             "(4, 17, 21, 26, 36, 39), "
+             "K2's those of paths 2, 5 and 7 (8, 21, 31: the "
              "engine built from the QAT checkpoint)")
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)

@@ -12,6 +12,8 @@ import torch
 from ..utils.registry import ARCH_REGISTRY
 from . import stylegan2_arch  # noqa: F401
 from . import gfpgan_ocr_arch  # noqa: F401
+from . import gfpganv1_arch  # noqa: F401
+from . import iresnet_arch  # noqa: F401
 from . import srvgg_arch  # noqa: F401
 from . import rrdbnet_arch  # noqa: F401
 from . import retinaface_arch  # noqa: F401

@@ -102,15 +102,16 @@ class EqualConv2d(nn.Module):
 
     def __init__(self, in_channels: int, out_channels: int, kernel_size: int,
                  stride: int = 1, padding: int = 0, bias: bool = True,
-                 bias_init_val: float = 0.0, dtype=None):
+                 bias_init_val: float = 0.0, dtype=None, groups: int = 1):
         super().__init__()
-        self.weight = nn.Parameter(torch.empty(out_channels, in_channels,
+        cig = in_channels // groups
+        self.weight = nn.Parameter(torch.empty(out_channels, cig,
                                                kernel_size, kernel_size))
         self.bias = (nn.Parameter(torch.empty(out_channels)) if bias
                      else None)
-        self.stride, self.padding = stride, padding
+        self.stride, self.padding, self.groups = stride, padding, groups
         self.bias_init_val = bias_init_val
-        self.scale = 1.0 / math.sqrt(in_channels * kernel_size ** 2)
+        self.scale = 1.0 / math.sqrt(cig * kernel_size ** 2)
         self.dtype = dtype
 
     def reset_parameters(self, generator=None):
@@ -121,7 +122,7 @@ class EqualConv2d(nn.Module):
     def forward(self, x):
         x = _cast(x, self.dtype)
         out = conv2d(x, self.weight * self.scale, stride=self.stride,
-                     padding=self.padding)
+                     padding=self.padding, groups=self.groups)
         if self.bias is not None:
             out = out + self.bias.to(out.dtype)
         return out
@@ -149,13 +150,16 @@ class ConvLayer(nn.Sequential):
     conv and `N.bias` for the fused activation's bias. Under
     `fused_resample.FUSE_DOWN` a downsampling layer runs the smooth and
     the strided conv as one `conv_down_fir` (JAX :154-160), on the same
-    parameters.
+    parameters. `groups` splits the conv into independent channel groups
+    (the stacked component discriminators); the FIR is per channel either
+    way.
     """
 
     def __init__(self, in_channels: int, out_channels: int, kernel_size: int,
                  downsample: bool = False,
                  resample_kernel: Sequence[int] = (1, 3, 3, 1),
-                 bias: bool = True, activate: bool = True, dtype=None):
+                 bias: bool = True, activate: bool = True, dtype=None,
+                 groups: int = 1):
         layers = []
         if downsample:
             layers.append(UpFirDnSmooth(resample_kernel, downsample_factor=2,
@@ -165,7 +169,8 @@ class ConvLayer(nn.Sequential):
             stride, padding = 1, kernel_size // 2
         layers.append(EqualConv2d(in_channels, out_channels, kernel_size,
                                   stride=stride, padding=padding,
-                                  bias=bias and not activate, dtype=dtype))
+                                  bias=bias and not activate, dtype=dtype,
+                                  groups=groups))
         if activate:
             layers.append(FusedLeakyReLU(out_channels) if bias
                           else ScaledLeakyReLU(0.2))
@@ -180,7 +185,7 @@ class ConvLayer(nn.Sequential):
             return super().forward(x)
         conv = self[1]
         out = conv_down_fir(x, conv.weight * conv.scale, self.resample_kernel,
-                            conv_fn=fused_valid_conv)
+                            conv_fn=fused_valid_conv, groups=conv.groups)
         if conv.bias is not None:
             out = out + conv.bias.to(out.dtype)
         for layer in list(self)[2:]:

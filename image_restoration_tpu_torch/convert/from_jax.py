@@ -27,7 +27,11 @@ flax's `conv{block}_{i}` (`vgg_state_dict_from_jax`). The VGG-style and
 UNet-SN discriminators take flax's `params` and `batch_stats`
 (`discriminator_state_dict_from_jax`), and a QAT training state becomes
 the part of the port's checkpoint that the SR engine reads
-(`qat_checkpoint_from_jax`).
+(`qat_checkpoint_from_jax`). The ten char discriminators, which JAX holds
+as one `FacialComponentDiscriminator` tree with a leading axis of 10
+(`params_dc`), become the port's grouped module
+(`stacked_state_dict_from_jax`), and IResNet's FoldedBN scale/shift pairs
+become frozen BatchNorms (`iresnet_state_dict_from_jax`).
 
 Strict both ways: every port key must resolve and every flax leaf be used.
 """
@@ -53,6 +57,8 @@ def _resolve(tree: Dict, tokens: List[str]) -> Optional[Tuple[str, ...]]:
                 return tuple(path + [tok])
             if tok == "bias" and "act_bias" in node:
                 return tuple(path + ["act_bias"])
+            if tok == "weight" and "kernel" in node:  # a flax nn.Conv
+                return tuple(path + ["kernel"])
             return None
         merged = f"{tok}_{tokens[i + 1]}"
         if isinstance(node.get(merged), dict):
@@ -317,3 +323,89 @@ def qat_checkpoint_from_jax(net: torch.nn.Module, state: Dict) -> Dict:
     return {"params_g": state_dict_from_jax(net, state["params_g"]),
             "ema_g": state_dict_from_jax(net, state["ema_g"]),
             "qscale": torch.from_numpy(np.array(state["qscale"], np.float32))}
+
+
+def stacked_state_dict_from_jax(net: torch.nn.Module,
+                                stacked_params: Dict) -> OrderedDict:
+    """The `state_dict` of a grouped port module (`net.groups` of them,
+    e.g. `FacialComponentDiscriminator(groups=10)`) holding flax params
+    stacked on a leading axis of `net.groups`: each group's slice is laid
+    out by the general rules (a flax `nn.Conv` kernel is the port's
+    `weight`), and the slices are concatenated on the port's axis 0."""
+    g = net.groups
+    leaves = _leaves(stacked_params)
+    used = set()
+    out = OrderedDict()
+    for key, ref in net.state_dict().items():
+        path = _resolve(stacked_params, key.split("."))
+        if path is None or path not in leaves:
+            raise KeyError(f"port key {key!r} has no flax counterpart")
+        used.add(path)
+        arr = leaves[path]
+        if arr.shape[0] != g:
+            raise ValueError(f"{key}: leading axis {arr.shape[0]} != {g}")
+        part = (ref.shape[0] // g,) + tuple(ref.shape[1:])
+        arr = np.concatenate([_fit(key, a, part, None) for a in arr])
+        out[key] = torch.from_numpy(arr.astype(np.float32))
+    unused = sorted("/".join(p) for p in set(leaves) - used)
+    if unused:
+        raise KeyError(f"{len(unused)} flax params unused: {unused[:10]}")
+    return out
+
+
+def iresnet_state_dict_from_jax(net: torch.nn.Module, flax_params: Dict,
+                                feat_hw: int = 7) -> OrderedDict:
+    """The `state_dict` of the port's IResNet holding the JAX package's
+    IResNet params: a FoldedBN (x·scale + shift) becomes a frozen BatchNorm
+    with zero mean, unit variance, weight scale·√(1 + ε) and bias shift;
+    `layerL_B` is `layerL.B`, `downsample_conv`/`downsample_bn` are
+    `downsample.0`/`.1`; convs go HWIO → OIHW; `fc`'s input features go
+    from flax's (H, W, C) flatten to the port's (C, H, W). Strict both
+    ways; `num_batches_tracked` is left out (a strict load fills it)."""
+    leaves = _leaves(flax_params)
+    bn_modules = {name for name, m in net.named_modules()
+                  if isinstance(m, torch.nn.BatchNorm2d)}
+    used = set()
+    out = OrderedDict()
+    for key, ref in net.state_dict().items():
+        if key.endswith("num_batches_tracked"):
+            continue
+        module, leaf = key.rsplit(".", 1)
+        flax = re.sub(r"^layer(\d+)\.(\d+)", r"layer\1_\2", module)
+        flax = flax.replace(".downsample.0", ".downsample_conv").replace(
+            ".downsample.1", ".downsample_bn")
+        parts = tuple(flax.split("."))
+        if module in bn_modules:
+            eps = net.get_submodule(module).eps
+            scale = leaves.get(parts + ("scale",))
+            shift = leaves.get(parts + ("shift",))
+            if scale is None or shift is None:
+                raise KeyError(f"port key {key!r} has no flax FoldedBN")
+            used.update({parts + ("scale",), parts + ("shift",)})
+            arr = {"weight": scale.astype(np.float64) * np.sqrt(1.0 + eps),
+                   "bias": shift,
+                   "running_mean": np.zeros(scale.shape),
+                   "running_var": np.ones(scale.shape)}[leaf]
+        else:
+            path = parts if leaf == "weight" and parts in leaves else \
+                parts + ("kernel" if leaf == "weight" else leaf,)
+            if path not in leaves:
+                raise KeyError(f"port key {key!r} has no flax counterpart "
+                               f"({'/'.join(path)})")
+            used.add(path)
+            arr = leaves[path]
+            if arr.ndim == 4:
+                arr = arr.transpose(3, 2, 0, 1)
+            elif arr.ndim == 2:  # fc: (H·W·C, out) → (out, C·H·W)
+                c = arr.shape[0] // (feat_hw * feat_hw)
+                arr = arr.reshape(feat_hw, feat_hw, c, -1).transpose(
+                    3, 2, 0, 1).reshape(arr.shape[1], -1)
+        arr = np.ascontiguousarray(arr, np.float32)
+        if arr.shape != tuple(ref.shape):
+            raise ValueError(f"{key}: flax {arr.shape} != port "
+                             f"{tuple(ref.shape)}")
+        out[key] = torch.from_numpy(arr)
+    unused = sorted("/".join(p) for p in set(leaves) - used)
+    if unused:
+        raise KeyError(f"{len(unused)} flax leaves unused: {unused[:10]}")
+    return out

@@ -3,11 +3,11 @@
 Port of `image_restoration_tpu/data/datasets.py`: the degradation
 synthesis runs on the device (data/pipelines.py), so a GT-only dataset
 returns GT images and exposes `device_pipeline()`, the degradation for the
-step. Ported: `FFHQDegradationDataset` (without `crop_components`),
-`FFHQDataset` (GT only, for StyleGAN2Model), `RealESRGANDataset` (with its
-`RealSRDegradationDataset` alias), `PairedImageDataset` and
-`SingleImageDataset`, on the disk backend. The
-random crops draw from numpy's global generator and the flips from
+step. Ported: `FFHQDegradationDataset` (with `crop_components`: each item
+gains the (10, 4) `char_boxes` of its image), `FFHQDataset` (GT only, for
+StyleGAN2Model), `RealESRGANDataset` (with its `RealSRDegradationDataset`
+alias), `PairedImageDataset` and `SingleImageDataset`, on the disk
+backend. The random crops draw from numpy's global generator and the flips from
 Python's `random`, as in the JAX package, so one seed gives the same
 samples.
 """
@@ -62,16 +62,39 @@ class FFHQDegradationDataset(_BaseDataset):
 
     def __init__(self, opt: dict):
         super().__init__(opt)
-        if opt.get("crop_components", False):
-            raise NotImplementedError(
-                "crop_components (the component discriminators' char boxes) "
-                "is not ported yet (ROADMAP item 16)")
         self.io_backend_opt = opt.get("io_backend", {"type": "disk"})
         self.paths = _gather_paths(opt["dataroot_gt"], self.io_backend_opt)
         self.input_width = opt.get("input_width", 256)
         self.input_height = opt.get("input_height", 256)
         self.mean = opt.get("mean", (0.5, 0.5, 0.5))
         self.std = opt.get("std", (0.5, 0.5, 0.5))
+        # the char boxes of the component discriminators (JAX :68-84): an
+        # .npz with an (N, 10, 4) `boxes` array, or the reference's .pth
+        # dict keyed '%08d' with `char_0`..`char_9` 4-vectors
+        self.crop_components = opt.get("crop_components", False)
+        if self.crop_components:
+            if opt.get("use_hflip", False):
+                # the flip runs on the device after the boxes are read, and
+                # JAX leaves the boxes unflipped (ROADMAP Queue 3)
+                raise ValueError(
+                    "crop_components with use_hflip: the char boxes would "
+                    "not follow the flipped image; set use_hflip: false")
+            path = opt["component_path"]
+            if path.endswith(".npz"):
+                with np.load(path) as f:
+                    self.components_list = np.asarray(f["boxes"], np.float32)
+            else:
+                import torch
+                self.components_list = torch.load(path, map_location="cpu",
+                                                  weights_only=False)
+
+    def _component_boxes(self, index: int) -> np.ndarray:
+        """(10, 4) float32 [x1, y1, x2, y2] char boxes of image `index`."""
+        if not isinstance(self.components_list, dict):
+            return np.asarray(self.components_list[index], np.float32)
+        entry = self.components_list[f"{index:08d}"]
+        return np.stack([np.asarray(entry[f"char_{i}"][0:4], np.float32)
+                         for i in range(10)])
 
     def __getitem__(self, index: int):
         import cv2
@@ -79,7 +102,10 @@ class FFHQDegradationDataset(_BaseDataset):
         img = _read_bgr_float(path)
         img = cv2.resize(img, (self.input_width, self.input_height),
                          interpolation=cv2.INTER_LINEAR)
-        return {"gt": img[..., ::-1].copy(), "gt_path": path}  # RGB [0,1]
+        item = {"gt": img[..., ::-1].copy(), "gt_path": path}  # RGB [0,1]
+        if self.crop_components:
+            item["char_boxes"] = self._component_boxes(index)
+        return item
 
     def device_pipeline(self):
         opt = self.opt

@@ -15,16 +15,30 @@ Port of `image_restoration_tpu/models/gfpgan_model.py:69-442` on one device:
     K1's autograd formula included;
   * the `net_d_iters`/`net_d_init_iters` skip iteration: a G forward with
     no G update at all (Adam's moments do not advance);
-  * `train.remat`: the G forward under `torch.utils.checkpoint`.
+  * `train.remat`: the G forward under `torch.utils.checkpoint`;
+  * the char-component discriminators (`use_component_loss` with
+    `network_d_char`, JAX :143-184, :285-312, :363-387): 64² `roi_align`
+    crops of the batch's ten `char_boxes` through ten Ds — one
+    `FacialComponentDiscriminator(groups=10)`, so each pass over the ten
+    chars is five K1 launches — giving the per-char vanilla GAN loss and,
+    with `comp_style_weight`, the Gram style loss 0.5·L1(gram₀) +
+    L1(gram₁) against the GT crops' features; then every iteration one
+    Adam update (betas (0.9, 0.99)) of all ten Ds with JAX's loss, vanilla
+    on the real crops and `gan_opt`'s on the fake ones. Each char has its
+    own D, as in JAX (the reference's G side sends every char to D 1);
+  * the identity loss (`network_identity`, JAX :131-141, :226-230,
+    :274-283): a frozen ArcFace IResNet embeds the output and the GT, each
+    resized (bilinear) to 112² and clamped to [−1, 1]; the loss is
+    `L1_opt`'s (or the mean |Δ|) of the two embeddings, the GT's taken
+    without gradient, times `identity_weight`.
 
 Randomness (the degradation, StyleConv noise) comes from the model's
-`torch.Generator` on its device, seeded from `manual_seed`. The component
-discriminators (`use_component_loss`) and the identity loss are not ported
-yet (ROADMAP item 16); the production config uses neither.
+`torch.Generator` on its device, seeded from `manual_seed`.
 
-A checkpoint is the training state `ckpt_{iter}.pth` (`resume` reads it)
-and `net_g_{iter}.pth` in the reference's {"params", "params_ema"} layout,
-which `Restorer(ckpt_path=...)` serves.
+A checkpoint is the training state `ckpt_{iter}.pth` (`resume` reads it;
+with components it holds the ten Ds and their Adam, never the frozen
+IResNet) and `net_g_{iter}.pth` in the reference's {"params",
+"params_ema"} layout, which `Restorer(ckpt_path=...)` serves.
 """
 
 from __future__ import annotations
@@ -34,11 +48,26 @@ import math
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from ..archs import build_network
+from ..convert.iresnet_import import import_iresnet
+from ..convert.pth import load_pth
 from ..losses import build_loss
 from ..losses.losses import r1_penalty
 from ..ops.resize import resize
+from ..ops.roi_align import roi_align
 from ..utils.registry import MODEL_REGISTRY
 from .sr_model import SRModel
+
+NUM_CHARS = 10  # per-char component discriminators
+CHAR_CROP = 64  # roi_align output size
+ID_SIZE = 112   # the identity net's input size
+
+
+def _gram(x: torch.Tensor) -> torch.Tensor:
+    """Gram matrix of NHWC features, / (C·H·W) (JAX `_gram`)."""
+    n, h, w, c = x.shape
+    f = x.reshape(n, h * w, c)
+    return torch.bmm(f.transpose(1, 2), f) / (c * h * w)
 
 
 @MODEL_REGISTRY.register()
@@ -48,14 +77,6 @@ class GFPGANModel(SRModel):
         net_g_opt = opt["network_g"]
         self._hw = (net_g_opt.get("input_height", 256),
                     net_g_opt.get("input_width", 256))
-        if opt.get("use_component_loss") or opt.get("network_d_char"):
-            raise NotImplementedError(
-                "the component discriminators (use_component_loss) are not "
-                "ported yet (ROADMAP item 16)")
-        if opt.get("network_identity") is not None:
-            raise NotImplementedError(
-                "the identity loss (network_identity) is not ported yet "
-                "(ROADMAP item 16)")
         super().__init__(opt, device)
         self.log_size = int(math.log2(min(self._hw)))
         self.ratio = self._hw[1] // self._hw[0]
@@ -100,6 +121,37 @@ class GFPGANModel(SRModel):
                                                  float("inf"))
         self.remat = bool(train_opt.get("remat", False))
 
+        self.use_identity = self.opt.get("network_identity") is not None
+        if self.use_identity:
+            self.net_identity = self.build_net("network_identity")
+            pre = self.opt["path"].get("pretrain_network_identity")
+            if pre and pre.endswith((".pth", ".pt")):
+                import_iresnet(pre, self.net_identity)
+            self.net_identity.eval().requires_grad_(False)
+            self.identity_weight = train_opt.get("identity_weight", 1.0)
+
+        self.use_facial_disc = bool(self.opt.get("use_component_loss")) \
+            and self.opt.get("network_d_char") is not None
+        if self.use_facial_disc:
+            self.net_d_char = self._build_char_discriminators()
+            self.cri_component = build_loss(train_opt["gan_component_opt"])
+            self.comp_style_weight = train_opt.get("comp_style_weight", 0)
+            self.optimizer_dc = self.make_optimizer(
+                "optim_component", self.net_d_char, betas=(0.9, 0.99))
+
+    def _build_char_discriminators(self):
+        """The ten char Ds as one grouped module, drawn from the config's
+        seed; `pretrain_network_d_char_{i}` loads into D number i."""
+        net_opt = dict(self.opt["network_d_char"], groups=NUM_CHARS)
+        gen = torch.Generator().manual_seed(self.seed + 7)
+        net = build_network(net_opt, gen).to(self.device)
+        for i in range(NUM_CHARS):
+            pre = self.opt["path"].get(f"pretrain_network_d_char_{i}")
+            if pre and pre.endswith((".pth", ".pt")):
+                net.load_char(i, load_pth(pre))
+                self.logger.info(f"Loaded {pre} into char D {i}")
+        return net
+
     # ------------------------------------------------------------- pieces
 
     def _pyramid_gt(self, gt):
@@ -124,8 +176,64 @@ class GFPGANModel(SRModel):
             else fwd(lq)
         return outs[0], list(outs[1:])
 
-    def g_losses(self, lq, gt, noise, pyr_w: float):
-        """(total, {name: loss}, output) of the G step (JAX `g_loss`)."""
+    @staticmethod
+    def char_crops(img, boxes):
+        """(B, H, W, 3) and (B, 10, 4) boxes → (10, B, 64, 64, 3)."""
+        return roi_align(img, boxes, CHAR_CROP).transpose(0, 1)
+
+    def embed(self, img):
+        """The frozen identity net's embedding of an NHWC batch in
+        (−1, 1): bilinear to 112², clamped to [−1, 1]."""
+        r = resize(img, (ID_SIZE, ID_SIZE), "bilinear").clamp(-1.0, 1.0)
+        return self.net_identity(r)
+
+    def identity_loss(self, output, gt):
+        """`L1_opt`'s loss (or the mean |Δ|) of the output's and the GT's
+        embeddings, the GT's without gradient, times identity_weight."""
+        e_out = self.embed(output)
+        with torch.no_grad():
+            e_gt = self.embed(gt)
+        if self.cri_l1 is not None:
+            return self.cri_l1(e_out, e_gt) * self.identity_weight
+        return (e_out - e_gt).abs().mean() * self.identity_weight
+
+    def component_g_losses(self, output, gt, boxes):
+        """(per-char GAN losses (10,), the Gram style loss or None) of the
+        G step: each char's D on its fake crop, and with
+        `comp_style_weight` the style of its features against the GT
+        crop's (taken without gradient)."""
+        style = self.comp_style_weight > 0
+        logits, fake = self.net_d_char.forward_stacked(
+            self.char_crops(output, boxes), return_feats=style)
+        l_char = torch.vmap(lambda lg: self.cri_component(
+            lg, True, is_disc=False))(logits)
+        if not style:
+            return l_char, None
+        with torch.no_grad():
+            _, real = self.net_d_char.forward_stacked(
+                self.char_crops(gt, boxes), return_feats=True)
+
+        def style_one(f0, f1, r0, r1):
+            return (self.cri_l1(_gram(f0), _gram(r0)) * 0.5
+                    + self.cri_l1(_gram(f1), _gram(r1)))
+
+        l_cs = torch.vmap(style_one)(fake[0], fake[1], real[0], real[1])
+        return l_char, l_cs.sum() * self.comp_style_weight
+
+    def component_d_losses(self, output, gt, boxes):
+        """Per-char D losses (10,): vanilla on the real crop plus `gan_opt`'s
+        loss on the fake one (JAX's mix)."""
+        fake, _ = self.net_d_char.forward_stacked(
+            self.char_crops(output, boxes))
+        real, _ = self.net_d_char.forward_stacked(
+            self.char_crops(gt, boxes))
+        return torch.vmap(lambda r, f: self.cri_component(
+            r, True, is_disc=True) + self.cri_gan(f, False, is_disc=True))(
+            real, fake)
+
+    def g_losses(self, lq, gt, noise, pyr_w: float, boxes=None):
+        """(total, {name: loss}, output) of the G step (JAX `g_loss`);
+        `boxes` (B, 10, 4) when the component Ds train."""
         output, out_rgbs = self.g_forward(lq, noise)
         total = 0.0
         losses = {}
@@ -145,8 +253,18 @@ class GFPGANModel(SRModel):
                 losses["l_g_style"] = l_style
         losses["l_g_gan"] = self.cri_gan(self.net_d(output), True,
                                          is_disc=False)
+        if self.use_identity:
+            losses["l_identity"] = self.identity_loss(output, gt)
         for v in losses.values():
             total = total + v
+        if self.use_facial_disc:
+            l_char, l_cs = self.component_g_losses(output, gt, boxes)
+            total = total + l_char.sum()
+            for i in range(NUM_CHARS):
+                losses[f"l_g_gan_char_{i}"] = l_char[i]
+            if l_cs is not None:
+                total = total + l_cs
+                losses["l_g_comp_style_loss"] = l_cs
         return total, losses, output
 
     def d_loss(self, output, gt):
@@ -181,6 +299,12 @@ class GFPGANModel(SRModel):
         `self.mark`, when set, is called with each part's name as it
         begins and with None after the last (a profiler's hook)."""
         gen = generator or self.generator
+        boxes = None
+        if self.use_facial_disc:
+            if "char_boxes" not in batch:
+                raise KeyError("use_component_loss needs the dataset to "
+                               "give 'char_boxes' (crop_components: true)")
+            boxes = self.to_device(batch["char_boxes"]).float()
         self._mark("degradation")
         lq, gt = self.degrade(batch, gen)
         update_g = (current_iter % self.net_d_iters == 0
@@ -188,11 +312,13 @@ class GFPGANModel(SRModel):
         noise = self.draw_noise(gen)
 
         self.net_d.requires_grad_(False)
+        if self.use_facial_disc:
+            self.net_d_char.requires_grad_(False)
         if update_g:
             self._mark("g_forward_losses")
             self.optimizer_g.zero_grad()
             total, losses, output = self.g_losses(
-                lq, gt, noise, self.pyramid_weight(current_iter))
+                lq, gt, noise, self.pyramid_weight(current_iter), boxes)
             self._mark("g_backward")
             total.backward()
             self._mark("g_adam")
@@ -212,6 +338,16 @@ class GFPGANModel(SRModel):
         l_d.backward()
         self.optimizer_d.step()
         losses.update(l_d=l_d, real_score=real_s, fake_score=fake_s)
+
+        if self.use_facial_disc:
+            self._mark("char_d_step")
+            self.net_d_char.requires_grad_(True)
+            self.optimizer_dc.zero_grad()
+            per = self.component_d_losses(output.detach(), gt, boxes)
+            per.sum().backward()
+            self.optimizer_dc.step()
+            for i in range(NUM_CHARS):
+                losses[f"l_d_char_{i}"] = per[i]
         self.iter += 1
 
         if current_iter % self.net_d_reg_every == 0:
@@ -231,11 +367,18 @@ class GFPGANModel(SRModel):
     # -------------------------------------------------------- checkpoints
 
     def training_state(self) -> dict:
-        return dict(super().training_state(),
-                    params_d=self.net_d.state_dict(),
-                    opt_d=self.optimizer_d.state_dict())
+        state = dict(super().training_state(),
+                     params_d=self.net_d.state_dict(),
+                     opt_d=self.optimizer_d.state_dict())
+        if self.use_facial_disc:
+            state.update(params_dc=self.net_d_char.state_dict(),
+                         opt_dc=self.optimizer_dc.state_dict())
+        return state
 
     def load_training_state(self, state: dict) -> None:
         super().load_training_state(state)
         self.net_d.load_state_dict(state["params_d"])
         self.optimizer_d.load_state_dict(state["opt_d"])
+        if self.use_facial_disc:
+            self.net_d_char.load_state_dict(state["params_dc"])
+            self.optimizer_dc.load_state_dict(state["opt_dc"])

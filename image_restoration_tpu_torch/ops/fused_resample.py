@@ -117,12 +117,15 @@ def conv_up_fir(x: torch.Tensor, weight: torch.Tensor, fir=(1, 3, 3, 1),
 
 
 def conv_down_fir(x: torch.Tensor, weight: torch.Tensor, fir=(1, 3, 3, 1),
-                  conv_fn=None) -> torch.Tensor:
+                  conv_fn=None, groups: int = 1) -> torch.Tensor:
     """Exact fusion of upfirdn_smooth(downsample_factor=2) and
-    conv2d(weight, stride 2, padding 0) into a space-to-depth and one
-    VALID conv. x NHWC, weight OIHW; `conv_fn` as in `conv_up_fir`."""
+    conv2d(weight, stride 2, padding 0, groups) into a space-to-depth and
+    one VALID conv. x NHWC, weight OIHW (Cout, Cin/groups, kh, kw);
+    `conv_fn(x_padded, w, groups=...)` as in `conv_up_fir`. With groups,
+    the space-to-depth keeps each group's 4·Cin/groups channels
+    together."""
     n, h, w_sp, ci = x.shape
-    co, kh = weight.shape[0], weight.shape[2]
+    co, cig, kh = weight.shape[0], weight.shape[1], weight.shape[2]
     f = _fir_2d(fir, 1.0, x.device)
     flen = f.shape[0]
     p = flen - 2 + (kh - 1)
@@ -138,17 +141,19 @@ def conv_down_fir(x: torch.Tensor, weight: torch.Tensor, fir=(1, 3, 3, 1),
     pad_w += (w_sp + fir_p0 + pad_w) % 2
     xp = F.pad(x, (0, 0, fir_p0, pad_w, fir_p0, pad_h))
     hp, wp = xp.shape[1] // 2, xp.shape[2] // 2
-    # space-to-depth: xp[2m+e, 2n+g, c] → ph[m, n, (e, g, c)]
-    ph = xp.reshape(n, hp, 2, wp, 2, ci).permute(0, 1, 3, 2, 4, 5)
+    # space-to-depth: xp[2m+e, 2n+g, (q, c)] → ph[m, n, (q, e, g, c)]
+    # for group q
+    ph = xp.reshape(n, hp, 2, wp, 2, groups, cig).permute(0, 1, 3, 5, 2, 4,
+                                                          6)
     ph = ph.reshape(n, hp, wp, 4 * ci)
     # kernel: K[o, (e, g, c), jh, jw] = C[o, c, 2jh + e, 2jw + g]
     taps = (length + 1) // 2
     cp = F.pad(c, (0, 2 * taps - length, 0, 2 * taps - length))
-    kd = cp.reshape(co, ci, taps, 2, taps, 2).permute(0, 3, 5, 1, 2, 4)
-    kd = kd.reshape(co, 4 * ci, taps, taps)
+    kd = cp.reshape(co, cig, taps, 2, taps, 2).permute(0, 3, 5, 1, 2, 4)
+    kd = kd.reshape(co, 4 * cig, taps, taps)
     if conv_fn is not None:
-        y = conv_fn(ph, kd)
+        y = conv_fn(ph, kd, groups=groups)
     else:
-        y = F.conv2d(ph.permute(0, 3, 1, 2), kd.to(x.dtype)).permute(
-            0, 2, 3, 1)
+        y = F.conv2d(ph.permute(0, 3, 1, 2), kd.to(x.dtype),
+                     groups=groups).permute(0, 2, 3, 1)
     return y[:, :out_h, :out_w, :]

@@ -144,22 +144,32 @@ def _nhwc(y: torch.Tensor) -> torch.Tensor:
     return y.permute(0, 2, 3, 1).contiguous()
 
 
-def fused_valid_conv(xp: torch.Tensor, wc: torch.Tensor) -> torch.Tensor:
+def _no_grouped_int8(groups: int) -> None:
+    if groups != 1:
+        raise NotImplementedError(
+            "dynamic int8 serving takes no grouped convolution")
+
+
+def fused_valid_conv(xp: torch.Tensor, wc: torch.Tensor,
+                     groups: int = 1) -> torch.Tensor:
     """VALID stride-1 conv of the fused-resample paths (JAX :83-90),
     honouring the dynamic-int8 mode."""
     if _INT8_SERVING.get():
+        _no_grouped_int8(groups)
         return _int8_conv(xp, wc, 1, ((0, 0), (0, 0)))
-    return _nhwc(F.conv2d(xp.permute(0, 3, 1, 2), wc.to(xp.dtype)))
+    return _nhwc(F.conv2d(xp.permute(0, 3, 1, 2), wc.to(xp.dtype),
+                          groups=groups))
 
 
 def conv2d(x: torch.Tensor, weight: torch.Tensor, stride: int = 1,
-           padding: int = 0) -> torch.Tensor:
+           padding: int = 0, groups: int = 1) -> torch.Tensor:
     """NHWC conv with an OIHW weight (torch Conv2d semantics)."""
     if _INT8_SERVING.get():
+        _no_grouped_int8(groups)
         return _int8_conv(x, weight, stride,
                           ((padding, padding), (padding, padding)))
     return _nhwc(F.conv2d(x.permute(0, 3, 1, 2), weight.to(x.dtype),
-                          stride=stride, padding=padding))
+                          stride=stride, padding=padding, groups=groups))
 
 
 def conv_transpose2d(x: torch.Tensor, weight: torch.Tensor,

@@ -11,6 +11,8 @@ device="cpu")` runs the plain PyTorch path on the CPU. GT batches are read
 on the host; the degradation runs on the device inside each step, from the
 model's generator. Checkpoints are `ckpt_{iter}.pth` (the training state,
 which `--auto_resume` finds) and `net_g_{iter}.pth` (reference layout).
+`debug_nans: true` turns on autograd's anomaly mode for the process
+(utils/debug.py says how it differs from JAX's NaN checks).
 """
 
 from __future__ import annotations
@@ -21,6 +23,7 @@ from os import path as osp
 
 from .data import build_dataloader, build_dataset
 from .models import build_model
+from .utils.debug import enable_nan_checks
 from .utils.logger import (AvgTimer, MessageLogger, get_env_info,
                            get_root_logger, init_tb_logger)
 from .utils.misc import check_resume, make_exp_dirs, set_random_seed
@@ -67,6 +70,9 @@ def train_pipeline(root_path: str | None = None, argv=None, device=None):
     save; returns the model. `device` None means cuda."""
     opt, _ = parse_options(root_path, is_train=True, argv=argv)
     set_random_seed(opt["manual_seed"])
+
+    if opt.get("debug_nans"):  # anomaly mode (utils/debug.py)
+        enable_nan_checks(True)
 
     resume_state_path = load_resume_state(opt)
     if resume_state_path is None:

@@ -794,3 +794,62 @@ def test_stylegan2_path_step_kernel_matches_plain(cuda_device, no_tf32,
     scale = max(float(gb.abs().max()) for gb in p[1])
     for ga, gb in zip(k[1], p[1]):
         assert float((ga - gb).abs().max()) <= 1e-4 * scale
+
+
+@pytest.mark.cuda
+def test_roi_align_on_card_matches_cpu(cuda_device, no_tf32):
+    """`roi_align` (64² crops of ten boxes, some across the edge) and its
+    gradient to the image on the card against the CPU (TF32 off)."""
+    from image_restoration_tpu_torch.ops.roi_align import roi_align
+    g = torch.Generator().manual_seed(5)
+    img = torch.rand((2, 64, 256, 3), generator=g) * 2 - 1
+    lo = torch.rand((2, 10, 2), generator=g) * torch.tensor([250.0, 60.0])
+    boxes = torch.cat([lo - 4, lo + 20], -1)
+    up = torch.randn((2, 10, 64, 64, 3), generator=g)
+    outs = []
+    for dev in ("cpu", cuda_device):
+        x = img.to(dev).clone().requires_grad_(True)
+        y = roi_align(x, boxes.to(dev), 64)
+        (y * up.to(dev)).sum().backward()
+        outs.append((y.detach().cpu(), x.grad.cpu()))
+    (y0, g0), (y1, g1) = outs
+    assert float((y1 - y0).abs().max()) <= 1e-6
+    assert float((g1 - g0).abs().max()) <= 1e-5 * float(g0.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fuse_down", [False, True])
+def test_char_ds_kernel_match_plain_and_cpu(cuda_device, no_tf32,
+                                            monkeypatch, fuse_down):
+    """The ten char Ds as one grouped FacialComponentDiscriminator on the
+    card, K1 five launches a pass: against K1's plain version (bit-equal
+    arithmetic, 1e-6 of max|y|) and against the CPU (1e-5 of max|y|), with
+    and without FUSE_DOWN."""
+    from unittest import mock
+    from image_restoration_tpu_torch.archs import build_network
+    from image_restoration_tpu_torch.ops import fused_act, fused_resample
+    monkeypatch.setattr(fused_resample, "FUSE_DOWN", fuse_down)
+    net = build_network(dict(type="FacialComponentDiscriminator",
+                             groups=10))
+    g = torch.Generator().manual_seed(6)
+    with torch.no_grad():
+        for p in net.parameters():
+            if p.dim() == 1:
+                p.add_(0.1 * torch.randn(p.shape, generator=g))
+    crops = torch.rand((10, 2, 64, 64, 3), generator=g) * 2 - 1
+    with torch.no_grad():
+        want = net.forward_stacked(crops, return_feats=True)
+        card = net.to(cuda_device)
+        fused_act.fused_leaky_relu.launches = 0
+        got = card.forward_stacked(crops.to(cuda_device), return_feats=True)
+        torch.cuda.synchronize()
+        assert fused_act.fused_leaky_relu.launches == 5
+        with mock.patch.object(fused_act, "fused_leaky_relu",
+                               fused_act.fused_leaky_relu_plain):
+            plain = card.forward_stacked(crops.to(cuda_device),
+                                         return_feats=True)
+    for a, p, c in zip([got[0]] + got[1], [plain[0]] + plain[1],
+                       [want[0]] + want[1]):
+        scale = float(c.abs().max())
+        assert float((a - p).abs().max()) <= 1e-6 * scale
+        assert float((a.cpu() - c).abs().max()) <= 1e-5 * scale

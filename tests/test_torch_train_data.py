@@ -520,8 +520,13 @@ def test_dataset_and_loader_match_jax(tmp_path, monkeypatch):
 
 
 def test_dataset_rejects_unported_options(tmp_path):
+    """crop_components is ported (tests/test_torch_gfpgan_component.py);
+    with use_hflip it is refused, since the boxes would not follow the
+    flip. lmdb is not ported."""
     opt = _dataset_opt(tmp_path)
-    with pytest.raises(NotImplementedError, match="item 16"):
-        build_dataset(dict(opt, crop_components=True))
+    np.savez(tmp_path / "boxes.npz", boxes=np.zeros((1, 10, 4), np.float32))
+    with pytest.raises(ValueError, match="use_hflip"):
+        build_dataset(dict(opt, crop_components=True, use_hflip=True,
+                           component_path=str(tmp_path / "boxes.npz")))
     with pytest.raises(NotImplementedError, match="item 20"):
         build_dataset(dict(opt, io_backend={"type": "lmdb"}))
