@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py [--out report.json]
 
-Drives the port's nine main paths with random weights made from a seed,
+Drives the port's eleven main paths with random weights made from a seed,
 and fails loudly if any phase fails:
 
   1. device: the card's name and power limit (nvidia-smi);
@@ -240,9 +240,55 @@ IResNet18), on seeded synthetic plates and char boxes:
      ranges of roi_align, the char Ds and the IResNet; their forward +
      backward timed alone at the step's shapes.
 
-The last line of stdout is {"ok": true, "device": {...}}; the line before it
-lists the kernels as JSON. Without a GPU, or without the port beside this
-file, it exits non-zero before printing a result.
+Path 10, the plate detector's trainer: `python -m
+image_restoration_tpu_torch.detect.train` (RetinaFace Resnet18 at 224²,
+batch 24, the cfg's batch and JAX's convergence recipe; SGD with momentum,
+weight decay and the ×0.1 steps; BatchNorm in train mode; the MultiBox
+matching and loss batched on the card), its `.pth` served by
+`PlateDetector` and `PlatePipeline`, `eval_detector` and
+`detector_convergence`:
+
+ 41. one mobilenet0.25 step at 64², bs 2, card vs CPU (TF32 off): matched
+     labels equal, loc and landmark targets ≤1e-6 of max|CPU|, losses
+     ≤1e-5 relative, BatchNorm statistics ≤1e-5 of
+     max(1, max|CPU|), parameters within JAX's DP bound of 5e-3;
+ 42. main path: counts set to 0, then the CLI on a label.txt tree of 48
+     seeded synthetic scenes for 3 epochs, resumed with --resume_epoch 3
+     for a fourth, its Resnet18_final.pth loaded strictly by
+     `PlateDetector(ckpt_path=…)`, a `PlatePipeline` on it serving one
+     photo, `eval_detector` on 4 photos; counts read (K1 exactly 78: two
+     GFPGAN forwards; K2 and K3 never);
+ 43. `detector_convergence` at its defaults (1500 iterations, decay at
+     70%, 16 held-out scenes made on the card): trained top-1 mean IoU ≥
+     0.90 and detection rate 1.0, the random-init scores beside them;
+ 44. s per step (median of steps 5-32, no synchronize between steps),
+     imgs/s, peak MiB, and a profiled step's device-busy share with the
+     net's forward and the matching + loss forward.
+
+Path 11, HiFaceGAN: `train_pipeline` on
+configs/options/train/HiFaceGAN/train_hifacegan.yml as written (HiFaceGAN
+num_feat 48 at 512², the multi-scale D, VGG19 perceptual, lsgan, ×10
+feature matching, batch 1) on 8 seeded 512² pairs, then both HiFaceGAN test
+configs:
+
+ 45. the tiny (num_feat 8, 64²) G and D losses and gradients card vs CPU
+     (TF32 off; losses ≤1e-5 relative, gradients ≤1e-4 of max|grad|, or,
+     where float32 itself holds them only to ≈4e-3 (the LIP encoder), the
+     card within PATH_F64_FACTOR times the CPU float32's distance from a
+     float64 CPU run);
+ 46. main path: counts set to 0, then 32 steps (a checkpoint and
+     validation at the end) and test.py with test_hifacegan.yml and
+     test_hifacegan_woGT.yml on net_g_32.pth; counts read (no kernel of
+     the port on this path);
+ 47. s per step (median of steps 5-32), imgs/s, peak MiB and a profiled
+     step's device-busy share.
+
+Each path's seconds are printed as it ends. The last line of stdout is
+{"ok": true, "device": {...}}; the line before it lists the kernels as
+JSON. The script puts its own directory first on sys.path and works from
+there (the configs' paths are relative to it), so it runs from any working
+directory; without a GPU, or without the port beside this file, it exits
+non-zero before printing a result.
 """
 
 from __future__ import annotations
@@ -253,6 +299,7 @@ import json
 import math
 import os
 import subprocess
+import sys
 import tempfile
 import threading
 import time
@@ -262,6 +309,10 @@ from unittest import mock
 
 import numpy as np
 import torch
+
+# the port lies beside this file: import it from any working directory
+HERE = os.path.dirname(os.path.abspath(__file__))
+sys.path.insert(0, HERE)
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM, NVIDIA data sheet
 FP32_OPS_PER_S = 67e12      # H100 SXM, CUDA cores, dense
@@ -3073,7 +3124,7 @@ def write_pairs(root, n, seed, size):
     for d in ("gt", "lq"):
         os.makedirs(os.path.join(root, d), exist_ok=True)
     for i in range(n):
-        gt = scene_image(size, size, seed + i)[..., ::-1]
+        gt = np.ascontiguousarray(scene_image(size, size, seed + i)[..., ::-1])
         cv2.imwrite(os.path.join(root, "gt", f"img_{i:03d}.png"), gt)
         cv2.imwrite(os.path.join(root, "lq", f"img_{i:03d}.png"), cv2.resize(
             gt, (size // 4, size // 4), interpolation=cv2.INTER_AREA))
@@ -4587,10 +4638,10 @@ def comp_timed_steps(model, pool, iters):
             torch.cuda.max_memory_allocated() / 2 ** 20)
 
 
-def comp_step_profile(model, batch, it, ranges):
-    """(wall ms, busy ms, device ms under each range) of one profiled
-    optimize_parameters; `ranges` maps a range name to (object, attribute)
-    wrapped in it for this run."""
+def comp_step_profile(step, ranges):
+    """(wall ms, busy ms, device ms under each range, kernel events) of one
+    profiled call of `step()` (a training step); `ranges` maps a range name
+    to (object, attribute) wrapped in it for this run."""
     from torch.profiler import ProfilerActivity, profile
     patches = [mock.patch.object(obj, attr, _ranged(name,
                                                     getattr(obj, attr)))
@@ -4601,14 +4652,15 @@ def comp_step_profile(model, batch, it, ranges):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
-            model.optimize_parameters(it, batch)
+            step()
             torch.cuda.synchronize()
             wall = (time.perf_counter() - t0) * 1e3
     finally:
         for p in patches:
             p.stop()
     kernels = [k for k in _kernel_events(prof)
-               if not k[2].startswith(("irt.", "Optimizer."))]
+               if not k[2].startswith(("irt.", "Optimizer."))
+               and k[2] not in ranges]
     busy = sum(k[0] for k in kernels)
     return wall, busy, {name: _range_ms(prof, name) for name in ranges}, \
         kernels
@@ -4640,7 +4692,7 @@ def phase_comp_throughput(comp_model, id_model):
         else:
             ranges = {"irt.iresnet_forward": (model.net_identity, "forward")}
         wall, busy, range_ms, kernels = comp_step_profile(
-            model, pools[name][0], 5, ranges)
+            lambda: model.optimize_parameters(5, pools[name][0]), ranges)
         rows[name] = dict(s_per_step=step, imgs_per_s=COMP_BS / step,
                           peak_mib=peak, steps_16_32_s=[times[15],
                                                         times[31]],
@@ -4709,16 +4761,500 @@ def phase_components(tmp):
         card_checks=checks, main_path=main_path, throughput=thr)
 
 
+# ------------------------------------- path 10: the detector trainer
+
+DET_BS = 24                  # the Resnet18 cfg's batch_size, JAX's recipe
+DET_TRAIN_IMAGES = 48        # two steps an epoch at bs 24
+DET_EPOCHS = 3               # then one more after --resume_epoch 3
+DET_EVAL_PHOTOS = 4
+DET_TIMED_STEPS = 32
+DET_PARAM_TOL = 5e-3         # JAX's DP bound (tests/test_detect.py:160)
+CONV_MIN_IOU = 0.90          # trained top-1 mean IoU; detection rate 1.0
+BGR_MEAN = (104.0, 117.0, 123.0)
+
+
+def write_label_tree(root, n, seed, size=DET_SIZE):
+    """n synthetic plate scenes (detect/synth.py, drawn on the CPU) as
+    JPEGs under root/images and the reference's label.txt: x y w h, five
+    landmarks as x y conf, the flag."""
+    import cv2
+    from image_restoration_tpu_torch.detect.synth import make_batch
+    imgs, targets = make_batch(torch.Generator().manual_seed(seed), n, size)
+    os.makedirs(f"{root}/images", exist_ok=True)
+    lines = []
+    for i in range(n):
+        cv2.imwrite(f"{root}/images/s{i}.jpg", np.clip(np.rint(
+            imgs[i].numpy()), 0, 255).astype(np.uint8))
+        t = targets[i, 0].numpy() * size
+        box = (t[0], t[1], t[2] - t[0], t[3] - t[1])
+        lines += [f"# s{i}.jpg", " ".join(f"{v:.2f}" for v in box) + " "
+                  + " ".join(f"{x:.2f} {y:.2f} 0.0"
+                             for x, y in t[4:14].reshape(5, 2)) + " 1"]
+    with open(f"{root}/label.txt", "w") as f:
+        f.write("\n".join(lines) + "\n")
+    return f"{root}/label.txt"
+
+
+def phase_det_card_vs_cpu():
+    """Phase 41: one DetectorTrainer step (mobilenet0.25, 64², bs 2, lr
+    1e-2) on the card and on the CPU from the same weights and batch, TF32
+    off: the matched labels equal and the loc and landmark targets within
+    1e-6 of max|CPU| (a log and divisions: an ulp apart), losses within
+    1e-5 relative, the
+    running statistics within 1e-5 of max(1, max|CPU|), the parameters
+    within JAX's DP bound of 5e-3."""
+    from image_restoration_tpu_torch.detect.multibox_loss import \
+        match_targets
+    from image_restoration_tpu_torch.detect.synth import make_batch
+    from image_restoration_tpu_torch.detect.train import DetectorTrainer
+    old = _tf32_off()
+    try:
+        kw = dict(backbone="mobilenet0.25", image_size=64, lr=1e-2)
+        cpu = DetectorTrainer(device="cpu", **kw)
+        card = DetectorTrainer(device="cuda", **kw)
+        card.net.load_state_dict(cpu.net.state_dict())
+        imgs, tgts = make_batch(torch.Generator().manual_seed(4100), 2, 64)
+        imgs = imgs - torch.tensor(BGR_MEAN)
+        want_t = match_targets(tgts, cpu.priors)
+        got_t = [t.cpu() for t in match_targets(tgts.cuda(), card.priors)]
+        require(torch.equal(got_t[1], want_t[1]), "matched labels card vs CPU")
+        target_rel = max(float((g - w).abs().max() / w.abs().max())
+                         for g, w in zip(got_t, want_t))
+        require(target_rel <= 1e-6, f"matched targets card vs CPU "
+                f"{target_rel}")
+        want = cpu.train_step(imgs, tgts)
+        got = card.train_step(imgs, tgts)
+        loss_rel = max(abs(float(got[k]) - float(v)) / abs(float(v))
+                       for k, v in want.items())
+        stats, params = 0.0, 0.0
+        for k, w in cpu.net.state_dict().items():
+            d = float((card.net.state_dict()[k].cpu().float()
+                       - w.float()).abs().max())
+            if "running" in k:
+                stats = max(stats, d / max(1.0, float(w.abs().max())))
+            elif not k.endswith("num_batches_tracked"):
+                params = max(params, d)
+    finally:
+        _tf32_restore(old)
+    log(f"detector step mobilenet0.25 64² bs 2, card vs CPU (TF32 off): "
+        f"losses {loss_rel:.3g} relative, BN statistics {stats:.3g} of "
+        f"max(1, |CPU|), parameters {params:.3g}; matched labels equal, "
+        f"loc and landmark targets {target_rel:.3g} of max|CPU|")
+    require(loss_rel <= LOSS_RTOL, f"detector losses {loss_rel}")
+    require(stats <= 1e-5, f"detector BN statistics {stats}")
+    require(params <= DET_PARAM_TOL, f"detector parameters {params}")
+    return dict(loss_rel=loss_rel, stats_rel=stats, params_abs=params,
+                target_rel=target_rel)
+
+
+def phase_det_main_path(root):
+    """Phase 42, main path: counts at 0; the CLI (`detect.train.main`) on
+    a label.txt tree of 48 synthetic scenes, Resnet18 at 224², bs 24, 3
+    epochs; again with --resume_net and --resume_epoch 3 for a fourth; its
+    Resnet18_final.pth loaded strictly by PlateDetector(ckpt_path=…) (the
+    trained weights and statistics, equal); a PlatePipeline on that
+    detector serves one photo (K1 39 per GFPGAN forward, two forwards);
+    `eval_detector` on a folder of 4 photos. Counts read: K1 exactly 78, K2
+    and K3 never."""
+    from image_restoration_tpu_torch.detect import train as det_train
+    from image_restoration_tpu_torch.detect.engine import PlateDetector
+    from image_restoration_tpu_torch.scripts import eval_detector
+    from image_restoration_tpu_torch.serve.pipeline import PlatePipeline
+    import cv2
+    label = write_label_tree(f"{root}/train", DET_TRAIN_IMAGES, 4200)
+    os.makedirs(f"{root}/photos", exist_ok=True)
+    for i in range(DET_EVAL_PHOTOS):
+        cv2.imwrite(f"{root}/photos/car{i}.jpg", car_photo(4300 + i))
+    steps_per_epoch = DET_TRAIN_IMAGES // DET_BS
+    common = ["--training_dataset", label, "--network", "resnet18",
+              "--image_size", str(DET_SIZE), "--batch_size", str(DET_BS)]
+    kernels = _counts_zero()
+    t0 = time.perf_counter()
+    tr1 = det_train.main(common + ["--epochs", str(DET_EPOCHS),
+                                   "--save_folder", f"{root}/w1"])
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    require(tr1.step == DET_EPOCHS * steps_per_epoch,
+            f"CLI trained {tr1.step} steps")
+    ckpt1 = f"{root}/w1/Resnet18_final.pth"
+    tr2 = det_train.main(common + [
+        "--epochs", str(DET_EPOCHS + 1), "--resume_epoch", str(DET_EPOCHS),
+        "--resume_net", ckpt1, "--save_folder", f"{root}/w2"])
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    require(tr2.step == (DET_EPOCHS + 1) * steps_per_epoch,
+            f"resumed CLI ended at step {tr2.step}")
+    ckpt = f"{root}/w2/Resnet18_final.pth"
+    det = PlateDetector(backbone="Resnet18", ckpt_path=ckpt, device="cuda")
+    trained = tr2.net.state_dict()
+    for k, v in det.net.state_dict().items():
+        require(torch.equal(v, trained[k]), f"detector .pth: {k} differs")
+    pipe = PlatePipeline(detector=det, device="cuda", seed=0)
+    for r in (pipe.plate_restorer, pipe.car_restorer):
+        randomize_weights(r.net, seed=1)
+    res = pipe.process(car_photo(4400))
+    torch.cuda.synchronize()
+    t = PIPE_TARGET
+    require(res["montage"].shape == (t, 6 * t, 3)
+            and res["montage"].dtype == np.uint8, "pipeline montage")
+    k1_pipe = kernels[0].launches
+    written = eval_detector.main([
+        "-m", ckpt, "--network", "Resnet18",
+        "--dataset_folder", f"{root}/photos", "--save_folder",
+        f"{root}/txt", "--save_image", "--results_folder", f"{root}/vis"])
+    torch.cuda.synchronize()
+    counts = [k.launches for k in kernels]
+    require(len(written) == DET_EVAL_PHOTOS and all(
+        os.path.exists(f"{root}/txt/car{i}.txt")
+        for i in range(DET_EVAL_PHOTOS)), "eval_detector's txt files")
+    n_dets = [int(open(f"{root}/txt/car{i}.txt").read().split()[1])
+              for i in range(DET_EVAL_PHOTOS)]
+    log(f"detector CLI: {tr1.step} steps in {t1 - t0:.2f} s, resumed to "
+        f"step {tr2.step} in {t2 - t1:.2f} s (wall: data, build and save "
+        f"included), last losses " + ", ".join(
+            f"{k}={float(v):.4g}" for k, v in tr2.last_losses.items()) +
+        f"; .pth loaded strictly; pipeline detected={res['detected']}, "
+        f"K1 {k1_pipe}; eval_detector wrote {len(written)} txt files "
+        f"({n_dets} detections); K1/K2/K3 launches {counts}")
+    require(counts == [2 * K1_LAUNCHES_PER_FORWARD, 0, 0],
+            f"detector path: K1/K2/K3 launches {counts}")
+    return counts[0], dict(cli_s=t1 - t0, resume_s=t2 - t1,
+                           steps=tr2.step, detected=bool(res["detected"]),
+                           eval_detections=n_dets)
+
+
+def phase_det_convergence():
+    """Phase 43: `detector_convergence` at its defaults (Resnet18, 224²,
+    bs 24, 1500 iterations, ×0.1 at 70%, 16 held-out scenes), batches
+    drawn on the card; the trained top-1 mean IoU at least 0.90 and the
+    detection rate 1.0; no port kernel launched."""
+    from image_restoration_tpu_torch.scripts.detector_convergence import run
+    kernels = _counts_zero()
+    t0 = time.perf_counter()
+    rep = run()
+    wall = time.perf_counter() - t0
+    counts = [k.launches for k in kernels]
+    base, final = rep["eval_random_init"], rep["eval_trained"]
+    log(f"detector convergence ({rep['iters']} iters, bs {rep['bs']}, "
+        f"{rep['image_size']}²) in {wall:.1f} s: random init {base}, "
+        f"trained {final}, loss {rep['loss_first10'][0]:.4g} → "
+        f"{rep['loss_final']:.4g}, "
+        f"{rep['s_per_step_after_first_chunk'] * 1e3:.2f} ms/step after "
+        f"the first chunk; K1/K2/K3 launches {counts}")
+    require(counts == [0, 0, 0], f"convergence: kernels {counts}")
+    require(final["mean_iou"] >= CONV_MIN_IOU and final["det_rate"] == 1.0,
+            f"the detector did not learn: {final}")
+    return dict(rep, wall_s=wall)
+
+
+def phase_det_speed():
+    """Phase 44: s per Resnet18 step at 224², bs 24 (median of steps 5-32
+    of a loop with no synchronize between steps, CUDA events after each;
+    two pre-drawn device batches), imgs/s, peak MiB; a profiled step's
+    device-busy share and the device time under the net's forward and
+    under the matching + loss forward (`multibox_loss`)."""
+    from image_restoration_tpu_torch.detect import train as det_train
+    from image_restoration_tpu_torch.detect.synth import make_batch
+    tr = det_train.DetectorTrainer(backbone="Resnet18", image_size=DET_SIZE,
+                                   device="cuda")
+    gen = torch.Generator("cuda").manual_seed(4500)
+    mean = torch.tensor(BGR_MEAN, device="cuda")
+    pool = []
+    for _ in range(2):
+        imgs, tgts = make_batch(gen, DET_BS, DET_SIZE)
+        pool.append((imgs - mean, tgts))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    events = [torch.cuda.Event(enable_timing=True)
+              for _ in range(DET_TIMED_STEPS + 1)]
+    events[0].record()
+    for it in range(1, DET_TIMED_STEPS + 1):
+        tr.train_step(*pool[it % 2])
+        events[it].record()
+    torch.cuda.synchronize()
+    times = [a.elapsed_time(b) / 1e3 for a, b in zip(events, events[1:])]
+    peak = torch.cuda.max_memory_allocated() / 2 ** 20
+    step = float(np.median(times[4:]))
+    ranges = {"det.net": (tr.net, "forward"),
+              "det.multibox": (det_train, "multibox_loss")}
+    wall, busy, under, _ = comp_step_profile(
+        lambda: tr.train_step(*pool[0]), ranges)
+    row = dict(s_per_step=step, imgs_per_s=DET_BS / step, peak_mib=peak,
+               profiled_step_ms=wall, busy_ms=busy, busy_share=busy / wall,
+               busy_of_median_step=busy / (step * 1e3),
+               net_fwd_ms=under["det.net"],
+               multibox_fwd_ms=under["det.multibox"],
+               multibox_share=under["det.multibox"] / max(busy, 1e-9))
+    log(f"detector step Resnet18 224² bs {DET_BS}: {step * 1e3:.2f} ms/step "
+        f"(median of steps 5-{DET_TIMED_STEPS}), {DET_BS / step:.1f} imgs/s, "
+        f"peak {peak:.0f} MiB; a profiled step: wall {wall:.2f} ms, device "
+        f"busy {busy:.2f} ms ({100 * busy / wall:.1f}% of that wall, "
+        f"{100 * busy / (step * 1e3):.1f}% of the median step), net forward "
+        f"{under['det.net']:.2f} ms, matching + loss forward "
+        f"{under['det.multibox']:.2f} ms ({100 * row['multibox_share']:.1f}% "
+        "of busy)")
+    return row
+
+
+def phase_detector_train(tmp):
+    """Path 10: phases 41-44."""
+    tiny = phase_det_card_vs_cpu()
+    k1, main_path = phase_det_main_path(tmp)
+    conv = phase_det_convergence()
+    speed = phase_det_speed()
+    torch.cuda.empty_cache()
+    return k1, dict(card_vs_cpu=tiny, main_path=main_path,
+                    convergence=conv, speed=speed)
+
+
+# ------------------------------------- path 11: HiFaceGAN
+
+HIFACE_TRAIN = "configs/options/train/HiFaceGAN/train_hifacegan.yml"
+HIFACE_TEST = "configs/options/test/HiFaceGAN/test_hifacegan.yml"
+HIFACE_TEST_WOGT = "configs/options/test/HiFaceGAN/test_hifacegan_woGT.yml"
+HIFACE_ITERS = 32
+HIFACE_PAIRS = 8
+HIFACE_SIZE = 512            # the config's gt_size; batch 1
+
+
+def write_face_pairs(root, n, seed, size=HIFACE_SIZE):
+    """n seeded size² GT scenes under root/gt and their ×4 round trip
+    (area down, cubic up: the config's sr4x LQ) under root/lq."""
+    import cv2
+    for sub in ("gt", "lq"):
+        os.makedirs(f"{root}/{sub}", exist_ok=True)
+    for i in range(n):
+        gt = np.ascontiguousarray(scene_image(size, size, seed + i)[..., ::-1])
+        lq = cv2.resize(cv2.resize(gt, (size // 4, size // 4),
+                                   interpolation=cv2.INTER_AREA),
+                        (size, size), interpolation=cv2.INTER_CUBIC)
+        cv2.imwrite(f"{root}/gt/face_{i:02d}.png", gt)
+        cv2.imwrite(f"{root}/lq/face_{i:02d}.png", lq)
+
+
+def hiface_tiny_opt(root):
+    """HiFaceGANModel at num_feat 8 (D 8) on 64² with two VGG taps, lsgan
+    and feature matching: the pieces compared card vs CPU."""
+    return {"is_train": True, "manual_seed": 0, "scale": 1,
+            "model_type": "HiFaceGANModel", "path": {"models": root},
+            "network_g": {"type": "HiFaceGAN", "num_feat": 8,
+                          "is_train": False},
+            "network_d": {"type": "HiFaceGANDiscriminator", "num_feat": 8},
+            "train": {"optim_g": {"type": "Adam", "lr": 2e-4},
+                      "optim_d": {"type": "Adam", "lr": 2e-4},
+                      "perceptual_opt": {
+                          "type": "PerceptualLoss",
+                          "layer_weights": {"relu1_1": 0.5, "relu2_1": 1.0},
+                          "use_input_norm": False,
+                          "perceptual_weight": 10.0},
+                      "gan_opt": {"type": "MultiScaleGANLoss",
+                                  "gan_type": "lsgan"},
+                      "feature_matching_opt": {"type": "GANFeatLoss",
+                                               "loss_weight": 10.0}}}
+
+
+def _hiface_pieces(model, lq, gt):
+    """({loss: value}, {G parameter: grad}, {D parameter: grad}) of the G
+    losses (D taking no gradient) and then the D losses at the detached
+    output."""
+    model.net_d.requires_grad_(False)
+    total, losses, out, _ = model.g_losses(lq, gt)
+    total.backward()
+    model.net_d.requires_grad_(True)
+    l_d, parts = model._gan_d_losses(out.detach(), gt)
+    l_d.backward()
+    losses = {k: float(v.detach()) for k, v in
+              dict(losses, l_d=l_d, **parts).items()}
+    grads = [{k: p.grad.detach().double().cpu()
+              for k, p in net.named_parameters() if p.grad is not None}
+             for net in (model.net_g, model.net_d)]
+    return losses, *grads
+
+
+def phase_hiface_card_vs_cpu(root):
+    """Phase 45: the tiny HiFaceGAN's G losses (perceptual, multi-scale
+    lsgan, feature matching) and D losses with G's and D's gradients, on
+    the card and on the CPU in float32 from the same weights and batch,
+    and on the CPU in float64, TF32 off: losses within 1e-5 relative of
+    the CPU (D's mean logits 1e-5 absolute); gradients within 1e-4 of
+    max|grad| of the CPU, or, where float32 itself cannot hold them (the
+    LIP encoder's exp(12·sigmoid) weights and instance norms down to 2²
+    put the CPU's own float32 gradients ≈4e-3 of max|grad| from float64),
+    the card's gradients within PATH_F64_FACTOR times the CPU float32's
+    distance from float64, plus 1e-4, as phase 35 holds the path term."""
+    from image_restoration_tpu_torch.models import build_model
+    old = _tf32_off()
+    try:
+        opt = hiface_tiny_opt(root)
+        g = torch.Generator().manual_seed(4600)
+        lq, gt = (torch.rand((2, 64, 64, 3), generator=g) for _ in range(2))
+        models = {}
+        for side, dev in (("cpu", "cpu"), ("card", "cuda"), ("f64", "cpu")):
+            m = build_model(opt, device=dev)
+            if side != "cpu":
+                for name in ("net_g", "net_d"):
+                    getattr(m, name).load_state_dict(
+                        getattr(models["cpu"], name).state_dict())
+            if side == "f64":
+                for net in (m.net_g, m.net_d, m.cri_perceptual.vgg):
+                    net.double()
+            models[side] = m
+        dt = {"cpu": torch.float32, "card": torch.float32,
+              "f64": torch.float64}
+        pieces = {side: _hiface_pieces(m, lq.to(m.device, dt[side]),
+                                       gt.to(m.device, dt[side]))
+                  for side, m in models.items()}
+    finally:
+        _tf32_restore(old)
+    want, got = pieces["cpu"][0], pieces["card"][0]
+    loss_err = max(abs(got[k] - v) / (1.0 if k.endswith("_score")
+                                      else abs(v))
+                   for k, v in want.items())
+
+    def grad_err(a, b):
+        scale = max(float(v.abs().max()) for v in b.values())
+        return max(float((a[k] - v).abs().max()) for k, v in b.items()) \
+            / scale
+
+    rows = {}
+    for i, name in ((1, "net_g"), (2, "net_d")):
+        rows[name] = dict(
+            card_vs_cpu=grad_err(pieces["card"][i], pieces["cpu"][i]),
+            card_vs_f64=grad_err(pieces["card"][i], pieces["f64"][i]),
+            cpu_vs_f64=grad_err(pieces["cpu"][i], pieces["f64"][i]))
+    log(f"HiFaceGAN tiny pieces card vs CPU (TF32 off): losses "
+        f"{sorted(want)} within {loss_err:.3g}; gradients of max|grad| "
+        "(card vs CPU, card vs float64, CPU float32 vs float64): " + "; ".join(
+            f"{n} " + "/".join(f"{v:.3g}" for v in r.values())
+            for n, r in rows.items()))
+    require(loss_err <= LOSS_RTOL, f"HiFaceGAN losses {loss_err}")
+    for name, r in rows.items():
+        require(r["card_vs_cpu"] <= GRAD_TOL or r["card_vs_f64"] <=
+                PATH_F64_FACTOR * r["cpu_vs_f64"] + GRAD_TOL,
+                f"HiFaceGAN {name} gradients {r}")
+    return dict(loss_err=loss_err, grad_err=rows)
+
+
+def phase_hiface_main_path(root):
+    """Phase 46, main path: counts at 0; `train_pipeline` on
+    train_hifacegan.yml as written (HiFaceGAN num_feat 48 at 512², the
+    multi-scale D at 64, VGG19 perceptual to relu5_1, lsgan, ×10 feature
+    matching, Adam, bs 1) with its train and val roots pointed at 8 seeded
+    512² pairs, cut to 32 steps (a checkpoint and validation at the end);
+    then test.py with test_hifacegan.yml and test_hifacegan_woGT.yml on
+    the run's net_g_32.pth. Counts read: no port kernel on this path."""
+    from image_restoration_tpu_torch.test import test_pipeline
+    from image_restoration_tpu_torch.train import train_pipeline
+    write_face_pairs(f"{root}/pairs", HIFACE_PAIRS, 4700)
+    data = f"{root}/pairs"
+    kernels = _counts_zero()
+    t0 = time.perf_counter()
+    model = train_pipeline(root, argv=[
+        "-opt", HIFACE_TRAIN, "--force_yml",
+        f"datasets:train:dataroot_gt={data}/gt",
+        f"datasets:train:dataroot_lq={data}/lq",
+        f"datasets:val:dataroot_gt={data}/gt",
+        f"datasets:val:dataroot_lq={data}/lq",
+        f"train:total_iter={HIFACE_ITERS}", "logger:print_freq=8"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    logs = model.log_dict
+    require(model.iter == HIFACE_ITERS and model.cri_feat is not None
+            and {"l_g_percep", "l_g_gan", "l_d"} <= set(logs)
+            and all(math.isfinite(v) for v in logs.values()),
+            f"HiFaceGAN training: iter {model.iter}, losses {logs}")
+    ckpt = os.path.join(model.opt["path"]["models"],
+                        f"net_g_{HIFACE_ITERS}.pth")
+    t1 = time.perf_counter()
+    with_gt = test_pipeline(root, argv=[
+        "-opt", HIFACE_TEST, "--force_yml",
+        f"datasets:test_gt:dataroot_gt={data}/gt",
+        f"datasets:test_gt:dataroot_lq={data}/lq",
+        f"path:pretrain_network_g={ckpt}"])
+    wild = test_pipeline(root, argv=[
+        "-opt", HIFACE_TEST_WOGT, "--force_yml",
+        f"datasets:test_wild:dataroot_lq={data}/lq",
+        f"path:pretrain_network_g={ckpt}"])
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    counts = [k.launches for k in kernels]
+    m = with_gt.get("FFHQ_sr4x_val", {})
+    vis = [len(os.listdir(f"{root}/results/{n}/visualization"))
+           for n in ("HiFaceGAN_SR4x_test", "HiFaceGAN_generic_test")]
+    log(f"HiFaceGAN train_pipeline: {model.iter} iterations in {wall:.2f} s "
+        "(wall: build, validation and saves included), last losses "
+        + ", ".join(f"{k}={v:.4g}" for k, v in logs.items())
+        + f"; test.py (2 configs) in {t2 - t1:.2f} s: {with_gt}, {wild}, "
+        f"{vis} images written; K1/K2/K3 launches {counts}; random weights, "
+        "random VGG taps and synthetic data: not a quality number")
+    require(counts == [0, 0, 0], f"HiFaceGAN path: kernels {counts}")
+    require(math.isfinite(m.get("psnr", float("nan")))
+            and -1 <= m.get("ssim", 2) <= 1, f"test.py metrics {with_gt}")
+    require(vis == [HIFACE_PAIRS, HIFACE_PAIRS], f"test.py images {vis}")
+    return model, dict(train_wall_s=wall, last_losses=logs,
+                       test_wall_s=t2 - t1, test_metrics=with_gt,
+                       test_wild=wild)
+
+
+def phase_hiface_speed(model, root):
+    """Phase 47: s per step at the config's full width (median of steps
+    5-32 of a loop with no synchronize between steps, on two 512² pairs
+    from disk), imgs/s, peak MiB, and a profiled step's device-busy
+    share."""
+    import cv2
+    data = f"{root}/pairs"
+    batches = []
+    for i in range(2):
+        rd = [cv2.imread(f"{data}/{s}/face_{i:02d}.png")[..., ::-1]
+              for s in ("lq", "gt")]
+        batches.append({k: (v[None].astype(np.float32) / 255.0).copy()
+                        for k, v in zip(("lq", "gt"), rd)})
+    times, peak = comp_timed_steps(model, batches, HIFACE_ITERS)
+    step = float(np.median(times[4:]))
+    wall, busy, _, kernels = comp_step_profile(
+        lambda: model.optimize_parameters(model.iter + 1, batches[0]), {})
+    top = [(round(k[0], 3), k[2][:60]) for k in kernels[:5]]
+    row = dict(s_per_step=step, imgs_per_s=1 / step, peak_mib=peak,
+               profiled_step_ms=wall, busy_ms=busy, busy_share=busy / wall,
+               busy_of_median_step=busy / (step * 1e3), top_kernels=top)
+    log(f"HiFaceGAN step at 512², bs 1: {step * 1e3:.2f} ms/step (median of "
+        f"steps 5-{HIFACE_ITERS}), {1 / step:.2f} imgs/s, peak {peak:.0f} "
+        f"MiB; a profiled step: wall {wall:.2f} ms, device busy {busy:.2f} "
+        f"ms ({100 * busy / wall:.1f}% of that wall, "
+        f"{100 * busy / (step * 1e3):.1f}% of the median step); top kernels "
+        f"{top}")
+    return row
+
+
+def phase_hifacegan(tmp):
+    """Path 11: phases 45-47."""
+    tiny = phase_hiface_card_vs_cpu(tmp)
+    model, main_path = phase_hiface_main_path(tmp)
+    speed = phase_hiface_speed(model, tmp)
+    del model
+    torch.cuda.empty_cache()
+    return dict(card_vs_cpu=tiny, main_path=main_path, speed=speed)
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", default=None,
                     help="also write the full report to this JSON file")
     args = ap.parse_args(argv)
+    out = os.path.abspath(args.out) if args.out else None
+    # the configs' paths (configs/...) are relative to the repo root
+    os.chdir(HERE)
 
     require(torch.cuda.is_available(), "no CUDA device")
     from image_restoration_tpu_torch.infer import PRODUCTION_GFPGAN, Restorer
 
     t_start = time.perf_counter()
+    path_s = {}
+
+    def lap(name):
+        path_s[name] = time.perf_counter() - t_start - sum(path_s.values())
+        log(f"{name}: {path_s[name]:.1f} s")
+
     smi = phase_device()
     build = phase_build()
 
@@ -4736,6 +5272,7 @@ def main(argv=None):
     lsb, dfloat, cpu_lsb = phase_correctness(restorer, batches[4], batches[1])
     thr, peak = phase_throughput(restorer, batches)
     prof = phase_profile(restorer, batches[16])
+    lap("device, build and path 1")
 
     k2_rows, k2_call = phase_k2_kernels()
     engine = build_sr(int8=True)
@@ -4746,6 +5283,7 @@ def main(argv=None):
     sr_meta = engine.meta
     del engine
     torch.cuda.empty_cache()
+    lap("path 2")
 
     k3_rows, k3_pass, k3_err, probe, k3_launches = phase_k3_kernels()
     deq_rows, deq_fwd = phase_k2_deq()
@@ -4754,12 +5292,14 @@ def main(argv=None):
     rrdb_check = phase_rrdb_int8_check(net23, q23)
     del net23, q23
     torch.cuda.empty_cache()
+    lap("path 3")
 
     detector = phase_detector()
     pipe = build_pipeline()
     pipe_launches, pipe_forwards = phase_pipeline_main_path(pipe)
     pipe_check = phase_pipeline_correctness(pipe)
     pipe_thr = phase_pipeline_throughput(pipe)
+    lap("path 4")
 
     with tempfile.TemporaryDirectory(prefix="irt_engines_") as tmp:
         exported = phase_export(restorer, pipe, tmp)
@@ -4771,18 +5311,31 @@ def main(argv=None):
     exports = {k: v[1] for k, v in exported.items()}
     del restorer, exported
     torch.cuda.empty_cache()
+    lap("path 5")
 
     with tempfile.TemporaryDirectory(prefix="irt_train_") as tmp:
         train_k1, train = phase_train(tmp)
+    lap("path 6")
 
     with tempfile.TemporaryDirectory(prefix="irt_sr_train_") as tmp:
         qat_k2, sr_trainers = phase_sr_train(tmp)
+    lap("path 7")
 
     with tempfile.TemporaryDirectory(prefix="irt_stylegan2_") as tmp:
         sg2_k1, stylegan2 = phase_stylegan2(tmp)
+    lap("path 8")
 
     with tempfile.TemporaryDirectory(prefix="irt_components_") as tmp:
         comp_k1, components = phase_components(tmp)
+    lap("path 9")
+
+    with tempfile.TemporaryDirectory(prefix="irt_detector_") as tmp:
+        det_k1, detector_train = phase_detector_train(tmp)
+    lap("path 10")
+
+    with tempfile.TemporaryDirectory(prefix="irt_hifacegan_") as tmp:
+        hifacegan = phase_hifacegan(tmp)
+    lap("path 11")
 
     a = agg[("float32", 16)]
     kernels = [{
@@ -4791,7 +5344,7 @@ def main(argv=None):
         "source": "image_restoration_tpu_torch/csrc/fused_bias_act.cu",
         "replaces": "image_restoration_tpu/ops/pallas/fused_act_kernel.py:43",
         "launches": (launches + pipe_launches + art_k1 + train_k1 + sg2_k1
-                     + comp_k1),
+                     + comp_k1 + det_k1),
         "max_abs_err": worst,
         "ms": a["ms"],
         "plain_ms": a["plain_ms"],
@@ -4846,7 +5399,8 @@ def main(argv=None):
         artifact_main_path_launches=dict(k1=art_k1, k2=art_k2),
         artifact_correctness=art_check, dyn_int8=dyn, train=train,
         sr_train=sr_trainers, stylegan2=stylegan2, components=components,
-        seconds=time.perf_counter() - t_start,
+        detector_train=detector_train, hifacegan=hifacegan,
+        path_seconds=path_s, seconds=time.perf_counter() - t_start,
         note="kernels[].ms/plain_ms/bound_ms: device time (calls back to "
              "back, CUDA events) and bound, summed over the 39 K1 launches "
              "of one batch-16 f32 forward, over the 34 K2 launches of "
@@ -4857,13 +5411,13 @@ def main(argv=None):
              " has the same yardstick for the RRDB half); K3's is cuDNN's "
              "bf16 conv; "
              "K3's launches are those of probe_conv.main(); K1's launches "
-             "are those of the main-path phases of paths 1, 4, 5, 6, 8 and 9 "
-             "(4, 17, 21, 26, 36, 39), "
+             "are those of the main-path phases of paths 1, 4, 5, 6, 8, 9 "
+             "and 10 (4, 17, 21, 26, 36, 39, 42), "
              "K2's those of paths 2, 5 and 7 (8, 21, 31: the "
              "engine built from the QAT checkpoint)")
-    if args.out:
-        os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
-        with open(args.out, "w") as f:
+    if out:
+        os.makedirs(os.path.dirname(out), exist_ok=True)
+        with open(out, "w") as f:
             json.dump(report, f, indent=1)
     log(f"total {report['seconds']:.1f} s")
     log(smi)

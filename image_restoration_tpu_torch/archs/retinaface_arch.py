@@ -4,7 +4,8 @@ Port of `image_restoration_tpu/archs/retinaface_arch.py`: a ResNet-18/50,
 MobileNetV1-0.25 or MobileNetV3 trunk with three taps at strides 8/16/32,
 FPN, three SSH blocks, and per-level 1×1 Bbox/Class/Landmark heads with 2
 anchors; softmax over the classes in the test phase. BatchNorm runs in its
-eval form (running statistics, eps 1e-5).
+eval form (running statistics, eps 1e-5) in eval mode, and as flax's
+training BatchNorm in train mode (`BN`), which the detector trainer uses.
 
 Parameters keep the reference checkpoint's names (Plate_Detect/
 Retina-License-Plate/models/{retinaface.py,net.py}), which is what
@@ -55,16 +56,31 @@ class Conv(nn.Conv2d):
 
 
 class BN(nn.BatchNorm2d):
-    """BatchNorm2d in its eval form: running statistics, eps 1e-5."""
+    """BatchNorm2d over NCHW, eps 1e-5, as flax's `nn.BatchNorm(momentum=
+    0.9)`.
+
+    In eval mode it normalizes with the running statistics. In train mode
+    it normalizes with the batch's mean and biased variance (one fused
+    `F.batch_norm` without running buffers, forward and backward) and moves
+    the running statistics itself, running ← 0.9·running + 0.1·batch with
+    the biased variance again: `F.batch_norm` would move them with the
+    unbiased variance."""
 
     def reset_parameters(self, generator=None):
         super().reset_parameters()
 
     def forward(self, x):
         dt = x.dtype
-        return F.batch_norm(x, self.running_mean.to(dt),
-                            self.running_var.to(dt), self.weight.to(dt),
-                            self.bias.to(dt), False, 0.0, self.eps)
+        if not self.training:
+            return F.batch_norm(x, self.running_mean.to(dt),
+                                self.running_var.to(dt), self.weight.to(dt),
+                                self.bias.to(dt), False, 0.0, self.eps)
+        with torch.no_grad():
+            var, mean = torch.var_mean(x, dim=(0, 2, 3), unbiased=False)
+            self.running_mean.lerp_(mean.float(), 0.1)
+            self.running_var.lerp_(var.float(), 0.1)
+        return F.batch_norm(x, None, None, self.weight.to(dt),
+                            self.bias.to(dt), True, 0.0, self.eps)
 
 
 def _lrelu(x, slope):

@@ -1,12 +1,17 @@
 from .from_jax import (discriminator_state_dict_from_jax,
+                       hifacegan_state_dict_from_jax,
                        iresnet_state_dict_from_jax, qat_checkpoint_from_jax,
                        retinaface_state_dict_from_jax,
                        stacked_state_dict_from_jax, state_dict_from_jax,
                        vgg_state_dict_from_jax)
+from .hifacegan_import import fold_spectral_norm, load_hifacegan
 from .iresnet_import import import_iresnet
 from .pth import load_pth
+from .resnet_import import load_torchvision_resnet
 
-__all__ = ["discriminator_state_dict_from_jax", "import_iresnet",
+__all__ = ["discriminator_state_dict_from_jax", "fold_spectral_norm",
+           "hifacegan_state_dict_from_jax", "import_iresnet",
+           "load_hifacegan", "load_torchvision_resnet",
            "iresnet_state_dict_from_jax", "qat_checkpoint_from_jax",
            "retinaface_state_dict_from_jax", "stacked_state_dict_from_jax",
            "state_dict_from_jax", "vgg_state_dict_from_jax", "load_pth"]

@@ -31,7 +31,11 @@ the part of the port's checkpoint that the SR engine reads
 as one `FacialComponentDiscriminator` tree with a leading axis of 10
 (`params_dc`), become the port's grouped module
 (`stacked_state_dict_from_jax`), and IResNet's FoldedBN scale/shift pairs
-become frozen BatchNorms (`iresnet_state_dict_from_jax`).
+become frozen BatchNorms (`iresnet_state_dict_from_jax`). The HiFaceGAN
+nets take the general rules, with an affine InstanceNorm's `weight` as
+flax's `scale`; BasicSR's `fc` and the other phases' `to_rgbs` and `ups`,
+which flax does not build, keep the port net's values
+(`hifacegan_state_dict_from_jax`).
 
 Strict both ways: every port key must resolve and every flax leaf be used.
 """
@@ -408,4 +412,34 @@ def iresnet_state_dict_from_jax(net: torch.nn.Module, flax_params: Dict,
     unused = sorted("/".join(p) for p in set(leaves) - used)
     if unused:
         raise KeyError(f"{len(unused)} flax leaves unused: {unused[:10]}")
+    return out
+
+
+def hifacegan_state_dict_from_jax(net: torch.nn.Module,
+                                  flax_params: Dict) -> OrderedDict:
+    """The `state_dict` of a port HiFaceGAN, SPADEGenerator or
+    HiFaceGANDiscriminator holding JAX's `flax_params`. Keys flax does not
+    build (a HiFaceGAN's `fc`; the `to_rgbs` heads, and under
+    `is_train`/`init_train_phase` the `ups` blocks, that the phase does not
+    run) keep the net's own tensors; every other key must resolve and
+    every flax leaf be used."""
+    leaves = _leaves(flax_params)
+    used = set()
+    out = OrderedDict()
+    for key, ref in net.state_dict().items():
+        tokens = re.sub(r"(logit\.1)\.weight$", r"\1.scale", key).split(".")
+        path = _resolve(flax_params, tokens)
+        if path is None or path not in leaves:
+            if re.match(r"^(fc|to_rgbs\.\d|ups\.\d)\.", key):
+                out[key] = ref.detach().clone()
+                continue
+            raise KeyError(f"port key {key!r} has no flax counterpart")
+        if path in used:
+            raise KeyError(f"flax leaf {'/'.join(path)} matched twice")
+        used.add(path)
+        out[key] = torch.from_numpy(
+            _fit(key, leaves[path], tuple(ref.shape), None).astype(np.float32))
+    unused = sorted("/".join(p) for p in set(leaves) - used)
+    if unused:
+        raise KeyError(f"{len(unused)} flax params unused: {unused[:10]}")
     return out

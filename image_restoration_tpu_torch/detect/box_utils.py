@@ -1,17 +1,23 @@
-"""Box and landmark decoding, IoU and NMS — the inference half of
-`image_restoration_tpu/detect/box_utils.py`.
+"""Box and landmark coding, IoU, matching and NMS.
 
-`intersect`/`jaccard` (:26-41), `decode`/`decode_landm` (:61-74) and `nms`,
-the twin of `nms_jax` (:108-128), take any leading batch dims, so one call
-covers a whole detector batch on the device. `py_cpu_nms` (:131-149) is the
-host NMS of the eval scripts, copied. The training half (`point_form`,
-`encode`, `encode_landm`, `match`) comes with the detector trainer.
+Port of `image_restoration_tpu/detect/box_utils.py`. `point_form`,
+`intersect`/`jaccard` (:20-41), `encode`/`encode_landm` (:44-58),
+`decode`/`decode_landm` (:61-74), `match` (:77-106) and `nms`, the twin of
+`nms_jax` (:108-128), take any leading batch dims, so one call covers a
+whole detector batch on the device. `py_cpu_nms` (:131-149) is the host NMS
+of the eval scripts, copied.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+
+def point_form(boxes: torch.Tensor) -> torch.Tensor:
+    """(cx, cy, w, h) → (x1, y1, x2, y2)."""
+    return torch.cat([boxes[..., :2] - boxes[..., 2:] / 2,
+                      boxes[..., :2] + boxes[..., 2:] / 2], -1)
 
 
 def intersect(box_a: torch.Tensor, box_b: torch.Tensor) -> torch.Tensor:
@@ -33,6 +39,26 @@ def jaccard(box_a: torch.Tensor, box_b: torch.Tensor) -> torch.Tensor:
     return inter / (area_a + area_b - inter)
 
 
+def encode(matched: torch.Tensor, priors: torch.Tensor,
+           variances) -> torch.Tensor:
+    """(..., P, 4) corner boxes matched per prior → loc targets
+    (ref box_utils.py:156-183)."""
+    g_cxcy = (matched[..., :2] + matched[..., 2:]) / 2 - priors[..., :2]
+    g_cxcy = g_cxcy / (variances[0] * priors[..., 2:])
+    g_wh = (matched[..., 2:] - matched[..., :2]) / priors[..., 2:]
+    g_wh = torch.log(torch.clamp(g_wh, min=1e-8)) / variances[1]
+    return torch.cat([g_cxcy, g_wh], -1)
+
+
+def encode_landm(matched: torch.Tensor, priors: torch.Tensor,
+                 variances) -> torch.Tensor:
+    """(..., P, 10) landmark targets (ref :186-206)."""
+    matched = matched.reshape(*matched.shape[:-1], 5, 2)
+    g_cxcy = matched - priors[..., None, :2]
+    g_cxcy = g_cxcy / (variances[0] * priors[..., None, 2:])
+    return g_cxcy.reshape(*g_cxcy.shape[:-2], 10)
+
+
 def decode(loc: torch.Tensor, priors: torch.Tensor, variances) -> torch.Tensor:
     """(..., P, 4) loc predictions → corner boxes (ref box_utils.py:209-230)."""
     boxes = torch.cat([
@@ -48,6 +74,56 @@ def decode_landm(pre: torch.Tensor, priors: torch.Tensor,
     pre = pre.reshape(*pre.shape[:-1], 5, 2)
     landms = priors[..., None, :2] + pre * variances[0] * priors[..., None, 2:]
     return landms.reshape(*landms.shape[:-2], 10)
+
+
+def match(truths: torch.Tensor, labels: torch.Tensor, landms: torch.Tensor,
+          priors: torch.Tensor, variances, threshold: float):
+    """SSD matching (ref box_utils.py:96-153), batched.
+
+    truths (..., M, 4) corner ground truths, labels (..., M) (rows with
+    label ≤ 0 are padding), landms (..., M, 10), priors (P, 4). Returns
+    (loc_t (..., P, 4), conf (..., P), landm_t (..., P, 10)).
+
+    Each prior takes its best-overlapping truth; then each truth in row
+    order writes its own best prior, as JAX's in-order scatter
+    (`.at[best_prior_idx].set`) does: a matchable truth (a valid row whose
+    best overlap is at least 0.2) claims the prior with overlap 2, any
+    other row writes back the prior's own best truth and overlap. So the
+    last row whose best prior it is decides, and a later unmatchable row (a
+    speck, or a padding row at prior 0) undoes an earlier claim of the same
+    prior, as in JAX; the reference's loop instead hands the prior to the
+    later row with overlap 2. The rule is computed explicitly, since
+    scatters with repeated indices have no order on the GPU.
+    """
+    pf = point_form(priors)
+    valid = labels > 0
+    overlaps = jaccard(truths, pf) * valid[..., None]       # (..., M, P)
+    # torch.argmax returns the first maximal index, as jnp.argmax does
+    best_prior_overlap = overlaps.amax(dim=-1)                 # (..., M)
+    best_prior_idx = overlaps.argmax(dim=-1)
+    best_truth_overlap = overlaps.amax(dim=-2)                 # (..., P)
+    best_truth_idx = overlaps.argmax(dim=-2)
+    gt_ok = valid & (best_prior_overlap >= 0.2)
+    m, p = overlaps.shape[-2], overlaps.shape[-1]
+    rows = torch.arange(m, device=truths.device)
+    hits = best_prior_idx[..., None] == torch.arange(
+        p, device=truths.device)                              # (..., M, P)
+    last = torch.where(hits, rows[:, None], -1).amax(dim=-2)  # (..., P)
+    forced = (last >= 0) & torch.gather(gt_ok, -1, last.clamp(min=0))
+    best_truth_overlap = torch.where(
+        forced, torch.full_like(best_truth_overlap, 2.0), best_truth_overlap)
+    best_truth_idx = torch.where(forced, last, best_truth_idx)
+
+    def gather(t):
+        return torch.gather(t, -2, best_truth_idx[..., None].expand(
+            *best_truth_idx.shape, t.shape[-1]))
+
+    conf = torch.gather(labels, -1, best_truth_idx)
+    conf = torch.where(best_truth_overlap < threshold,
+                       torch.zeros_like(conf), conf)
+    loc_t = encode(gather(truths), priors, variances)
+    landm_t = encode_landm(gather(landms), priors, variances)
+    return loc_t, conf, landm_t
 
 
 def nms(boxes: torch.Tensor, scores: torch.Tensor, iou_threshold: float = 0.6,

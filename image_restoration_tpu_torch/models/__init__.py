@@ -9,7 +9,8 @@ from ..utils.registry import MODEL_REGISTRY
 def build_model(opt, device=None):
     """The trainer of `opt["model_type"]` on `device` (None: cuda)."""
     from . import (distill_model, esrgan_model, gfpgan_model,  # noqa: F401
-                   sr_model, srgan_model, stylegan2_model)  # (registration)
+                   hifacegan_model, sr_model, srgan_model,
+                   stylegan2_model)  # (registration)
     opt = deepcopy(opt)
     model = MODEL_REGISTRY.get(opt["model_type"])(opt, device=device)
     get_root_logger().info(

@@ -1,4 +1,5 @@
-"""cv2-compatible bilinear resize as two matrix products.
+"""cv2-compatible resize: bilinear as two matrix products, nearest as two
+gathers.
 
 Port of `image_restoration_tpu/ops/resize.py:49-56,111-192`: any separable
 resize is `out = R_h @ img @ R_w^T`, with the (out, in) weight matrices built
@@ -21,9 +22,16 @@ from ..utils.device import DeviceConstants
 
 def cv2_resize_matrix(in_length: int, out_length: int,
                       interpolation: str = "bilinear") -> np.ndarray:
-    """Dense (out, in) matrix matching cv2.resize along one axis: half-pixel
-    centres `u = (i + 0.5) * in/out - 0.5`, border-replicate taps. Only the
-    bilinear kernel is ported (the one the restore path uses)."""
+    """Dense (out, in) matrix matching cv2.resize along one axis.
+
+    bilinear: half-pixel centres `u = (i + 0.5) * in/out - 0.5`,
+    border-replicate taps. nearest: cv2's INTER_NEAREST,
+    `src = min(floor(i * in/out), in - 1)`, one-hot rows (`resize` gathers
+    those rows instead of multiplying, so the result is exact)."""
+    if interpolation == "nearest":
+        mat = np.zeros((out_length, in_length), dtype=np.float32)
+        mat[np.arange(out_length), nearest_index(in_length, out_length)] = 1
+        return mat
     if interpolation not in ("bilinear", "linear"):
         raise ValueError(f"interpolation {interpolation!r} is not ported")
     u = (np.arange(out_length, dtype=np.float64) + 0.5) * \
@@ -40,6 +48,20 @@ def cv2_resize_matrix(in_length: int, out_length: int,
     return mat.astype(np.float32)
 
 
+def nearest_index(in_length: int, out_length: int) -> np.ndarray:
+    """cv2 INTER_NEAREST's source index per output index (JAX
+    `ops/resize.py:132-137`)."""
+    s = in_length / out_length
+    return np.minimum((np.arange(out_length) * s).astype(np.int64),
+                      in_length - 1)
+
+
+def _build_index(in_length: int, out_length: int,
+                 device: torch.device) -> torch.Tensor:
+    return torch.as_tensor(nearest_index(in_length, out_length),
+                           device=device)
+
+
 def _build_matrix(in_length: int, out_length: int, interpolation: str,
                   device: torch.device, dtype: torch.dtype) -> torch.Tensor:
     mat = cv2_resize_matrix(in_length, out_length, interpolation)
@@ -49,6 +71,7 @@ def _build_matrix(in_length: int, out_length: int, interpolation: str,
 # the resize matrix on a device, built once per shape (few distinct shapes
 # per network, so the cache stays small)
 _matrix = DeviceConstants(_build_matrix, maxsize=64)
+_index = DeviceConstants(_build_index, maxsize=64)
 
 
 def resize(img: torch.Tensor, out_hw, interpolation: str = "bilinear") -> torch.Tensor:
@@ -58,6 +81,10 @@ def resize(img: torch.Tensor, out_hw, interpolation: str = "bilinear") -> torch.
         img = img[None]
     n, h, w, c = img.shape
     oh, ow = out_hw
+    if interpolation == "nearest":   # a gather: exact, whatever the matmul
+        out = img.index_select(1, _index(h, oh, img.device))
+        out = out.index_select(2, _index(w, ow, img.device))
+        return out[0] if squeeze else out
     rh = _matrix(h, oh, interpolation, img.device, img.dtype)
     rw = _matrix(w, ow, interpolation, img.device, img.dtype)
     out = torch.matmul(rh, img.reshape(n, h, w * c)).reshape(n, oh, w, c)

@@ -853,3 +853,118 @@ def test_char_ds_kernel_match_plain_and_cpu(cuda_device, no_tf32,
         scale = float(c.abs().max())
         assert float((a - p).abs().max()) <= 1e-6 * scale
         assert float((a.cpu() - c).abs().max()) <= 1e-5 * scale
+
+
+@pytest.mark.cuda
+def test_nearest_resize_exact_on_card(cuda_device):
+    """`resize(..., "nearest")` on the card bit-equal to the CPU (a gather,
+    whatever the card's matmul precision), down and up, at integer and
+    other ratios; TF32 left at PyTorch's setting."""
+    from image_restoration_tpu_torch.ops.resize import resize
+    x = torch.rand((2, 30, 20, 3), generator=torch.Generator().manual_seed(
+        7)) * 1000
+    for out in ((7, 13), (2, 3), (60, 40), (64, 64)):
+        got = resize(x.to(cuda_device), out, "nearest").cpu()
+        assert torch.equal(got, resize(x, out, "nearest")), out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("backbone", ["mobilenet0.25", "Resnet18"])
+def test_train_mode_retinaface_on_card_matches_cpu(cuda_device, no_tf32,
+                                                   backbone):
+    """RetinaFace in train mode on the card against the CPU (TF32 off):
+    outputs within 1e-4 of max(1, max|CPU|) and every updated running
+    statistic within 1e-5 of max(1, max|CPU|)."""
+    from image_restoration_tpu_torch.archs import build_network
+    opt = dict(type="RetinaFace", backbone=backbone, phase="train",
+               out_channel=64 if backbone == "mobilenet0.25" else 256)
+    cpu = build_network(opt, torch.Generator().manual_seed(2)).train()
+    card = build_network(opt).to(cuda_device).train()
+    card.load_state_dict(cpu.state_dict())
+    x = torch.rand((4, 64, 64, 3), generator=torch.Generator().manual_seed(
+        3)) * 255 - 120
+    want = cpu(x)
+    got = card(x.to(cuda_device))
+    for w, g in zip(want, got):
+        scale = max(1.0, float(w.detach().abs().max()))
+        assert float((g.detach().cpu() - w.detach()).abs().max()) <= \
+            1e-4 * scale
+    for k, w in cpu.state_dict().items():
+        if "running" in k:
+            g = card.state_dict()[k].cpu()
+            assert float((g - w).abs().max()) <= \
+                1e-5 * max(1.0, float(w.abs().max())), k
+
+
+@pytest.mark.cuda
+def test_detector_step_on_card_matches_cpu(cuda_device, no_tf32):
+    """One `DetectorTrainer` step (mobilenet0.25, 64², batch 2) on the
+    card and the CPU from the same weights: losses within 1e-5 relative,
+    the matched labels equal and the loc and landmark targets within 1e-6
+    of max|CPU| (a log and divisions), the running statistics within 1e-5 of
+    max(1, max|CPU|), the parameters within JAX's DP bound of 5e-3."""
+    from image_restoration_tpu_torch.detect.multibox_loss import \
+        match_targets
+    from image_restoration_tpu_torch.detect.synth import make_batch
+    from image_restoration_tpu_torch.detect.train import DetectorTrainer
+    kw = dict(backbone="mobilenet0.25", image_size=64, lr=1e-2)
+    cpu = DetectorTrainer(device="cpu", **kw)
+    card = DetectorTrainer(device=cuda_device, **kw)
+    card.net.load_state_dict(cpu.net.state_dict())
+    imgs, targets = make_batch(torch.Generator().manual_seed(4), 2, 64)
+    imgs = imgs - torch.tensor([104.0, 117.0, 123.0])
+    want_t = match_targets(targets, cpu.priors)
+    got_t = [t.cpu() for t in match_targets(targets.to(cuda_device),
+                                            card.priors)]
+    assert torch.equal(got_t[1], want_t[1])
+    for g, w in zip(got_t, want_t):
+        assert float((g - w).abs().max()) <= 1e-6 * float(w.abs().max())
+    want = cpu.train_step(imgs, targets)
+    got = card.train_step(imgs, targets)
+    for k, v in want.items():
+        assert abs(float(got[k]) - float(v)) <= 1e-5 * abs(float(v)), k
+    for k, w in cpu.net.state_dict().items():
+        g = card.net.state_dict()[k].cpu()
+        bound = (1e-5 * max(1.0, float(w.abs().max())) if "running" in k
+                 else 5e-3)
+        assert float((g.float() - w.float()).abs().max()) <= bound, k
+
+
+@pytest.mark.cuda
+def test_hifacegan_step_on_card_matches_cpu(cuda_device, no_tf32, tmp_path):
+    """One HiFaceGANModel G+D step (HiFaceGAN at num_feat 8, 64², lsgan,
+    feature matching, SGD) on the card and the CPU from the same weights:
+    losses within 1e-5 relative (D's mean logits 1e-5 absolute), G and D
+    parameters within 1e-5 of max|p|."""
+    from image_restoration_tpu_torch.models import build_model
+    sgd = {"type": "SGD", "lr": 1e-3}
+    opt = {"is_train": True, "manual_seed": 0, "model_type": "HiFaceGANModel",
+           "scale": 1, "path": {"models": str(tmp_path)},
+           "network_g": {"type": "HiFaceGAN", "num_feat": 8,
+                         "is_train": False},
+           "network_d": {"type": "HiFaceGANDiscriminator", "num_feat": 8},
+           "train": {"optim_g": sgd, "optim_d": sgd,
+                     "pixel_opt": {"type": "L1Loss"},
+                     "gan_opt": {"type": "MultiScaleGANLoss",
+                                 "gan_type": "lsgan"},
+                     "feature_matching_opt": {"type": "GANFeatLoss",
+                                              "loss_weight": 10.0}}}
+    cpu = build_model(opt, device="cpu")
+    card = build_model(opt, device=cuda_device)
+    for name in ("net_g", "net_g_ema", "net_d"):
+        getattr(card, name).load_state_dict(getattr(cpu, name).state_dict())
+    g = torch.Generator().manual_seed(8)
+    batch = {"lq": torch.rand((2, 64, 64, 3), generator=g),
+             "gt": torch.rand((2, 64, 64, 3), generator=g)}
+    want = cpu.optimize_parameters(1, batch)
+    got = card.optimize_parameters(1, batch)
+    for k, v in want.items():   # the mean logits near 0: absolute
+        bound = 1e-5 * (1.0 if k.endswith("_score") else abs(float(v)))
+        assert abs(float(got[k]) - float(v)) <= bound, k
+    for name in ("net_g", "net_d"):
+        want_sd = getattr(cpu, name).state_dict()
+        got_sd = getattr(card, name).state_dict()
+        scale = max(float(v.abs().max()) for v in want_sd.values())
+        for k, v in want_sd.items():
+            assert float((got_sd[k].cpu() - v).abs().max()) <= \
+                1e-5 * scale, k
