@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py [--out report.json]
 
-Drives the port's eleven main paths with random weights made from a seed,
+Drives the port's twelve main paths with random weights made from a seed,
 and fails loudly if any phase fails:
 
   1. device: the card's name and power limit (nvidia-smi);
@@ -282,6 +282,39 @@ configs:
      the port on this path);
  47. s per step (median of steps 5-32), imgs/s, peak MiB and a profiled
      step's device-busy share.
+
+Path 12, the IO backends and the metrics: the StyleGAN2 config as written
+(its `io_backend: {type: lmdb}` included) trained on an lmdb the port
+builds, that lmdb's InceptionV3 statistics, and the trained EMA G's FID
+against them (`calculate_fid_stats_from_datasets`,
+`calculate_stylegan2_fid`, `calculate_fid_folder`), random Inception and
+VGG16 weights:
+
+ 48. 2304 seeded 256² PNGs, an lmdb by `make_lmdb_from_imgs` and a pak by
+     the `create_pak` CLI; every key read back bit-equal to its PNG's bytes
+     through the lmdb, the pak (its native reader, built with g++) and the
+     disk backends; FFHQDataset items equal across the three; images/s
+     through FFHQDataset and the DataLoader at bs 3 and 64 per backend;
+ 49. card vs CPU (TF32 off): InceptionV3 features at 299² of 4 images
+     (≤1e-4 of max|CPU|), the LPIPS VGG16 distance of 4 pairs at 256²
+     (≤1e-4 relative), `calculate_fid` of the card's features against the
+     CPU's (≤1e-3 of trace(sigma)); a bs-16 G sample at 256² (512 style
+     features, channel multiplier 2) on K1 against K1's plain version
+     (≤1e-5 of max|y|, K1 21 launches), and its Inception features through
+     the net's own 299² resize against JAX's resize-first path (≤1e-6 of
+     max|f|);
+ 50. main path: counts set to 0, then `train_pipeline` on
+     train_StyleGAN2_256_Cmul2_FFHQ.yml with only `dataroot_gt` (the lmdb),
+     16 iterations and a checkpoint at 16 cut; the statistics CLI over the
+     lmdb (2304 images, bs 64); `calculate_stylegan2_fid` of net_g_16.pth
+     (2304 samples, bs 16, truncation 0.7); `calculate_fid_folder` of the
+     source PNGs against the lmdb's statistics, ≈ 0 (≤1e-3 of
+     trace(sigma)): both paths feed Inception RGB in [0, 1]; counts read
+     (K1 exactly the training's forwards from the model's own draws plus
+     8 + 144·21 for the FID, K2 and K3 never), every FID finite;
+ 51. the LPIPS, NIQE and PSNR/SSIM CLIs on 16 pairs; G samples/s at bs 16,
+     InceptionV3 images/s at bs 64, the FID run's wall for 2304 samples,
+     and the device-busy share of one profiled sample + extract batch.
 
 Each path's seconds are printed as it ends. The last line of stdout is
 {"ok": true, "device": {...}}; the line before it lists the kernels as
@@ -5236,6 +5269,409 @@ def phase_hifacegan(tmp):
     return dict(card_vs_cpu=tiny, main_path=main_path, speed=speed)
 
 
+# ------- path 12: the IO backends and the metrics (lmdb → train → FID)
+
+FID_IMAGES = 2304            # > 2048: the 2048-d covariances have full rank
+FID_ITERS = 16               # R1 at 16, the path step every 4
+FID_G_BS = 16                # calculate_stylegan2_fid's batch
+FID_STATS_BS = 64
+FID_TRUNCATION = 0.7
+K1_FID = 8 + (FID_IMAGES // FID_G_BS) * K1_PER_SG2_G[1]  # mean_latent + G
+IO_CHECK_ITEMS = 64          # FFHQDataset items compared across backends
+IO_SPEED_IMAGES = {3: 192, 64: 512}  # images read per timed loader run
+INCEPTION_TOL = 1e-4         # of max|CPU|, card vs CPU features, TF32 off
+LPIPS_RTOL = 1e-4            # card vs CPU distance, TF32 off
+G_SAMPLE_TOL = 1e-5          # of max|y|, the G sample on K1 vs plain K1
+FID_ZERO_TOL = 1e-3          # |FID| of equal statistics, × trace(sigma)
+RESIZE_TOL = 1e-6            # of max|f|, Inception's own resize vs JAX's two
+METRIC_PAIRS = 16
+
+
+def write_fid_images(folder, n, seed):
+    """`n` seeded 256² scenes as PNGs at compression level 1, the level
+    `make_lmdb_from_imgs` encodes at, so the lmdb holds the files' bytes;
+    drawn and encoded on a thread pool."""
+    import concurrent.futures
+    import cv2
+    os.makedirs(folder, exist_ok=True)
+    names = [f"{i:05d}.png" for i in range(n)]
+
+    def write(i):
+        require(cv2.imwrite(os.path.join(folder, names[i]),
+                            scene_image(256, 256, seed + i),
+                            [cv2.IMWRITE_PNG_COMPRESSION, 1]),
+                f"cannot write {names[i]}")
+
+    with concurrent.futures.ThreadPoolExecutor(8) as pool:
+        list(pool.map(write, range(n)))
+    return names
+
+
+def loader_rate(ds, bs, n_images):
+    """Images/s through `ds` and the port's DataLoader (one reader thread,
+    shuffled as training reads), host clock over `n_images`."""
+    from image_restoration_tpu_torch.data import DataLoader
+    loader = DataLoader(ds, batch_size=bs, shuffle=True, drop_last=True)
+    t0 = time.perf_counter()
+    seen = 0
+    for batch in loader:
+        seen += batch["gt"].shape[0]
+        if seen >= n_images:
+            break
+    return seen / (time.perf_counter() - t0)
+
+
+def phase_fid_io(root):
+    """Phase 48: 2304 seeded 256² PNGs; an lmdb by `make_lmdb_from_imgs`
+    and a pak by the `create_pak` CLI; every key read back bit-equal to
+    the PNG's bytes through FileClient("lmdb"), "pak" (the native reader)
+    and "disk"; FFHQDataset items equal across the three backends; images/s
+    through FFHQDataset and the DataLoader at bs 3 and 64 per backend."""
+    from image_restoration_tpu_torch.data import build_dataset
+    from image_restoration_tpu_torch.scripts import create_pak
+    from image_restoration_tpu_torch.utils.file_client import FileClient
+    from image_restoration_tpu_torch.utils.lmdb_util import \
+        make_lmdb_from_imgs
+    src, db, pak = f"{root}/ffhq", f"{root}/ffhq_256.lmdb", \
+        f"{root}/ffhq_256.pak"
+    t0 = time.perf_counter()
+    names = write_fid_images(src, FID_IMAGES, 4800)
+    t1 = time.perf_counter()
+    make_lmdb_from_imgs(src, db, names, [n[:-4] for n in names])
+    t2 = time.perf_counter()
+    require(create_pak.main(["--input", src, "--output", pak])
+            == FID_IMAGES, "create_pak packed another count")
+    t3 = time.perf_counter()
+    clients = {"lmdb": FileClient("lmdb", db_paths=db),
+               "pak": FileClient("pak", pak_path=pak),
+               "disk": FileClient("disk")}
+    require(clients["pak"]._client.reader == "native",
+            f"pak reader {clients['pak']._client.reader}, not native")
+    keys = {"lmdb": lambda n: n[:-4], "pak": lambda n: n,
+            "disk": lambda n: os.path.join(src, n)}
+    read_s = {}
+    for name, client in clients.items():
+        t = time.perf_counter()
+        for n in names:
+            with open(os.path.join(src, n), "rb") as f:
+                want = f.read()
+            require(client.get(keys[name](n)) == want,
+                    f"{name}: {n} differs from the PNG's bytes")
+        read_s[name] = time.perf_counter() - t
+    for c in clients.values():
+        c.close()
+    roots = {"lmdb": db, "pak": pak, "disk": src}
+    datasets = {b: build_dataset(dict(
+        type="FFHQDataset", dataroot_gt=r, io_backend={"type": b},
+        use_hflip=False, mean=[0.5] * 3, std=[0.5] * 3))
+        for b, r in roots.items()}
+    for i in range(IO_CHECK_ITEMS):
+        items = [ds[i]["gt"] for ds in datasets.values()]
+        require(all(np.array_equal(items[0], x) for x in items[1:]),
+                f"FFHQDataset item {i} differs across the backends")
+    rates = {b: {bs: loader_rate(ds, bs, n)
+                 for bs, n in IO_SPEED_IMAGES.items()}
+             for b, ds in datasets.items()}
+    log(f"IO: {FID_IMAGES} PNGs of 256² written in {t1 - t0:.2f} s, "
+        f"lmdb built in {t2 - t1:.2f} s ({os.path.getsize(db + '/data.mdb')}"
+        f" bytes), pak in {t3 - t2:.2f} s; every key bit-equal to its PNG "
+        "through lmdb, pak (native reader) and disk ("
+        + ", ".join(f"{b} {s:.2f} s" for b, s in read_s.items())
+        + f"); {IO_CHECK_ITEMS} FFHQDataset items equal across backends")
+    for b, r in rates.items():
+        log(f"  FFHQDataset + DataLoader on {b}: "
+            + ", ".join(f"bs {bs} {v:.1f} imgs/s" for bs, v in r.items()))
+    return dict(src=src, lmdb=db, pak=pak, write_s=t1 - t0,
+                lmdb_build_s=t2 - t1, pak_build_s=t3 - t2,
+                read_all_keys_s=read_s, loader_imgs_per_s={
+                    b: {str(bs): v for bs, v in r.items()}
+                    for b, r in rates.items()})
+
+
+def fid_generator(seed):
+    """A StyleGAN2 generator at the StyleGAN2 config's 256² width
+    (`calculate_stylegan2_fid`'s build) on the card, every parameter
+    drawn."""
+    from image_restoration_tpu_torch.archs import build_network
+    net = build_network(dict(type="StyleGAN2OCRGenerator", input_width=256,
+                             input_height=256, num_style_feat=512, num_mlp=8,
+                             channel_multiplier=2),
+                        torch.Generator().manual_seed(seed))
+    randomize_weights(net, seed)
+    return net.cuda().eval().requires_grad_(False)
+
+
+def _read_rgb(folder, names):
+    import cv2
+    return np.stack([cv2.imread(os.path.join(folder, n))[..., ::-1]
+                     for n in names]).astype(np.float32) / 255.0
+
+
+def phase_fid_card_vs_cpu(io):
+    """Phase 49, TF32 off: InceptionV3 features of 4 of the PNGs at 299²
+    (≤ INCEPTION_TOL of max|CPU|), the LPIPS VGG16 distance of 4 pairs at
+    256² (≤ LPIPS_RTOL relative), `calculate_fid` of the card's features
+    against the CPU's (≈ 0 against trace(sigma)), card against CPU; and a
+    bs-16 G sample at 256² through `calculate_stylegan2_fid.sample` on K1
+    against the same on K1's plain version (≤ G_SAMPLE_TOL of max|y|, K1
+    21 launches); that sample's features through InceptionV3's own 299²
+    resize against JAX's path, which resizes in the script first
+    (≤ RESIZE_TOL of max|f|)."""
+    from image_restoration_tpu_torch.metrics.fid import (
+        calculate_fid, extract_inception_features, load_patched_inception_v3)
+    from image_restoration_tpu_torch.metrics.lpips import LPIPS
+    from image_restoration_tpu_torch.ops import fused_act
+    from image_restoration_tpu_torch.ops.resize import resize
+    from image_restoration_tpu_torch.scripts.calculate_stylegan2_fid import \
+        sample
+    names = sorted(os.listdir(io["src"]))[:8]
+    imgs = _read_rgb(io["src"], names)
+    old = _tf32_off()
+    try:
+        feats = {}
+        for dev in ("cpu", "cuda"):
+            net = load_patched_inception_v3(device=dev)
+            feats[dev] = extract_inception_features([imgs[:4]], net)
+        d_inc = float(np.abs(feats["cuda"] - feats["cpu"]).max())
+        span = float(np.abs(feats["cpu"]).max())
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            lp_cpu, lp_card = LPIPS(), LPIPS().cuda()
+        a, b = torch.from_numpy(imgs[:4] * 2 - 1), torch.from_numpy(
+            imgs[4:] * 2 - 1)
+        with torch.inference_mode():
+            d_cpu = lp_cpu(a, b).numpy()
+            d_card = lp_card(a.cuda(), b.cuda()).cpu().numpy()
+        d_lp = float(np.abs(d_card / d_cpu - 1).max())
+        sig_cpu = np.cov(feats["cpu"], rowvar=False)
+        fid = calculate_fid(feats["cuda"].mean(0),
+                            np.cov(feats["cuda"], rowvar=False),
+                            feats["cpu"].mean(0), sig_cpu)
+        net = fid_generator(49)
+        g = torch.Generator("cuda").manual_seed(49)
+        z = torch.randn((FID_G_BS, 512), generator=g, device="cuda")
+        with torch.inference_mode():
+            mean = net.mean_latent(4096, g)
+            fused_act.fused_leaky_relu.launches = 0
+            y_k1 = sample(net, z, FID_TRUNCATION, mean)
+            torch.cuda.synchronize()
+            k1 = fused_act.fused_leaky_relu.launches
+            with mock.patch.object(fused_act, "fused_leaky_relu",
+                                   fused_act.fused_leaky_relu_plain):
+                y_plain = sample(net, z, FID_TRUNCATION, mean)
+            inc = load_patched_inception_v3(device="cuda")
+            f_own = inc(y_k1)
+            f_two = inc(resize(y_k1, (299, 299), "bilinear"))
+        d_g = float((y_k1 - y_plain).abs().max())
+        g_span = float(y_plain.abs().max())
+        d_rs = float((f_own - f_two).abs().max())
+        f_span = float(f_two.abs().max())
+    finally:
+        _tf32_restore(old)
+    log(f"card vs CPU (TF32 off): InceptionV3 at 299² on 4 images max|d| "
+        f"{d_inc:.3g} of max|CPU| {span:.4g} (≤ {INCEPTION_TOL:g}·max); "
+        f"LPIPS on 4 pairs at 256² {d_card.tolist()} vs {d_cpu.tolist()}, "
+        f"worst relative {d_lp:.3g} (≤ {LPIPS_RTOL:g}); FID(card features, "
+        f"CPU features) {fid:.6g} against trace(sigma) "
+        f"{np.trace(sig_cpu):.6g}; bs-16 G sample at 256² on K1 vs plain K1 "
+        f"max|d| {d_g:.3g} of max|y| {g_span:.4g} (≤ {G_SAMPLE_TOL:g}·max), "
+        f"K1 {k1} launches; its features through Inception's own resize "
+        f"vs resized first (JAX's path) max|d| {d_rs:.3g} of max|f| "
+        f"{f_span:.4g} (≤ {RESIZE_TOL:g}·max)")
+    require(d_inc <= INCEPTION_TOL * span, f"InceptionV3 card vs CPU {d_inc}")
+    require(d_lp <= LPIPS_RTOL, f"LPIPS card vs CPU {d_lp}")
+    require(abs(fid) <= FID_ZERO_TOL * np.trace(sig_cpu),
+            f"FID of the card's features against the CPU's {fid}")
+    require(y_k1.shape == (FID_G_BS, 256, 256, 3)
+            and bool(torch.isfinite(y_k1).all()), "G sample not finite")
+    require(d_g <= G_SAMPLE_TOL * g_span, f"G sample K1 vs plain {d_g}")
+    require(k1 == K1_PER_SG2_G[1], f"G sample: K1 {k1}")
+    require(d_rs <= RESIZE_TOL * f_span, f"one resize vs two {d_rs}")
+    return dict(inception_max_abs_diff=d_inc, inception_span=span,
+                lpips_card=d_card.tolist(), lpips_cpu=d_cpu.tolist(),
+                lpips_worst_rel=d_lp, fid_card_vs_cpu=fid,
+                g_sample_max_abs_diff=d_g, g_sample_span=g_span, k1=k1,
+                resize_max_abs_diff=d_rs, feature_span=f_span)
+
+
+def phase_fid_main_path(root, io):
+    """Phase 50, the main path: counts at 0; `train_pipeline` on the
+    StyleGAN2 config as written, its lmdb backend included, cut to
+    `dataroot_gt` = the phase-48 lmdb and 16 iterations with a checkpoint
+    at 16; `calculate_fid_stats_from_datasets --io_backend lmdb` over the
+    2304 images; `calculate_stylegan2_fid` of net_g_16.pth against those
+    statistics (2304 samples, bs 16, truncation 0.7); `calculate_fid_folder`
+    of the source PNGs against them (≈ 0: the same images at the same
+    scale). Counts read: K1 exactly the 16 steps' G and D forwards from the
+    model's own draws plus 8 + 144·21 for the FID; K2 and K3 never."""
+    from image_restoration_tpu_torch.scripts import (
+        calculate_fid_folder, calculate_fid_stats_from_datasets,
+        calculate_stylegan2_fid)
+    from image_restoration_tpu_torch.train import train_pipeline
+    argv = ["-opt", SG2_CONFIG, "--force_yml",
+            f"datasets:train:dataroot_gt={io['lmdb']}",
+            f"train:total_iter={FID_ITERS}",
+            f"logger:save_checkpoint_freq={FID_ITERS}", "logger:print_freq=8"]
+    log("path 12 cuts (--force_yml): " + " ".join(argv[3:]))
+    stats = f"{root}/inception_FFHQ_256.npz"
+    kernels = _counts_zero()
+    t0 = time.perf_counter()
+    model = train_pipeline(root, argv=argv)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    calculate_fid_stats_from_datasets.main([
+        "--dataroot", io["lmdb"], "--io_backend", "lmdb", "--size", "256",
+        "--num_sample", str(FID_IMAGES), "--batch_size", str(FID_STATS_BS),
+        "--save_path", stats])
+    t2 = time.perf_counter()
+    ckpt = os.path.join(model.opt["path"]["models"], f"net_g_{FID_ITERS}.pth")
+    fid = calculate_stylegan2_fid.main([
+        ckpt, stats, "--num_sample", str(FID_IMAGES), "--batch_size",
+        str(FID_G_BS), "--truncation", str(FID_TRUNCATION)])
+    t3 = time.perf_counter()
+    fid_src = calculate_fid_folder.main(["--folder", io["src"],
+                                         "--fid_stats", stats])
+    t4 = time.perf_counter()
+    k1, k2, k3 = (k.launches for k in kernels)
+    io_opt = model.opt["datasets"]["train"]["io_backend"]
+    draws = dict(model.style_draws)
+    n_r1 = FID_ITERS // model.net_d_reg_every
+    g_fwd = sum(c * K1_PER_SG2_G[n] for (_, n), c in draws.items())
+    train_k1 = g_fwd + (FID_ITERS * 3 + n_r1) * K1_PER_SG2_D
+    want = train_k1 + K1_FID
+    with np.load(stats) as f:
+        trace = float(np.trace(f["cov"]))
+        n_stats = int(f["size"])
+    log(f"StyleGAN2 config as written (io_backend {io_opt}): {FID_ITERS} "
+        f"iterations in {t1 - t0:.2f} s (wall: build and saves included), "
+        "last losses " + ", ".join(f"{k}={v:.4g}" for k, v in
+                                   model.log_dict.items()))
+    log(f"FID stats over the lmdb ({FID_IMAGES} images, bs {FID_STATS_BS}) "
+        f"in {t2 - t1:.2f} s; calculate_stylegan2_fid of net_g_{FID_ITERS}"
+        f".pth: FID {fid:.4f} in {t3 - t2:.2f} s ({FID_IMAGES} samples, bs "
+        f"{FID_G_BS}, truncation {FID_TRUNCATION}; random Inception weights: "
+        "not comparable to published FID); calculate_fid_folder of the "
+        f"source PNGs against the lmdb stats: FID {fid_src:.6g} beside "
+        f"trace(sigma) {trace:.6g}, in {t4 - t3:.2f} s")
+    log(f"K1 expected = Σ draws × (21 one code, 29 two) + (3·{FID_ITERS} + "
+        f"{n_r1} R1) D forwards × {K1_PER_SG2_D} = {train_k1}, + FID 8 + "
+        f"{FID_IMAGES // FID_G_BS}·21 = {K1_FID}: {want}; K1 {k1}, K2 {k2}, "
+        f"K3 {k3}")
+    require(io_opt == {"type": "lmdb"}, f"io_backend {io_opt}")
+    require(model.iter == FID_ITERS and all(
+        math.isfinite(v) for v in model.log_dict.values()),
+        f"training: iter {model.iter}, losses {model.log_dict}")
+    require(n_stats == 256 and math.isfinite(fid) and math.isfinite(fid_src),
+            f"FIDs {fid}, {fid_src}")
+    require(abs(fid_src) <= FID_ZERO_TOL * trace,
+            f"FID of the source folder against its own lmdb stats {fid_src} "
+            f"(trace {trace}): the two paths feed Inception other scales")
+    require(k1 == want, f"path 12: K1 {k1}, expected {want}")
+    require(k2 == 0 and k3 == 0, f"path 12 launched K2 {k2} or K3 {k3}")
+    return ckpt, dict(train_s=t1 - t0, stats_s=t2 - t1, fid_s=t3 - t2,
+                      folder_fid_s=t4 - t3, fid=fid, folder_fid=fid_src,
+                      trace_sigma=trace, k1=k1, k1_expected=want,
+                      k1_training=train_k1, k1_fid=K1_FID,
+                      last_losses=model.log_dict)
+
+
+def phase_fid_clis_and_speed(root, io, ckpt, fid_s):
+    """Phase 51: the LPIPS, NIQE and PSNR/SSIM CLIs on 16 pairs (the PNGs
+    and noisy copies); G samples/s at bs 16 and Inception images/s at bs 64
+    (CUDA events over host-issued calls, launch path included, PyTorch's
+    default TF32 settings) beside phase 50's FID wall (`fid_s`); the device-busy share
+    of one profiled sample + extract batch at bs 16."""
+    import cv2
+    from torch.profiler import ProfilerActivity, profile
+    from image_restoration_tpu_torch.metrics.fid import \
+        load_patched_inception_v3
+    from image_restoration_tpu_torch.scripts import (
+        calculate_lpips, calculate_niqe_folder, calculate_psnr_ssim)
+    from image_restoration_tpu_torch.scripts.calculate_stylegan2_fid import (
+        build_generator, sample)
+    gt, out = f"{root}/pairs/gt", f"{root}/pairs/out"
+    os.makedirs(gt)
+    os.makedirs(out)
+    rng = np.random.default_rng(51)
+    for n in sorted(os.listdir(io["src"]))[:METRIC_PAIRS]:
+        img = cv2.imread(os.path.join(io["src"], n))
+        cv2.imwrite(os.path.join(gt, n), img)
+        cv2.imwrite(os.path.join(out, n), np.clip(
+            img + rng.normal(0, 6, img.shape), 0, 255).astype(np.uint8))
+    t0 = time.perf_counter()
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        lp = calculate_lpips.main(["--gt", gt, "--restored", out])
+    t1 = time.perf_counter()
+    niqe = calculate_niqe_folder.main(["--input", out])
+    t2 = time.perf_counter()
+    psnr, ssim = calculate_psnr_ssim.main(["--gt", gt, "--restored", out])
+    t3 = time.perf_counter()
+    require(all(math.isfinite(v) for v in (lp, niqe, psnr, ssim)),
+            f"metric CLIs: {lp}, {niqe}, {psnr}, {ssim}")
+
+    net = build_generator(ckpt, 256, 2, "cuda")
+    extract = load_patched_inception_v3(device="cuda")
+    g = torch.Generator("cuda").manual_seed(51)
+    zs = [(torch.randn((FID_G_BS, 512), generator=g, device="cuda"),)
+          for _ in range(4)]
+    x64 = [(torch.rand((64, 256, 256, 3), generator=g, device="cuda"),)
+           for _ in range(2)]
+    with torch.inference_mode():
+        mean = net.mean_latent(4096, g)
+        g_ms = host_time_ms(lambda z: sample(net, z, FID_TRUNCATION, mean),
+                            zs, 20)
+        inc_ms = host_time_ms(extract, x64, 10)
+        batch = zs[0][0]
+        for _ in range(3):
+            extract(sample(net, batch, FID_TRUNCATION, mean))
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t4 = time.perf_counter()
+            extract(sample(net, batch, FID_TRUNCATION, mean))
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t4) * 1e3
+    kernels = _kernel_events(prof)
+    busy = sum(k[0] for k in kernels)
+    log(f"metric CLIs on {METRIC_PAIRS} pairs of 256²: LPIPS {lp:.6f} "
+        f"({t1 - t0:.2f} s, random VGG16 and uniform lin weights: not "
+        f"calibrated), NIQE {niqe:.4f} ({t2 - t1:.2f} s, host), PSNR "
+        f"{psnr:.4f} dB SSIM {ssim:.4f} ({t3 - t2:.2f} s, host)")
+    log(f"G sample at bs {FID_G_BS} (256², truncation {FID_TRUNCATION}, "
+        f"[0, 1] at 256²): {g_ms:.3f} ms, {FID_G_BS / g_ms * 1e3:.1f} "
+        f"samples/s; InceptionV3 at bs 64 (256² → 299²): {inc_ms:.3f} ms, "
+        f"{64 / inc_ms * 1e3:.1f} images/s; calculate_stylegan2_fid's wall "
+        f"for {FID_IMAGES} samples {fid_s:.2f} s; one sample + extract batch "
+        f"profiled: wall {wall:.2f} ms, device busy {busy:.2f} ms "
+        f"({100 * busy / wall:.1f}%)")
+    for t, n, name in kernels[:6]:
+        log(f"  {t:9.4f} ms  x{n:<4d} {name[:110]}")
+    return dict(lpips=lp, niqe=niqe, psnr=psnr, ssim=ssim,
+                lpips_cli_s=t1 - t0, niqe_cli_s=t2 - t1,
+                psnr_ssim_cli_s=t3 - t2, g_sample_ms_bs16=g_ms,
+                g_samples_per_s=FID_G_BS / g_ms * 1e3,
+                inception_ms_bs64=inc_ms,
+                inception_imgs_per_s=64 / inc_ms * 1e3,
+                profiled_wall_ms=wall, profiled_busy_ms=busy,
+                busy_share=busy / wall,
+                top=[dict(ms=t, count=n, name=name[:160])
+                     for t, n, name in kernels[:10]])
+
+
+def phase_fid(tmp):
+    """Path 12: phases 48-51."""
+    io = phase_fid_io(tmp)
+    check = phase_fid_card_vs_cpu(io)
+    ckpt, main_path = phase_fid_main_path(tmp, io)
+    speed = phase_fid_clis_and_speed(tmp, io, ckpt, main_path["fid_s"])
+    torch.cuda.empty_cache()
+    return main_path["k1"], dict(io={k: v for k, v in io.items()
+                                     if k not in ("src", "lmdb", "pak")},
+                                 card_vs_cpu=check, main_path=main_path,
+                                 speed=speed)
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", default=None,
@@ -5337,6 +5773,10 @@ def main(argv=None):
         hifacegan = phase_hifacegan(tmp)
     lap("path 11")
 
+    with tempfile.TemporaryDirectory(prefix="irt_fid_") as tmp:
+        fid_k1, fid = phase_fid(tmp)
+    lap("path 12")
+
     a = agg[("float32", 16)]
     kernels = [{
         "name": "fused_bias_lrelu",
@@ -5344,7 +5784,7 @@ def main(argv=None):
         "source": "image_restoration_tpu_torch/csrc/fused_bias_act.cu",
         "replaces": "image_restoration_tpu/ops/pallas/fused_act_kernel.py:43",
         "launches": (launches + pipe_launches + art_k1 + train_k1 + sg2_k1
-                     + comp_k1 + det_k1),
+                     + comp_k1 + det_k1 + fid_k1),
         "max_abs_err": worst,
         "ms": a["ms"],
         "plain_ms": a["plain_ms"],
@@ -5399,7 +5839,7 @@ def main(argv=None):
         artifact_main_path_launches=dict(k1=art_k1, k2=art_k2),
         artifact_correctness=art_check, dyn_int8=dyn, train=train,
         sr_train=sr_trainers, stylegan2=stylegan2, components=components,
-        detector_train=detector_train, hifacegan=hifacegan,
+        detector_train=detector_train, hifacegan=hifacegan, fid=fid,
         path_seconds=path_s, seconds=time.perf_counter() - t_start,
         note="kernels[].ms/plain_ms/bound_ms: device time (calls back to "
              "back, CUDA events) and bound, summed over the 39 K1 launches "
@@ -5411,8 +5851,8 @@ def main(argv=None):
              " has the same yardstick for the RRDB half); K3's is cuDNN's "
              "bf16 conv; "
              "K3's launches are those of probe_conv.main(); K1's launches "
-             "are those of the main-path phases of paths 1, 4, 5, 6, 8, 9 "
-             "and 10 (4, 17, 21, 26, 36, 39, 42), "
+             "are those of the main-path phases of paths 1, 4, 5, 6, 8, 9, "
+             "10 and 12 (4, 17, 21, 26, 36, 39, 42, 50), "
              "K2's those of paths 2, 5 and 7 (8, 21, 31: the "
              "engine built from the QAT checkpoint)")
     if out:

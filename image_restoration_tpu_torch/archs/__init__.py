@@ -20,6 +20,7 @@ from . import retinaface_arch  # noqa: F401
 from . import vgg_arch  # noqa: F401
 from . import discriminator_arch  # noqa: F401
 from . import hifacegan_arch  # noqa: F401
+from . import inception_arch  # noqa: F401
 
 _DTYPE_ALIASES = {
     "bf16": torch.bfloat16, "bfloat16": torch.bfloat16,

@@ -1,5 +1,6 @@
 from .from_jax import (discriminator_state_dict_from_jax,
                        hifacegan_state_dict_from_jax,
+                       inception_state_dict_from_jax,
                        iresnet_state_dict_from_jax, qat_checkpoint_from_jax,
                        retinaface_state_dict_from_jax,
                        stacked_state_dict_from_jax, state_dict_from_jax,
@@ -11,6 +12,7 @@ from .resnet_import import load_torchvision_resnet
 
 __all__ = ["discriminator_state_dict_from_jax", "fold_spectral_norm",
            "hifacegan_state_dict_from_jax", "import_iresnet",
+           "inception_state_dict_from_jax",
            "load_hifacegan", "load_torchvision_resnet",
            "iresnet_state_dict_from_jax", "qat_checkpoint_from_jax",
            "retinaface_state_dict_from_jax", "stacked_state_dict_from_jax",

@@ -35,7 +35,10 @@ become frozen BatchNorms (`iresnet_state_dict_from_jax`). The HiFaceGAN
 nets take the general rules, with an affine InstanceNorm's `weight` as
 flax's `scale`; BasicSR's `fc` and the other phases' `to_rgbs` and `ups`,
 which flax does not build, keep the port net's values
-(`hifacegan_state_dict_from_jax`).
+(`hifacegan_state_dict_from_jax`). InceptionV3's modules have flax's names,
+with a conv's weight as `conv/kernel` and a BatchNorm's weight and running
+statistics as `bn/scale`, `bn/mean` and `bn/var`
+(`inception_state_dict_from_jax`).
 
 Strict both ways: every port key must resolve and every flax leaf be used.
 """
@@ -442,4 +445,45 @@ def hifacegan_state_dict_from_jax(net: torch.nn.Module,
     unused = sorted("/".join(p) for p in set(leaves) - used)
     if unused:
         raise KeyError(f"{len(unused)} flax params unused: {unused[:10]}")
+    return out
+
+
+def inception_state_dict_from_jax(net: torch.nn.Module, params: Dict,
+                                  batch_stats: Dict) -> OrderedDict:
+    """The `state_dict` of the port's `InceptionV3` holding the JAX
+    package's flax `params` and `batch_stats`: `X.conv.weight` is
+    `X/conv/kernel` (HWIO → OIHW), `X.bn.{weight, bias}` are
+    `X/bn/{scale, bias}` and `X.bn.running_{mean, var}` are the statistics'
+    `X/bn/{mean, var}`; `num_batches_tracked` is left out (a strict load
+    fills it). Strict both ways."""
+    trees = {"params": _leaves(params), "batch_stats": _leaves(batch_stats)}
+    leaf_map = {"weight": ("params", "scale"), "bias": ("params", "bias"),
+                "running_mean": ("batch_stats", "mean"),
+                "running_var": ("batch_stats", "var")}
+    used = set()
+    out = OrderedDict()
+    for key, ref in net.state_dict().items():
+        if key.endswith("num_batches_tracked"):
+            continue
+        module, leaf = key.rsplit(".", 1)
+        parts = tuple(module.split("."))
+        coll, name = ("params", "kernel") if parts[-1] == "conv" \
+            else leaf_map[leaf]
+        path = parts + (name,)
+        if path not in trees[coll]:
+            raise KeyError(f"port key {key!r} has no flax counterpart "
+                           f"({coll}/{'/'.join(path)})")
+        used.add((coll, path))
+        arr = trees[coll][path]
+        if arr.ndim == 4:
+            arr = arr.transpose(3, 2, 0, 1)
+        arr = np.ascontiguousarray(arr, np.float32)
+        if arr.shape != tuple(ref.shape):
+            raise ValueError(f"{key}: flax {arr.shape} != port "
+                             f"{tuple(ref.shape)}")
+        out[key] = torch.from_numpy(arr)
+    unused = sorted(f"{c}/{'/'.join(p)}" for c, t in trees.items()
+                    for p in t if (c, p) not in used)
+    if unused:
+        raise KeyError(f"{len(unused)} flax leaves unused: {unused[:10]}")
     return out

@@ -6,8 +6,10 @@ returns GT images and exposes `device_pipeline()`, the degradation for the
 step. Ported: `FFHQDegradationDataset` (with `crop_components`: each item
 gains the (10, 4) `char_boxes` of its image), `FFHQDataset` (GT only, for
 StyleGAN2Model), `RealESRGANDataset` (with its `RealSRDegradationDataset`
-alias), `PairedImageDataset` and `SingleImageDataset`, on the disk
-backend. The random crops draw from numpy's global generator and the flips from
+alias), `PairedImageDataset` and `SingleImageDataset`. The GT-only and
+LQ-only datasets read through `utils/file_client.py`'s backends (disk,
+lmdb, pak, memcached); `PairedImageDataset` reads from disk, as JAX's does.
+The random crops draw from numpy's global generator and the flips from
 Python's `random`, as in the JAX package, so one seed gives the same
 samples.
 """
@@ -18,6 +20,8 @@ from os import path as osp
 
 import numpy as np
 
+from ..utils.file_client import FileClient
+from ..utils.img_util import imfrombytes
 from ..utils.misc import scandir
 from ..utils.registry import DATASET_REGISTRY
 from .pipelines import (FFHQDegradationConfig, RealESRGANDegradationConfig,
@@ -26,14 +30,22 @@ from .transforms import augment, paired_random_crop
 
 
 def _gather_paths(root: str, backend_opt: dict):
-    """Sorted image paths under `root` (disk backend)."""
-    backend = backend_opt.get("type", "disk")
-    if backend != "disk":
-        raise NotImplementedError(
-            f"io_backend {backend!r} is not ported yet (ROADMAP item 20); "
-            "only 'disk' is")
-    return sorted(osp.join(root, p) for p in scandir(
+    """(paths, client) of the images under `root` (JAX :34-43): for lmdb
+    and pak the sorted keys of the store at `root` (an lmdb's keys are the
+    image stems), else the sorted image files under the folder, read
+    through `client`."""
+    opt = dict(backend_opt)
+    backend = opt.pop("type", "disk")
+    if backend == "lmdb":
+        client = FileClient("lmdb", db_paths=root)
+        return sorted(client.keys()), client
+    if backend == "pak":
+        client = FileClient("pak", pak_path=root)
+        return sorted(client.keys()), client
+    client = FileClient(backend, **opt)
+    paths = sorted(osp.join(root, p) for p in scandir(
         root, suffix=("png", "jpg", "jpeg", "bmp", "webp"), recursive=True))
+    return paths, client
 
 
 class _BaseDataset:
@@ -46,13 +58,9 @@ class _BaseDataset:
     def device_pipeline(self):
         return None
 
-
-def _read_bgr_float(path: str) -> np.ndarray:
-    import cv2
-    img = cv2.imdecode(np.fromfile(path, np.uint8), cv2.IMREAD_COLOR)
-    if img is None:
-        raise FileNotFoundError(path)
-    return img.astype(np.float32) / 255.0
+    def _read(self, path: str) -> np.ndarray:
+        """HWC BGR float32 in [0, 1], read through the dataset's client."""
+        return imfrombytes(self.client.get(path), float32=True)
 
 
 @DATASET_REGISTRY.register()
@@ -63,7 +71,8 @@ class FFHQDegradationDataset(_BaseDataset):
     def __init__(self, opt: dict):
         super().__init__(opt)
         self.io_backend_opt = opt.get("io_backend", {"type": "disk"})
-        self.paths = _gather_paths(opt["dataroot_gt"], self.io_backend_opt)
+        self.paths, self.client = _gather_paths(opt["dataroot_gt"],
+                                                self.io_backend_opt)
         self.input_width = opt.get("input_width", 256)
         self.input_height = opt.get("input_height", 256)
         self.mean = opt.get("mean", (0.5, 0.5, 0.5))
@@ -99,7 +108,7 @@ class FFHQDegradationDataset(_BaseDataset):
     def __getitem__(self, index: int):
         import cv2
         path = self.paths[index]
-        img = _read_bgr_float(path)
+        img = self._read(path)
         img = cv2.resize(img, (self.input_width, self.input_height),
                          interpolation=cv2.INTER_LINEAR)
         item = {"gt": img[..., ::-1].copy(), "gt_path": path}  # RGB [0,1]
@@ -141,13 +150,14 @@ class FFHQDataset(_BaseDataset):
     def __init__(self, opt: dict):
         super().__init__(opt)
         self.io_backend_opt = opt.get("io_backend", {"type": "disk"})
-        self.paths = _gather_paths(opt["dataroot_gt"], self.io_backend_opt)
+        self.paths, self.client = _gather_paths(opt["dataroot_gt"],
+                                                self.io_backend_opt)
         self.mean = np.asarray(opt.get("mean", (0.5, 0.5, 0.5)), np.float32)
         self.std = np.asarray(opt.get("std", (0.5, 0.5, 0.5)), np.float32)
 
     def __getitem__(self, index: int):
         path = self.paths[index]
-        img = augment(_read_bgr_float(path),
+        img = augment(self._read(path),
                       hflip=self.opt.get("use_hflip", True), rotation=False)
         img = img[..., ::-1]
         return {"gt": ((img - self.mean) / self.std).astype(np.float32),
@@ -163,7 +173,8 @@ class RealESRGANDataset(_BaseDataset):
     def __init__(self, opt: dict):
         super().__init__(opt)
         self.io_backend_opt = opt.get("io_backend", {"type": "disk"})
-        self.paths = _gather_paths(opt["dataroot_gt"], self.io_backend_opt)
+        self.paths, self.client = _gather_paths(opt["dataroot_gt"],
+                                                self.io_backend_opt)
         self.gt_size = opt.get("gt_size", 256)
         self.use_hflip = opt.get("use_hflip", True)
         self.use_rot = opt.get("use_rot", False)
@@ -171,7 +182,7 @@ class RealESRGANDataset(_BaseDataset):
     def __getitem__(self, index: int):
         import cv2
         path = self.paths[index]
-        img = _read_bgr_float(path)
+        img = self._read(path)
         h, w = img.shape[:2]
         if h < self.gt_size or w < self.gt_size:
             img = cv2.resize(img, (max(w, self.gt_size),
@@ -229,11 +240,12 @@ class PairedImageDataset(_BaseDataset):
                                    suffix=("png", "jpg", "jpeg", "bmp")))
         self.paths = [(osp.join(lq_folder, lq_name(n)),
                        osp.join(gt_folder, n)) for n in names]
+        self.client = FileClient("disk")
 
     def __getitem__(self, index: int):
         lq_path, gt_path = self.paths[index]
-        img_lq = _read_bgr_float(lq_path)
-        img_gt = _read_bgr_float(gt_path)
+        img_lq = self._read(lq_path)
+        img_gt = self._read(gt_path)
         if self.opt.get("phase") == "train":
             scale = self.opt.get("scale", 1)
             img_gt, img_lq = paired_random_crop(img_gt, img_lq,
@@ -259,13 +271,14 @@ class SingleImageDataset(_BaseDataset):
     def __init__(self, opt: dict):
         super().__init__(opt)
         self.io_backend_opt = opt.get("io_backend", {"type": "disk"})
-        self.paths = _gather_paths(opt["dataroot_lq"], self.io_backend_opt)
+        self.paths, self.client = _gather_paths(opt["dataroot_lq"],
+                                                self.io_backend_opt)
         self.mean = opt.get("mean")
         self.std = opt.get("std")
 
     def __getitem__(self, index: int):
         path = self.paths[index]
-        img = _read_bgr_float(path)[..., ::-1].copy()
+        img = self._read(path)[..., ::-1].copy()
         if self.mean is not None:
             img = _normalized(img, self.mean, self.std)
         return {"lq": img, "lq_path": path}

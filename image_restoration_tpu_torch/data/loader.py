@@ -35,7 +35,8 @@ class EnlargedSampler:
 
 
 class DataLoader:
-    """Thread-prefetching batch loader over a map-style dataset."""
+    """Thread-prefetching batch loader over a map-style dataset. A consumer
+    that stops iterating early ends the reader thread."""
 
     def __init__(self, dataset, batch_size: int, sampler=None,
                  shuffle: bool = False, drop_last: bool = True,
@@ -89,25 +90,39 @@ class DataLoader:
         out_q: "queue.Queue" = queue.Queue(maxsize=self.prefetch)
         batches = list(self._index_stream())
         stop = object()
+        closed = threading.Event()  # the consumer left: the reader ends
+
+        def put(item):
+            while not closed.is_set():
+                try:
+                    out_q.put(item, timeout=0.1)
+                    return
+                except queue.Full:
+                    continue
 
         def worker():
             try:
                 for batch_idx in batches:
+                    if closed.is_set():
+                        return
                     samples = [self.dataset[int(i)] for i in batch_idx]
-                    out_q.put(self._collate(samples))
-                out_q.put(stop)
+                    put(self._collate(samples))
+                put(stop)
             except BaseException as e:  # propagate instead of hanging
-                out_q.put(e)
+                put(e)
 
         t = threading.Thread(target=worker, daemon=True)
         t.start()
-        while True:
-            item = out_q.get()
-            if item is stop:
-                break
-            if isinstance(item, BaseException):
-                raise item
-            yield item
+        try:
+            while True:
+                item = out_q.get()
+                if item is stop:
+                    break
+                if isinstance(item, BaseException):
+                    raise item
+                yield item
+        finally:
+            closed.set()
 
 
 def build_dataloader(dataset, dataset_opt: dict, seed: int = 0,

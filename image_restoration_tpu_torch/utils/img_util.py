@@ -1,7 +1,7 @@
 """Image ↔ array conversion utilities.
 
 Port of `image_restoration_tpu/utils/img_util.py:22-100` (img2tensor,
-tensor2img, imread, imwrite). Arrays are channel-last numpy; BGR↔RGB
+tensor2img, imfrombytes, imread, imwrite). Arrays are channel-last numpy; BGR↔RGB
 conventions match the reference (cv2 IO is BGR). `tensor2img` also takes a
 torch tensor, which it copies to the host.
 """
@@ -62,6 +62,19 @@ def tensor2img(tensor, rgb2bgr: bool = True, out_type=np.uint8,
     else:
         arr = arr.astype(out_type)
     return arr
+
+
+def imfrombytes(content: bytes, flag: str = "color",
+                float32: bool = False) -> np.ndarray:
+    """Decode image bytes → HWC BGR (float32 in [0, 1] with `float32`)."""
+    imread_flags = {"color": cv2.IMREAD_COLOR, "grayscale":
+                    cv2.IMREAD_GRAYSCALE, "unchanged": cv2.IMREAD_UNCHANGED}
+    img = cv2.imdecode(np.frombuffer(content, np.uint8), imread_flags[flag])
+    if img is None:
+        raise ValueError("image bytes could not be decoded")
+    if float32:
+        img = img.astype(np.float32) / 255.0
+    return img
 
 
 def imread(path: str, float32: bool = True, bgr2rgb: bool = True) -> np.ndarray:

@@ -47,6 +47,7 @@ from image_restoration_tpu_torch.convert.pth import load_pth
 from image_restoration_tpu_torch.data import build_dataset
 from image_restoration_tpu_torch.models import build_model
 from image_restoration_tpu_torch.train import train_pipeline
+from image_restoration_tpu_torch.utils.lmdb_util import make_lmdb_from_imgs
 
 CONFIG = "configs/options/train/StyleGAN/train_StyleGAN2_256_Cmul2_FFHQ.yml"
 NARROW = 0.125
@@ -282,7 +283,7 @@ def test_stylegan2_generator_from_out_size_and_import_network():
 
 def test_ffhq_dataset(tmp_path):
     """FFHQDataset: GT only, the flip from Python's `random`, BGR → RGB,
-    (x − mean)/std; lmdb raises naming ROADMAP item 20."""
+    (x − mean)/std; an lmdb of the image gives the same item."""
     import random
     os.makedirs(tmp_path / "gt")
     img = (np.random.default_rng(8).random((16, 12, 3)) * 255).astype(
@@ -307,8 +308,16 @@ def test_ffhq_dataset(tmp_path):
         np.testing.assert_allclose(item["gt"], want, atol=1e-6)
         seen.add(flip)
     assert seen == {True, False}
-    with pytest.raises(NotImplementedError, match="item 20"):
-        build_dataset(dict(opt, io_backend={"type": "lmdb"}))
+    make_lmdb_from_imgs(str(tmp_path / "gt"), str(tmp_path / "gt.lmdb"),
+                        ["a.png"], ["a"])
+    db = build_dataset(dict(opt, dataroot_gt=str(tmp_path / "gt.lmdb"),
+                            io_backend={"type": "lmdb"}))
+    assert db.paths == ["a"]
+    for seed in range(2):
+        random.seed(seed)
+        want = ds[0]["gt"]
+        random.seed(seed)
+        np.testing.assert_array_equal(db[0]["gt"], want)
 
 
 # ------------------------------------------------------------- the steps

@@ -522,11 +522,12 @@ def test_dataset_and_loader_match_jax(tmp_path, monkeypatch):
 def test_dataset_rejects_unported_options(tmp_path):
     """crop_components is ported (tests/test_torch_gfpgan_component.py);
     with use_hflip it is refused, since the boxes would not follow the
-    flip. lmdb is not ported."""
+    flip. An unknown io_backend is refused (lmdb, pak and memcached are
+    ported: tests/test_torch_io.py)."""
     opt = _dataset_opt(tmp_path)
     np.savez(tmp_path / "boxes.npz", boxes=np.zeros((1, 10, 4), np.float32))
     with pytest.raises(ValueError, match="use_hflip"):
         build_dataset(dict(opt, crop_components=True, use_hflip=True,
                            component_path=str(tmp_path / "boxes.npz")))
-    with pytest.raises(NotImplementedError, match="item 20"):
-        build_dataset(dict(opt, io_backend={"type": "lmdb"}))
+    with pytest.raises(ValueError, match="unsupported file backend"):
+        build_dataset(dict(opt, io_backend={"type": "s3"}))
