@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py [--out report.json]
 
-Drives the port's twelve main paths with random weights made from a seed,
+Drives the port's thirteen main paths with random weights made from a seed,
 and fails loudly if any phase fails:
 
   1. device: the card's name and power limit (nvidia-smi);
@@ -316,6 +316,40 @@ VGG16 weights:
      InceptionV3 images/s at bs 64, the FID run's wall for 2304 samples,
      and the device-busy share of one profiled sample + extract batch.
 
+Path 13, the image zoo and the data preparation that feeds it: the
+MATLAB-bicubic sets and DIV2K sub-images made by the port's scripts on
+2040×1356 photos, `train_pipeline` on the EDSR, RCAN and SRResNet_SRGAN
+option files as written (but for dataroots and absent pretrained paths),
+`test.py` on their test files, and RIDNet and DFDNet from reference-layout
+`.pth` files; no kernel of the port runs on this path:
+
+ 52. 8 seeded 2040×1356 photos as DIV2K_train_HR; `generate_bicubic` on
+     the card (mod 12): LR ×2/×3/×4 of all 8 named the DIV2K way
+     (0001x4.png), GTmod12 and LRbicx2/3/4 of the first 4 (the test sets);
+     `extract_subimages` (HR 480/240, X2 240/120, X3 160/80, X4 120/60):
+     40 sub-images per image and scale, every GT sub-image's LQ partner
+     under `filename_tmpl: '{}'`; `imresize` card vs CPU (≤1e-5 of
+     max|CPU|, PNGs within one level);
+ 53. card vs CPU (TF32 off) at the configs' full widths on a 2 × 48² LR
+     batch: EDSR-L ×4 (256 features, 32 blocks), EDSR-M ×3, RCAN 10×20 ×4,
+     MSRResNet ×2/×3/×4, RIDNet (64, 4 EAMs), ≤1e-4 of max|CPU|; DFDNet at
+     512² with four part boxes and a seeded K = 64 dictionary; a tiny
+     SRModel EDSR step (losses ≤1e-5 relative, gradients ≤1e-4 of
+     max|grad|);
+ 54. main path: counts set to 0, then 16 steps each of train_EDSR_Lx4.yml
+     (bs 16, gt 192), train_RCAN_x2.yml (bs 16, gt 96, with
+     `network_g:upscale=2`: the file ships upscale 4 at scale 2),
+     train_MSRResNet_x4.yml and train_MSRGAN_x4.yml (random VGG19 taps),
+     a checkpoint and a validation on the made Set5 at 16; test.py on
+     test_EDSR_Lx4.yml, test_MSRResNet_x4.yml and _woGT (the runs'
+     net_g_16.pth) and test_RCAN.yml (×4: a seeded RCAN ×4 `.pth`); RIDNet
+     and DFDNet at 512² from `.pth` files written here (DFDNet's with
+     spectral-norm triples, and its dictionary); every PSNR finite, K1, K2
+     and K3 counted 0;
+ 55. per trainer s per step (median of steps 5-16), imgs/s and peak MiB;
+     the device-busy share of a profiled EDSR-L and RCAN step; test.py
+     images/s; RIDNet's and DFDNet's ms per 512² forward.
+
 Each path's seconds are printed as it ends. The last line of stdout is
 {"ok": true, "device": {...}}; the line before it lists the kernels as
 JSON. The script puts its own directory first on sys.path and works from
@@ -328,9 +362,11 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import io
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -5672,6 +5708,485 @@ def phase_fid(tmp):
                                  speed=speed)
 
 
+# ------- path 13: the image zoo and the data preparation that feeds it
+
+ZOO_PHOTOS = 8               # DIV2K-size photos; the first 4 are the test sets
+ZOO_TEST = 4
+ZOO_HW = (1356, 2040)        # DIV2K's 2040×1356, a multiple of 12
+ZOO_ITERS = 16
+ZOO_BS = 16                  # every zoo train config's batch_size_per_gpu
+# BasicSR's DIV2K sub-image crops and steps, HR and each LR scale
+ZOO_SUB = {1: (480, 240), 2: (240, 120), 3: (160, 80), 4: (120, 60)}
+ZOO_TOL = 1e-4               # of max|CPU|, card vs CPU forwards, TF32 off
+IMRESIZE_TOL = 1e-5          # of max|CPU|, imresize card vs CPU
+ZOO_LR = 48                  # the LR batch of phase 53: 2 × 48²
+ZOO_DATA = "datasets"        # under the path's temp dir, the configs' layout
+ZOO_TRAIN = {
+    "EDSR-L x4": ("configs/options/train/EDSR/train_EDSR_Lx4.yml", 4),
+    "RCAN x2": ("configs/options/train/RCAN/train_RCAN_x2.yml", 2),
+    "MSRResNet x4": ("configs/options/train/SRResNet_SRGAN/"
+                     "train_MSRResNet_x4.yml", 4),
+    "MSRGAN x4": ("configs/options/train/SRResNet_SRGAN/"
+                  "train_MSRGAN_x4.yml", 4),
+}
+ZOO_TEST_CFG = {
+    "EDSR-L x4": "configs/options/test/EDSR/test_EDSR_Lx4.yml",
+    "RCAN x4": "configs/options/test/RCAN/test_RCAN.yml",
+    "MSRResNet x4": "configs/options/test/SRResNet_SRGAN/"
+                    "test_MSRResNet_x4.yml",
+    "MSRResNet x4 woGT": "configs/options/test/SRResNet_SRGAN/"
+                         "test_MSRResNet_x4_woGT.yml",
+}
+# each arch at its config's width (the EDSR, RCAN and SRResNet_SRGAN
+# option files; RIDNet's defaults, BasicSR's denoising setting)
+ZOO_ARCHS = {
+    "EDSR-L x4": dict(type="EDSR", num_feat=256, num_block=32, upscale=4,
+                      res_scale=0.1),
+    "EDSR-M x3": dict(type="EDSR", num_feat=64, num_block=16, upscale=3),
+    "RCAN 10x20 x4": dict(type="RCAN", num_feat=64, num_group=10,
+                          num_block=20, squeeze_factor=16, upscale=4),
+    "MSRResNet x2": dict(type="MSRResNet", num_feat=64, num_block=16,
+                         upscale=2),
+    "MSRResNet x3": dict(type="MSRResNet", num_feat=64, num_block=16,
+                         upscale=3),
+    "MSRResNet x4": dict(type="MSRResNet", num_feat=64, num_block=16,
+                         upscale=4),
+    "RIDNet": dict(type="RIDNet", in_channels=3, mid_channels=64,
+                   out_channels=3, num_block=4),
+}
+# DFDNet at 512²: the reference's part sizes (80, 80, 50, 110 pixels) as
+# boxes; the nose overlaps both eyes; K seeded atoms per part and tap,
+# each of the part's size at that tap
+DFD_BOXES = np.array([[150, 200, 230, 280], [280, 200, 360, 280],
+                      [220, 250, 290, 320], [200, 330, 310, 440]])
+DFD_PART_PX = (80, 80, 50, 110)
+DFD_K = 64
+DFD_TIMED = 10
+
+
+def zoo_dict(seed):
+    """A seeded dictionary in the reference's layout: {'256': {part:
+    (K, C, s, s)}}, s = the part's size at the tap (40/40/25/55 at 256)."""
+    from image_restoration_tpu_torch.archs.dfdnet_arch import (
+        CHANNEL_SIZES, FEATURE_SIZES, PARTS)
+    g = torch.Generator().manual_seed(seed)
+    return {str(f): {p: torch.rand((DFD_K, c, px * f // 512, px * f // 512),
+                                   generator=g)
+                     for p, px in zip(PARTS, DFD_PART_PX)}
+            for f, c in zip(FEATURE_SIZES, CHANNEL_SIZES)}
+
+
+def phase_zoo_data(root):
+    """Phase 52: 8 seeded 2040×1356 photos as DIV2K_train_HR (0001.png…);
+    on the card, `generate_bicubic` (mod 12) writes each ×2/×3/×4 LR under
+    DIV2K_train_LR_bicubic/X{s} named the DIV2K way (0001x4.png), and for
+    the first 4 the test sets Set5/GTmod12 and LRbicx{2,3,4} (and the
+    DIV2K_valid pair, LR named 0001x4.png); `extract_subimages` cuts HR at
+    480/240 and each LR at 240/120, 160/80, 120/60. Checks: 40 sub-images
+    per image and scale, each GT sub-image's LQ partner present under the
+    configs' `filename_tmpl: '{}'`; `imresize` card vs CPU within 1e-5 of
+    max|CPU| and the LR PNGs written from the card within one level of the
+    CPU's, at each scale."""
+    import cv2
+    from image_restoration_tpu_torch.ops.resize import imresize
+    from image_restoration_tpu_torch.scripts import extract_subimages as sub
+    from image_restoration_tpu_torch.scripts import matlab_scripts as mat
+    d = f"{root}/{ZOO_DATA}"
+    hr = f"{d}/DIV2K/DIV2K_train_HR"
+    test_src = f"{d}/DIV2K/DIV2K_valid_HR_full"
+    for folder in (hr, test_src):
+        os.makedirs(folder)
+    h, w = ZOO_HW
+    for i in range(ZOO_PHOTOS):
+        img = np.ascontiguousarray(scene_image(h, w, 5200 + i)[..., ::-1])
+        cv2.imwrite(f"{hr}/{i + 1:04d}.png", img)
+        if i < ZOO_TEST:
+            cv2.imwrite(f"{test_src}/{i + 1:04d}.png", img)
+    t0 = time.perf_counter()
+    for s in (2, 3, 4):
+        lr = f"{d}/DIV2K/DIV2K_train_LR_bicubic/X{s}"
+        with contextlib.redirect_stdout(io.StringIO()):  # a line per image
+            mat.generate_bicubic(hr, None, lr, None, 12, s)
+            mat.generate_bicubic(test_src, f"{d}/Set5/GTmod12" if s == 2
+                                 else None, f"{d}/Set5/LRbicx{s}", None, 12,
+                                 s)
+        for f in os.listdir(lr):
+            os.rename(f"{lr}/{f}", f"{lr}/{f[:-4]}x{s}.png")
+    x4 = f"{d}/DIV2K/DIV2K_valid_LR_bicubic/X4"
+    os.makedirs(x4)
+    for f in os.listdir(f"{d}/Set5/LRbicx4"):
+        shutil.copyfile(f"{d}/Set5/LRbicx4/{f}", f"{x4}/{f[:-4]}x4.png")
+    t_gen = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    counts = {1: sub.extract_subimages(hr, f"{hr}_sub", *ZOO_SUB[1])}
+    for s in (2, 3, 4):
+        lr = f"{d}/DIV2K/DIV2K_train_LR_bicubic/X{s}"
+        counts[s] = sub.extract_subimages(lr, f"{lr}_sub", *ZOO_SUB[s])
+    t_sub = time.perf_counter() - t0
+    gt_names = sorted(os.listdir(f"{hr}_sub"))
+    missing = {s: sum(not os.path.exists(
+        f"{d}/DIV2K/DIV2K_train_LR_bicubic/X{s}_sub/{n}") for n in gt_names)
+        for s in (2, 3, 4)}
+    log(f"zoo data: {ZOO_PHOTOS} photos {w}×{h}; generate_bicubic on the "
+        f"card (LR ×2/×3/×4 of 8, GTmod12 + LRbicx2/3/4 of 4) in "
+        f"{t_gen:.2f} s; extract_subimages in {t_sub:.2f} s: {counts} "
+        f"sub-images (HR, X2, X3, X4); GT sub-images without an LQ partner "
+        f"under '{{}}': {missing}")
+    require(all(n == 40 * ZOO_PHOTOS for n in counts.values()),
+            f"sub-image counts {counts}")
+    require(not any(missing.values()), f"unpaired sub-images {missing}")
+    img = torch.from_numpy(cv2.imread(f"{test_src}/0001.png").astype(
+        np.float32) / 255.0)
+    rows = {}
+    for s in (2, 3, 4):
+        cpu = imresize(img, 1.0 / s)
+        card = imresize(img.cuda(), 1.0 / s).cpu()
+        err = float((card - cpu).abs().max() / cpu.abs().max())
+        png = cv2.imread(f"{d}/Set5/LRbicx{s}/0001.png").astype(np.int16)
+        lvl = int(np.abs(png - mat.to_uint8(cpu).astype(np.int16)).max())
+        ms = host_time_ms(lambda x: imresize(x, 1.0 / s),
+                          [(img.cuda(),)], 20)
+        rows[f"x{s}"] = dict(rel_err=err, png_levels=lvl, shape=list(
+            cpu.shape), card_ms=ms)
+        require(err <= IMRESIZE_TOL and lvl <= 1,
+                f"imresize ×1/{s}: card vs CPU {err}, PNG {lvl} levels")
+    log("zoo imresize card vs CPU (the 2040×1356 photo): " + "; ".join(
+        f"{k} {v['shape']} {v['rel_err']:.3g} of max|CPU|, PNG "
+        f"{v['png_levels']} level(s), {v['card_ms']:.3f} ms on the card"
+        for k, v in rows.items()))
+    return dict(root=d, generate_s=t_gen, extract_s=t_sub,
+                sub_images=counts, imresize=rows)
+
+
+def _lr_batch(seed, n=2, hw=ZOO_LR):
+    """(n, hw, hw, 3) RGB float [0, 1] crops of seeded scenes."""
+    return torch.from_numpy(np.stack([
+        scene_image(hw, hw, seed + i) for i in range(n)]).astype(
+            np.float32) / 255.0)
+
+
+def _zoo_tiny_opt(root):
+    """SRModel with a narrow EDSR ×4 (16 features, 2 blocks, res_scale
+    0.1), L1, Adam: the tiny step held card vs CPU."""
+    return {"is_train": True, "manual_seed": 0, "num_devices": 1,
+            "scale": 4, "name": "tiny_edsr", "model_type": "SRModel",
+            "path": {"models": f"{root}/tiny_edsr", "visualization": root},
+            "network_g": {"type": "EDSR", "num_feat": 16, "num_block": 2,
+                          "upscale": 4, "res_scale": 0.1},
+            "train": {"optim_g": {"type": "Adam", "lr": 1e-4,
+                                  "betas": [0.9, 0.99]},
+                      "pixel_opt": {"type": "L1Loss", "loss_weight": 1.0},
+                      "ema_decay": 0.999}}
+
+
+def phase_zoo_card_vs_cpu(root):
+    """Phase 53 (TF32 off): each arch at its config's full width on a 2 ×
+    48² LR batch (RIDNet on the same ×255), card against CPU within 1e-4
+    of max|CPU|; DFDNet (64 features, VGG19) at 512² with the four part
+    boxes and a seeded K = 64 dictionary; and a tiny SRModel EDSR step's
+    losses (1e-5 relative) and gradients (1e-4 of max|grad|)."""
+    from image_restoration_tpu_torch.archs import build_network
+    from image_restoration_tpu_torch.convert import load_dfdnet_dict
+    from image_restoration_tpu_torch.models import build_model
+    rows = {}
+    old = _tf32_off()
+    try:
+        x = _lr_batch(5300)
+        for i, (name, opt) in enumerate(ZOO_ARCHS.items()):
+            net = build_network(opt, torch.Generator().manual_seed(530 + i))
+            randomize_weights(net, 531 + i)
+            xi = x * 255.0 if opt["type"] == "RIDNet" else x
+            t0 = time.perf_counter()
+            with torch.inference_mode():
+                cpu = net(xi)
+            t_cpu = time.perf_counter() - t0
+            with torch.inference_mode():
+                card = net.cuda()(xi.cuda()).cpu()
+            err = float((card - cpu).abs().max() / cpu.abs().max())
+            rows[name] = dict(rel_err=err, out=list(cpu.shape),
+                              cpu_s=t_cpu)
+            del net
+        net = build_network(dict(type="DFDNet"),
+                            torch.Generator().manual_seed(540))
+        randomize_weights(net, 541)
+        face = torch.from_numpy(scene_image(512, 512, 5400)[None].astype(
+            np.float32) / 127.5 - 1.0)
+        ref_dict = zoo_dict(542)
+        t0 = time.perf_counter()
+        with torch.inference_mode():
+            cpu = net(face, DFD_BOXES, load_dfdnet_dict(ref_dict, "cpu"))
+        t_cpu = time.perf_counter() - t0
+        with torch.inference_mode():
+            card = net.cuda()(face.cuda(), DFD_BOXES,
+                              load_dfdnet_dict(ref_dict, "cuda")).cpu()
+        err = float((card - cpu).abs().max() / cpu.abs().max())
+        rows["DFDNet 512²"] = dict(rel_err=err, out=list(cpu.shape),
+                                   cpu_s=t_cpu, K=DFD_K, atoms={
+                                       f: [list(v.shape[2:]) for v in
+                                           parts.values()]
+                                       for f, parts in ref_dict.items()})
+        del net
+        opt = _zoo_tiny_opt(root)
+        cpu_m = build_model(opt, device="cpu")
+        card_m = build_model(opt, device="cuda")
+        randomize_weights(cpu_m.net_g, 550)
+        card_m.net_g.load_state_dict(cpu_m.net_g.state_dict())
+        g = torch.Generator().manual_seed(55)
+        lq = torch.rand((2, 16, 16, 3), generator=g)
+        gt = torch.rand((2, 64, 64, 3), generator=g)
+        want, _ = sr_pieces(cpu_m, lq, gt)
+        got, _ = sr_pieces(card_m, lq.cuda(), gt.cuda())
+        rows["tiny EDSR SRModel step"] = compare_pieces(
+            got, want, "zoo tiny EDSR step, card vs CPU (TF32 off)")
+    finally:
+        _tf32_restore(old)
+    log("zoo archs card vs CPU (TF32 off, random weights), of max|CPU|: "
+        + "; ".join(f"{k} {v['out']} {v['rel_err']:.3g} (CPU "
+                    f"{v['cpu_s']:.2f} s)" for k, v in rows.items()
+                    if "rel_err" in v)
+        + f"; DFDNet dictionary K={DFD_K}, atoms (h, w) per tap and part "
+        f"{rows['DFDNet 512²']['atoms']}")
+    for k, v in rows.items():
+        if "rel_err" in v:
+            require(v["rel_err"] <= ZOO_TOL, f"{k}: card vs CPU {v}")
+    return rows
+
+
+def _record_validation(store):
+    """Wrap SRModel.validation (SRGANModel inherits it) so that every
+    result it returns is kept in `store`."""
+    from image_restoration_tpu_torch.models.sr_model import SRModel
+    orig = SRModel.validation
+
+    def wrapped(self, *a, **k):
+        out = orig(self, *a, **k)
+        store.append(out)
+        return out
+
+    return mock.patch.object(SRModel, "validation", wrapped)
+
+
+def phase_zoo_main_path(root, data):
+    """Phase 54, main path: counts at 0; `train_pipeline` for 16 steps on
+    train_EDSR_Lx4.yml (bs 16, gt 192), train_RCAN_x2.yml (bs 16, gt 96,
+    `network_g:upscale=2`: the file ships upscale 4 at scale 2, which fails
+    at the first loss, as under JAX), train_MSRResNet_x4.yml and
+    train_MSRGAN_x4.yml (random VGG19 taps), each as written apart from
+    its dataroots (the made sub-images, validation on the made Set5) and
+    `pretrain_network_g` (absent), a checkpoint and a validation at 16;
+    then test.py: test_EDSR_Lx4.yml on EDSR-L's net_g_16.pth,
+    test_MSRResNet_x4.yml and its _woGT twin on MSRResNet's, and
+    test_RCAN.yml (×4) on a seeded RCAN ×4 reference-layout `.pth` (the
+    trained RCAN is ×2), each set pointed at the made folders (DIV2K100
+    through its `'{}x4'` on DIV2K-named LR); RIDNet and DFDNet at 512²
+    from reference-layout `.pth` files written here (DFDNet's with its
+    spectral-norm triples, beside its dictionary `.pth`). Every PSNR
+    finite; K1, K2 and K3 counted 0."""
+    from image_restoration_tpu_torch.archs import build_network
+    from image_restoration_tpu_torch.convert import (
+        dfdnet_reference_state_dict, load_dfdnet, load_dfdnet_dict)
+    from image_restoration_tpu_torch.convert.pth import load_pth
+    from image_restoration_tpu_torch.test import test_pipeline
+    from image_restoration_tpu_torch.train import train_pipeline
+    d = data["root"]
+    set5 = f"{d}/Set5"
+    kernels = _counts_zero()
+    models, train_rows, vals = {}, {}, []
+    for name, (cfg, s) in ZOO_TRAIN.items():
+        argv = ["-opt", cfg, "--force_yml",
+                f"datasets:train:dataroot_gt={d}/DIV2K/DIV2K_train_HR_sub",
+                f"datasets:train:dataroot_lq={d}/DIV2K/"
+                f"DIV2K_train_LR_bicubic/X{s}_sub",
+                f"datasets:val:dataroot_gt={set5}/GTmod12",
+                f"datasets:val:dataroot_lq={set5}/LRbicx{s}",
+                "path:pretrain_network_g=~", f"train:total_iter={ZOO_ITERS}",
+                "logger:print_freq=8"]
+        if name == "RCAN x2":
+            argv.append("network_g:upscale=2")
+        t0 = time.perf_counter()
+        with _record_validation(vals):
+            model = train_pipeline(root, argv=argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        logs, val = model.log_dict, vals[-1]
+        ckpt = os.path.join(model.opt["path"]["models"],
+                            f"net_g_{ZOO_ITERS}.pth")
+        train_rows[name] = dict(wall_s=wall, last_losses=logs, val=val,
+                                ckpt=ckpt)
+        log(f"zoo {name}: {model.iter} iterations in {wall:.2f} s (wall: "
+            "build, validation on 4 2040×1356 images and saves included); "
+            "last losses " + ", ".join(f"{k}={v:.4g}"
+                                       for k, v in logs.items())
+            + f"; validation {val}")
+        pix = logs.get("l_pix", logs.get("l_g_pix"))
+        require(model.iter == ZOO_ITERS and os.path.exists(ckpt)
+                and all(math.isfinite(v) for v in logs.values())
+                and pix < 100.0  # an L1 of [0, 1] images: not diverged
+                and math.isfinite(val.get("psnr", float("nan"))),
+                f"zoo {name}: iter {model.iter}, {logs}, {val}")
+        models[name] = model
+    rcan4 = build_network(dict(ZOO_ARCHS["RCAN 10x20 x4"]),
+                          torch.Generator().manual_seed(560))
+    pths = {"EDSR-L x4": train_rows["EDSR-L x4"]["ckpt"],
+            "RCAN x4": save_pth(rcan4, f"{root}/RCAN_BIX4.pth"),
+            "MSRResNet x4": train_rows["MSRResNet x4"]["ckpt"],
+            "MSRResNet x4 woGT": train_rows["MSRResNet x4"]["ckpt"]}
+    del rcan4
+    test_rows = {}
+    for name, cfg in ZOO_TEST_CFG.items():
+        if name.endswith("woGT"):
+            sets = [f"datasets:test_1:dataroot_lq={set5}/LRbicx4",
+                    f"datasets:test_2:dataroot_lq={set5}/LRbicx4"]
+        else:
+            sets = [f"datasets:test_{i}:dataroot_gt={set5}/GTmod12"
+                    for i in (1, 2, 3)] + [
+                f"datasets:test_1:dataroot_lq={set5}/LRbicx4",
+                f"datasets:test_2:dataroot_lq={set5}/LRbicx4",
+                f"datasets:test_3:dataroot_lq={d}/DIV2K/"
+                "DIV2K_valid_LR_bicubic/X4"]
+        t0 = time.perf_counter()
+        res = test_pipeline(root, argv=["-opt", cfg, "--force_yml", *sets,
+                                        f"path:pretrain_network_g="
+                                        f"{pths[name]}"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        n_img = ZOO_TEST * len(res)
+        test_rows[name] = dict(wall_s=wall, images=n_img,
+                               imgs_per_s=n_img / wall, metrics=res)
+        log(f"zoo test.py {cfg}: {n_img} images (2040×1356 out) in "
+            f"{wall:.2f} s ({n_img / wall:.2f} images/s, PSNR/SSIM on the "
+            f"host and PNG writes included): {res}")
+        require(all(math.isfinite(m["psnr"]) for m in res.values())
+                if not name.endswith("woGT")
+                else res == {"Set5": {}, "Set14": {}},
+                f"zoo test.py {name}: {res}")
+    # RIDNet and DFDNet from reference-layout .pth files
+    rid_opt = ZOO_ARCHS["RIDNet"]
+    rid = build_network(rid_opt, torch.Generator().manual_seed(570))
+    randomize_weights(rid, 571)
+    rid_pth = save_pth(rid, f"{root}/RIDNet.pth")
+    rid_card = build_network(rid_opt).cuda().eval()
+    rid_card.load_state_dict(load_pth(rid_pth, "params_ema"), strict=True)
+    clean = scene_image(512, 512, 5700).astype(np.float32)
+    noisy = np.clip(clean + np.random.default_rng(57).normal(
+        0, 15, clean.shape), 0, 255).astype(np.float32)
+    with torch.inference_mode():
+        den = rid_card(torch.from_numpy(noisy[None]).cuda()).cpu()[0]
+    rid_psnr = _psnr_u8(np.clip(den.numpy(), 0, 255).astype(np.uint8),
+                        clean.astype(np.uint8))
+    dfd = build_network(dict(type="DFDNet"),
+                        torch.Generator().manual_seed(580))
+    randomize_weights(dfd, 581)
+    torch.save(dfdnet_reference_state_dict(dfd), f"{root}/DFDNet.pth")
+    torch.save(zoo_dict(582), f"{root}/DFDNet_dict.pth")
+    dfd_card = load_dfdnet(f"{root}/DFDNet.pth", build_network(
+        dict(type="DFDNet"))).cuda().eval()
+    ddict = load_dfdnet_dict(f"{root}/DFDNet_dict.pth")
+    face = torch.from_numpy(scene_image(512, 512, 5800)[None].astype(
+        np.float32) / 127.5 - 1.0).cuda()
+    old = _tf32_off()
+    try:  # the folded checkpoint gives the net it came from back
+        with torch.inference_mode():
+            restored = dfd_card(face, DFD_BOXES, ddict)
+            twin = dfd.cuda().eval()(face, DFD_BOXES, ddict)
+    finally:
+        _tf32_restore(old)
+    fold_err = float((restored - twin).abs().max() / twin.abs().max())
+    restored_u8 = ((restored[0].cpu().numpy() + 1) * 127.5).clip(
+        0, 255).astype(np.uint8)
+    dfd_psnr = _psnr_u8(restored_u8, ((face[0].cpu().numpy() + 1) * 127.5)
+                        .astype(np.uint8))
+    counts = [k.launches for k in kernels]
+    log(f"zoo RIDNet 512² from its .pth: PSNR {rid_psnr:.2f} dB against the "
+        f"clean photo (σ=15 noise); DFDNet 512² from a spectral-norm .pth "
+        f"and a K={DFD_K} dictionary .pth: PSNR {dfd_psnr:.2f} dB against "
+        f"its input, the loaded net {fold_err:.3g} of max|y| from the net "
+        f"it was written from (TF32 off); K1/K2/K3 launches {counts}; random weights "
+        "and synthetic data: not quality numbers")
+    require(counts == [0, 0, 0], f"zoo path: kernels {counts}")
+    require(math.isfinite(rid_psnr) and math.isfinite(dfd_psnr)
+            and fold_err <= 1e-5, f"RIDNet/DFDNet: {rid_psnr} {dfd_psnr} "
+            f"{fold_err}")
+    nets = dict(ridnet=(rid_card, torch.from_numpy(noisy[None]).cuda()),
+                dfdnet=(dfd_card, face, ddict))
+    del dfd, twin
+    return models, nets, dict(
+        train={k: {kk: vv for kk, vv in v.items() if kk != "ckpt"}
+               for k, v in train_rows.items()},
+        test=test_rows, ridnet_psnr=rid_psnr, dfdnet_psnr=dfd_psnr,
+        dfdnet_fold_rel=fold_err, launches=counts)
+
+
+def _zoo_batches(model, n=4):
+    """n batches of the trainer's own train set (its loader's crops), as
+    numpy, read before timing."""
+    from image_restoration_tpu_torch.data import (build_dataloader,
+                                                  build_dataset)
+    opt = dict(model.opt["datasets"]["train"])
+    loader = build_dataloader(build_dataset(opt), opt, seed=1)
+    out = []
+    for batch in loader:
+        out.append({k: v for k, v in batch.items() if k in ("lq", "gt")})
+        if len(out) == n:
+            break
+    return out
+
+
+def phase_zoo_speed(models, nets):
+    """Phase 55: per trainer s per step (median of steps 5-16 of a loop
+    with no synchronize between steps, on 4 pre-read batches of its own
+    sub-images, bs 16), imgs/s and peak MiB; the device-busy share of one
+    profiled step of EDSR-L and of RCAN; RIDNet's and DFDNet's ms per 512²
+    forward (CUDA events, 10 forwards as the host issues them)."""
+    rows = {}
+    for name, model in models.items():
+        batches = _zoo_batches(model)
+        times, peak = timed_sr_steps(model, batches, ZOO_ITERS)
+        step = float(np.median(times[4:]))
+        row = dict(s_per_step=step, imgs_per_s=ZOO_BS / step, peak_mib=peak)
+        if name in ("EDSR-L x4", "RCAN x2"):
+            wall, busy = step_busy(model, batches[0])
+            row.update(profiled_step_ms=wall, busy_ms=busy,
+                       busy_share=busy / wall)
+        rows[name] = row
+        log(f"zoo {name} bs={ZOO_BS}: {step * 1e3:.2f} ms/step (median of "
+            f"steps 5-{ZOO_ITERS}), {ZOO_BS / step:.2f} imgs/s, peak "
+            f"{peak:.0f} MiB" + (
+                f"; a profiled step: wall {row['profiled_step_ms']:.2f} ms, "
+                f"device busy {row['busy_ms']:.2f} ms "
+                f"({100 * row['busy_share']:.1f}%)"
+                if "busy_share" in row else ""))
+        models[name] = None
+        del model
+        torch.cuda.empty_cache()
+    rid, rx = nets["ridnet"]
+    dfd, fx, ddict = nets["dfdnet"]
+    with torch.inference_mode():
+        rid_ms = host_time_ms(rid, [(rx,)], DFD_TIMED)
+        dfd_ms = host_time_ms(lambda x: dfd(x, DFD_BOXES, ddict), [(fx,)],
+                              DFD_TIMED)
+    rows["RIDNet 512²"] = dict(ms_per_forward=rid_ms)
+    rows["DFDNet 512²"] = dict(ms_per_forward=dfd_ms)
+    log(f"zoo forwards at 512², bs 1: RIDNet {rid_ms:.2f} ms, DFDNet "
+        f"{dfd_ms:.2f} ms (K={DFD_K}, 16 part swaps)")
+    return rows
+
+
+def phase_zoo(tmp):
+    """Path 13: phases 52-55."""
+    t0 = time.perf_counter()
+    data = phase_zoo_data(tmp)
+    check = phase_zoo_card_vs_cpu(tmp)
+    models, nets, main_path = phase_zoo_main_path(tmp, data)
+    speed = phase_zoo_speed(models, nets)
+    del models, nets
+    torch.cuda.empty_cache()
+    data = {k: v for k, v in data.items() if k != "root"}
+    log(f"path 13: {time.perf_counter() - t0:.1f} s")
+    return main_path["launches"], dict(data=data, card_vs_cpu=check,
+                                       main_path=main_path, speed=speed)
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", default=None,
@@ -5777,6 +6292,10 @@ def main(argv=None):
         fid_k1, fid = phase_fid(tmp)
     lap("path 12")
 
+    with tempfile.TemporaryDirectory(prefix="irt_zoo_") as tmp:
+        zoo_counts, zoo = phase_zoo(tmp)
+    lap("path 13")
+
     a = agg[("float32", 16)]
     kernels = [{
         "name": "fused_bias_lrelu",
@@ -5840,7 +6359,8 @@ def main(argv=None):
         artifact_correctness=art_check, dyn_int8=dyn, train=train,
         sr_train=sr_trainers, stylegan2=stylegan2, components=components,
         detector_train=detector_train, hifacegan=hifacegan, fid=fid,
-        path_seconds=path_s, seconds=time.perf_counter() - t_start,
+        zoo=zoo, zoo_launches=zoo_counts, path_seconds=path_s,
+        seconds=time.perf_counter() - t_start,
         note="kernels[].ms/plain_ms/bound_ms: device time (calls back to "
              "back, CUDA events) and bound, summed over the 39 K1 launches "
              "of one batch-16 f32 forward, over the 34 K2 launches of "
@@ -5854,7 +6374,8 @@ def main(argv=None):
              "are those of the main-path phases of paths 1, 4, 5, 6, 8, 9, "
              "10 and 12 (4, 17, 21, 26, 36, 39, 42, 50), "
              "K2's those of paths 2, 5 and 7 (8, 21, 31: the "
-             "engine built from the QAT checkpoint)")
+             "engine built from the QAT checkpoint); paths 11 and 13 "
+             "launch none")
     if out:
         os.makedirs(os.path.dirname(out), exist_ok=True)
         with open(out, "w") as f:

@@ -21,6 +21,11 @@ from . import vgg_arch  # noqa: F401
 from . import discriminator_arch  # noqa: F401
 from . import hifacegan_arch  # noqa: F401
 from . import inception_arch  # noqa: F401
+from . import edsr_arch  # noqa: F401
+from . import srresnet_arch  # noqa: F401
+from . import rcan_arch  # noqa: F401
+from . import ridnet_arch  # noqa: F401
+from . import dfdnet_arch  # noqa: F401
 
 _DTYPE_ALIASES = {
     "bf16": torch.bfloat16, "bfloat16": torch.bfloat16,

@@ -21,7 +21,7 @@ from torch import nn
 from ..ops.pixel_ops import pixel_unshuffle
 from ..ops.rrdb_common import lrelu, mul, nearest2x
 from ..utils.registry import ARCH_REGISTRY
-from .arch_util import Conv3x3
+from .arch_util import Conv
 
 
 class ResidualDenseBlock(nn.Module):
@@ -31,8 +31,8 @@ class ResidualDenseBlock(nn.Module):
         super().__init__()
         f, g = num_feat, num_grow_ch
         for j in range(1, 5):
-            setattr(self, f"conv{j}", Conv3x3(f + (j - 1) * g, g, scale=0.1))
-        self.conv5 = Conv3x3(f + 4 * g, f, scale=0.1)
+            setattr(self, f"conv{j}", Conv(f + (j - 1) * g, g, scale=0.1))
+        self.conv5 = Conv(f + 4 * g, f, scale=0.1)
 
     def forward(self, x):
         feats = [x]
@@ -69,14 +69,14 @@ class RRDBNet(nn.Module):
         self.scale, self.num_feat, self.num_block = scale, num_feat, num_block
         self.num_grow_ch, self.dtype = num_grow_ch, dtype
         cin = num_in_ch * {4: 1, 2: 4, 1: 16}[scale]
-        self.conv_first = Conv3x3(cin, num_feat)
+        self.conv_first = Conv(cin, num_feat)
         self.body = nn.Sequential(*[RRDB(num_feat, num_grow_ch)
                                     for _ in range(num_block)])
-        self.conv_body = Conv3x3(num_feat, num_feat)
-        self.conv_up1 = Conv3x3(num_feat, num_feat)
-        self.conv_up2 = Conv3x3(num_feat, num_feat)
-        self.conv_hr = Conv3x3(num_feat, num_feat)
-        self.conv_last = Conv3x3(num_feat, num_out_ch)
+        self.conv_body = Conv(num_feat, num_feat)
+        self.conv_up1 = Conv(num_feat, num_feat)
+        self.conv_up2 = Conv(num_feat, num_feat)
+        self.conv_hr = Conv(num_feat, num_feat)
+        self.conv_last = Conv(num_feat, num_out_ch)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.dtype is not None:

@@ -18,7 +18,7 @@ from torch import nn
 
 from ..ops.pixel_ops import pixel_shuffle
 from ..utils.registry import ARCH_REGISTRY
-from .arch_util import Conv3x3
+from .arch_util import Conv
 
 
 class _PReLU(nn.PReLU):
@@ -58,11 +58,10 @@ class SRVGGNetCompact(nn.Module):
         self.dtype = dtype
         layers = []
         for i in range(num_conv + 1):
-            layers.append(Conv3x3(num_in_ch if i == 0 else num_feat,
-                                  num_feat))
+            layers.append(Conv(num_in_ch if i == 0 else num_feat, num_feat))
             layers.append(_PReLU(num_feat) if act_type == "prelu"
                           else _Act(act_type))
-        layers.append(Conv3x3(num_feat, num_out_ch * upscale * upscale))
+        layers.append(Conv(num_feat, num_out_ch * upscale * upscale))
         self.body = nn.ModuleList(layers)
 
     def conv_layers(self):

@@ -1,11 +1,13 @@
-"""cv2-compatible resize: bilinear as two matrix products, nearest as two
-gathers.
+"""cv2-compatible resize (bilinear as two matrix products, nearest as two
+gathers) and MATLAB's bicubic `imresize`.
 
-Port of `image_restoration_tpu/ops/resize.py:49-56,111-192`: any separable
+Port of `image_restoration_tpu/ops/resize.py:29-192`: any separable
 resize is `out = R_h @ img @ R_w^T`, with the (out, in) weight matrices built
 in numpy (cv2 half-pixel centres, border-replicate taps). Used for the
 ConvUpLayer ×2 upsample, the Restorer input resize and the GFPGAN trainer's
-GT pyramid.
+GT pyramid. `imresize` is MATLAB's bicubic (a = −0.5, the kernel widened
+by 1/scale when antialiased downscaling, symmetric edges), the resize of
+`scripts/matlab_scripts.py`'s test and training sets.
 
 `dynamic_resize_matrix` (JAX `ops/resize.py:198`) builds the matrices for
 a per-sample scale held in a tensor, on its device, for a whole batch at
@@ -18,6 +20,46 @@ import numpy as np
 import torch
 
 from ..utils.device import DeviceConstants
+
+
+def _cubic_matlab(x):
+    """MATLAB's bicubic kernel (a = −0.5)."""
+    absx = np.abs(x)
+    absx2, absx3 = absx ** 2, absx ** 3
+    return ((1.5 * absx3 - 2.5 * absx2 + 1) * (absx <= 1) +
+            (-0.5 * absx3 + 2.5 * absx2 - 4 * absx + 2) *
+            ((absx > 1) & (absx <= 2)))
+
+
+def matlab_resize_matrix(in_length: int, out_length: int,
+                         antialiasing: bool = True) -> np.ndarray:
+    """Dense (out_length, in_length) MATLAB-bicubic weight matrix (JAX
+    `ops/resize.py:57-92`): 1-indexed centres, the kernel widened by
+    1/scale when antialiased downscaling, weights renormalized per row,
+    out-of-range taps mirrored."""
+    scale = out_length / in_length
+    kernel_width = 4.0
+    if scale < 1 and antialiasing:
+        kernel_width = kernel_width / scale
+    x = np.arange(1, out_length + 1, dtype=np.float64)
+    u = x / scale + 0.5 * (1 - 1 / scale)
+    left = np.floor(u - kernel_width / 2)
+    p = int(np.ceil(kernel_width)) + 2
+    indices = left[:, None] + np.arange(p)[None, :]  # (out, p), 1-indexed
+    dist = u[:, None] - indices
+    if scale < 1 and antialiasing:
+        weights = scale * _cubic_matlab(dist * scale)
+    else:
+        weights = _cubic_matlab(dist)
+    weights = weights / weights.sum(axis=1, keepdims=True)
+    idx = (indices - 1).astype(np.int64)  # 0-indexed, then mirrored
+    aux = np.concatenate([np.arange(in_length),
+                          np.arange(in_length - 1, -1, -1)])
+    idx = aux[np.mod(idx, 2 * in_length)]
+    mat = np.zeros((out_length, in_length), dtype=np.float64)
+    for i in range(out_length):
+        np.add.at(mat[i], idx[i], weights[i])
+    return mat.astype(np.float32)
 
 
 def cv2_resize_matrix(in_length: int, out_length: int,
@@ -72,6 +114,26 @@ def _build_matrix(in_length: int, out_length: int, interpolation: str,
 # per network, so the cache stays small)
 _matrix = DeviceConstants(_build_matrix, maxsize=64)
 _index = DeviceConstants(_build_index, maxsize=64)
+_matlab = DeviceConstants(
+    lambda i, o, aa, device, dtype: torch.as_tensor(
+        matlab_resize_matrix(i, o, aa), device=device).to(dtype), maxsize=64)
+
+
+def imresize(img: torch.Tensor, scale: float,
+             antialiasing: bool = True) -> torch.Tensor:
+    """MATLAB's bicubic resize of NHWC (or HWC) float images by `scale`, to
+    ceil(h·scale) × ceil(w·scale): two contractions on the images' device
+    (JAX `ops/resize.py:94-108`)."""
+    squeeze = img.dim() == 3
+    if squeeze:
+        img = img[None]
+    h, w = img.shape[1], img.shape[2]
+    oh, ow = int(np.ceil(h * scale)), int(np.ceil(w * scale))
+    rh = _matlab(h, oh, antialiasing, img.device, img.dtype)
+    rw = _matlab(w, ow, antialiasing, img.device, img.dtype)
+    out = torch.einsum("oh,nhwc->nowc", rh, img)
+    out = torch.einsum("pw,nowc->nopc", rw, out)
+    return out[0] if squeeze else out
 
 
 def resize(img: torch.Tensor, out_hw, interpolation: str = "bilinear") -> torch.Tensor:
