@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py [--out report.json]
 
-Drives the port's thirteen main paths with random weights made from a seed,
+Drives the port's fourteen main paths with random weights made from a seed,
 and fails loudly if any phase fails:
 
   1. device: the card's name and power limit (nvidia-smi);
@@ -148,7 +148,7 @@ plates, the degradation on the card inside each step:
      trained EMA G) and one POST /Restore/ through `ServiceCore`;
  27. s per step (median of steps 5-32, run as a training loop runs them,
      with no synchronize between steps), trained imgs/s, the R1 step's ms,
-     peak MiB and TFLOP/s against `analytic_gfpgan_flops` at bs 4 and 16;
+     peak MiB and TFLOP/s against `analytic_gfpgan_flops` at bs 4;
  28. where one bs-4 step's device time goes: a profile of
      `optimize_parameters` for the device-busy share, the device time of
      each of its `gfpgan.*` ranges, the FIR depthwise convs, K1's forward
@@ -207,7 +207,7 @@ from its checkpoint:
      in a fresh StyleGAN2Generator samples what the trained EMA G samples
      at truncation 0.7 around `mean_latent(4096)`;
  37. s per step (median of steps 5-32, no synchronize between steps),
-     imgs/s and peak MiB at bs 3 and 24, the R1 and path-length steps' ms,
+     imgs/s and peak MiB at bs 3, the R1 and path-length steps' ms,
      and the device-busy share of a profiled bs-3 step with K1's forward
      and its PyTorch-op backward.
 
@@ -294,7 +294,7 @@ VGG16 weights:
      the `create_pak` CLI; every key read back bit-equal to its PNG's bytes
      through the lmdb, the pak (its native reader, built with g++) and the
      disk backends; FFHQDataset items equal across the three; images/s
-     through FFHQDataset and the DataLoader at bs 3 and 64 per backend;
+     through FFHQDataset and the DataLoader at bs 64 per backend;
  49. card vs CPU (TF32 off): InceptionV3 features at 299² of 4 images
      (≤1e-4 of max|CPU|), the LPIPS VGG16 distance of 4 pairs at 256²
      (≤1e-4 relative), `calculate_fid` of the card's features against the
@@ -325,7 +325,7 @@ option files as written (but for dataroots and absent pretrained paths),
 
  52. 8 seeded 2040×1356 photos as DIV2K_train_HR; `generate_bicubic` on
      the card (mod 12): LR ×2/×3/×4 of all 8 named the DIV2K way
-     (0001x4.png), GTmod12 and LRbicx2/3/4 of the first 4 (the test sets);
+     (0001x4.png), GTmod12 and LRbicx2/3/4 of the first 2 (the test sets);
      `extract_subimages` (HR 480/240, X2 240/120, X3 160/80, X4 120/60):
      40 sub-images per image and scale, every GT sub-image's LQ partner
      under `filename_tmpl: '{}'`; `imresize` card vs CPU (≤1e-5 of
@@ -346,9 +346,43 @@ option files as written (but for dataroots and absent pretrained paths),
      and DFDNet at 512² from `.pth` files written here (DFDNet's with
      spectral-norm triples, and its dictionary); every PSNR finite, K1, K2
      and K3 counted 0;
- 55. per trainer s per step (median of steps 5-16), imgs/s and peak MiB;
-     the device-busy share of a profiled EDSR-L and RCAN step; test.py
+ 55. EDSR-L's and RCAN's s per step (median of steps 5-16), imgs/s and
+     peak MiB and the device-busy share of a profiled step; test.py
      images/s; RIDNet's and DFDNet's ms per 512² forward.
+
+Path 14, video: the REDS, Vid4 and Vimeo-90K layouts made on the card,
+`train_pipeline` on the EDVR-L, BasicVSR, IconVSR and VideoRecurrentGAN
+REDS configs, `test.py` on five video test configs, and `VideoPipeline`
+on a video file; no kernel of the port runs on this path:
+
+ 56. 4 clips of 15 720×1280 GT frames (a seeded scene moving sub-pixel)
+     with ×1/4 LQ by `imresize`, the same cut to 10 frames (the test
+     set), a 5-frame validation clip, a Vid4-style 352×288 clip of 7
+     (LQ, and LQ bicubic-upscaled for TOFlow), 2 Vimeo septuplets, their
+     meta-info lists by `scripts/generate_meta_info.py` and a regroup by
+     `scripts/regroup_reds_dataset.py`; a 640×480 mp4v video of 48 frames;
+ 57. card vs CPU (TF32 off): the modulated deformable conv at EDVR-L's
+     shapes (128 channels, 8 groups, 64² and 180×320, offsets ±8 px) and
+     `flow_warp` (64 channels, 180×320, both paddings), outputs and
+     gradients within 1e-4; SpyNet, EDVR-L, EDVR-M, BasicVSR, IconVSR,
+     DUF-52 and TOFlow at their configs' widths within 1e-4 of max|CPU|;
+ 58. main path: counts set to 0, then 16 steps each of the four REDS train
+     configs (bs 4, gt 256; `tsa_iter` and `fix_flow` cut to 8: below them
+     only `fusion.*` moved, `spynet.*`/`edvr.*` stayed bit-unchanged), as
+     written but for dataroots, meta-info files, the SpyNet/EDVR/pretrained
+     paths and the iteration cuts (each logged); s per step (median of
+     steps 5-16 of the run itself), clips/s, peak MiB; a profiled EDVR-L
+     and IconVSR step's busy share and the DCN's and warps' shares; test.py
+     on
+     test_EDVR_L_x4_SR_REDS.yml and test_BasicVSR_REDS.yml (the trained
+     nets), test_BasicVSR_Vimeo90K_BIx4.yml, test_DUF_official.yml and
+     test_TOF_official.yml (seeded `.pth` files): frames/s and PSNR;
+ 59. `VideoPipeline` (Resnet18 224², batches of 4) on the video: frames/s,
+     tracks, the detector's share of the wall; K1, K2 and K3 counted 0.
+
+To make room for path 14, throughput repetitions of paths 5, 6, 8, 9, 12
+and 13 were cut (`CUTS`, logged first); no correctness comparison,
+kernel-vs-plain check or launch-count assertion was cut.
 
 Each path's seconds are printed as it ends. The last line of stdout is
 {"ok": true, "device": {...}}; the line before it lists the kernels as
@@ -400,6 +434,27 @@ K1_OPS_PER_ELEMENT = 4      # add, compare, two multiplies
 HOLD_CALLS = 50
 HOLD_CYCLES = 40_000_000
 ROUTE_METHODS = {"/Restore/": "restore", "/RestoreConcat/": "restore_concat"}
+
+
+# depth cut from earlier paths to make room for path 14: throughput
+# repetitions only; every correctness comparison, kernel-vs-plain check and
+# launch-count assertion stays
+CUTS = (
+    "path 5, phase 22: dyn-int8/float32/bf16 imgs/s at bs 1 and 32 (bs 8 "
+    "timing dropped)",
+    "path 6, phase 27: GAN step timing at bs 4 only (the bs-16 rerun "
+    "dropped)",
+    "path 8, phase 34: FUSE timings in 'off' and 'both' (all four settings "
+    "still checked)",
+    "path 8, phase 37: StyleGAN2 step timing at bs 3 only (the bs-24 "
+    "rerun dropped)",
+    "path 12, phase 48: loader imgs/s at bs 64 only (bs 3 dropped)",
+    "path 9, phase 40: the identity config's 32 timed steps (its profile "
+    "stays)",
+    "path 13, phases 52/54: test sets of 2 DIV2K-size images (were 4)",
+    "path 13, phase 55: step timings of EDSR-L and RCAN only (MSRResNet and "
+    "MSRGAN dropped)",
+)
 
 
 def require(cond, msg):
@@ -2142,7 +2197,7 @@ def phase_pipeline_throughput(pipe):
 ENGINE_BATCH = 32           # export_gfpgan's default batch
 GEO_BATCH = 8
 DYN_INT8_GATE_DB = 30.0     # tests/test_serve.py:206-217's gate
-SPEED_BATCHES = (1, 8, 32)
+SPEED_BATCHES = (1, 32)      # bs 8 cut to make room for path 14
 
 
 def _tf32_off():
@@ -2540,6 +2595,7 @@ K1_PER_D_FORWARD = 15
 K1_PER_GD_STEP = K1_LAUNCHES_PER_FORWARD + 3 * K1_PER_D_FORWARD
 K1_PER_R1_STEP = K1_PER_D_FORWARD   # the double backward launches none
 TRAIN_ITERS = 32                    # R1 at 16 and 32
+TRAIN_SPEED_BATCHES = (4,)          # bs 16 cut to make room for path 14
 FIR_KERNEL_KEYS = ("conv2d_grouped_direct", "dgrad2d_c1_k1")
 TRAIN_VAL_IMAGES = 4
 LOSS_RTOL = 1e-5                    # kernel vs plain, card vs CPU
@@ -2952,12 +3008,12 @@ def phase_train_throughput(root, model4):
     """Phase 27: s per step (median of steps 5-32 as `timed_steps` runs
     them, the R1 steps 16 and 32 included in the run), trained imgs/s, the
     R1 step's ms, peak MiB and achieved TFLOP/s against
-    analytic_gfpgan_flops, at bs 4 and 16, with PyTorch's default TF32
+    analytic_gfpgan_flops, at bs 4 (TRAIN_SPEED_BATCHES), with PyTorch's default TF32
     settings."""
     log(f"timed runs: cudnn.allow_tf32={torch.backends.cudnn.allow_tf32} "
         f"matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32}")
     rows = {}
-    for bs in (4, 16):
+    for bs in TRAIN_SPEED_BATCHES:
         model = model4 if bs == 4 else build_trainer(root, bs)[0]
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
@@ -3674,7 +3730,7 @@ def phase_sr_train(tmp):
 SG2_CONFIG = "configs/options/train/StyleGAN/train_StyleGAN2_256_Cmul2_FFHQ.yml"
 SG2_ITERS = 32               # R1 at 16 and 32, the path step every 4
 SG2_IMAGES = 16
-SG2_BATCHES = (3, 24)        # the config's batch and its name's B24
+SG2_BATCHES = (3,)           # the config's batch; bs 24 cut for path 14
 # K1 per G forward at 256²: 8 style-MLP layers per code, 13 StyleConvs;
 # per D forward (channel multiplier 2): the 1×1 ConvLayer, two in each of
 # 6 ResBlocks, final_conv and final_linear's first layer
@@ -3683,6 +3739,8 @@ K1_PER_SG2_D = 15
 # the four FUSE settings: (FUSE_UP, FUSE_DOWN)
 FUSE_SETTINGS = {"off": (False, False), "up": (True, False),
                  "down": (False, True), "both": (True, True)}
+# the settings timed (all four are checked); up and down cut for path 14
+FUSE_SPEED_SETTINGS = ("off", "both")
 FUSE_SPEED_BATCHES = (1, 16, 32)
 FUSED_FLOAT_TOL = 2e-4       # of max|y|, flagged vs unflagged float output
 # the path piece at 512 channels: the card's error against float64 at most
@@ -3746,8 +3804,9 @@ def phase_fuse_restore():
     output, ≤2e-4·max|y| on the float one; dyn-int8, where the fused path
     quantizes the FIR-folded weight, so the operands differ: ≥30 dB, the
     serving gate, with the worst LSB printed), and K1 39 per forward in
-    every setting. TF32 at PyTorch's defaults: device ms of a bs-16
-    forward (calls back to back), imgs/s at bs 1, 16 and 32, and a profile
+    every setting. TF32 at PyTorch's defaults, in FUSE_SPEED_SETTINGS:
+    device ms of a bs-16 forward (calls back to back), imgs/s at bs 1, 16
+    and 32, and a profile
     of a bs-16 forward with the FIR depthwise convs' and the fused ops'
     shares of device time."""
     from image_restoration_tpu_torch.infer import PRODUCTION_GFPGAN, Restorer
@@ -3808,8 +3867,8 @@ def phase_fuse_restore():
     x16 = torch.from_numpy(u8[16]).cuda().float() / 255.0
     x16 = (x16 - restorer._mean_t) / restorer._std_t
     speed = {}
-    for setting, flags in FUSE_SETTINGS.items():
-        with fuse_flags(*flags):
+    for setting in FUSE_SPEED_SETTINGS:
+        with fuse_flags(*FUSE_SETTINGS[setting]):
             # a whole forward takes the host longer to enqueue than the
             # device to run, and its ≈ 600 launches fill much of the CUDA
             # launch queue: windows of one forward behind a ≈ 300 ms sleep
@@ -4238,8 +4297,7 @@ def sg2_step_profile(model, batch, it):
 def phase_sg2_throughput(root, model3):
     """Phase 37: s per step (median of steps 5-32 of a loop with no
     synchronize between steps; R1 at 16 and 32, the path step every 4),
-    imgs/s and peak MiB at bs 3 (the trained model) and bs 24 (a fresh
-    one); the R1 step's and the path-length step's ms alone; the
+    imgs/s and peak MiB at bs 3 (the trained model); the R1 step's and the path-length step's ms alone; the
     device-busy share of one profiled bs-3 D+G step and of one with the
     path step, with K1's forward and its PyTorch-op backward. TF32 at
     PyTorch's defaults."""
@@ -4321,6 +4379,7 @@ def phase_stylegan2(tmp):
 COMP_CONFIG = "configs/train_gfpgan_plate_256x64_component.yml"
 IDENTITY_CONFIG = "configs/train_gfpgan_plate_256_identity.yml"
 COMP_ITERS = 32                     # R1 at 16 and 32, a checkpoint at 32
+COMP_TIMED = ("component",)         # identity's timed steps cut for path 14
 IDENTITY_ITERS = 16                 # R1 at 16
 COMP_BS = 4                         # both configs' batch_size_per_gpu
 COMP_HW = (64, 256)                 # the component config's plates
@@ -4753,8 +4812,12 @@ def phase_comp_throughput(comp_model, id_model):
                           for i in range(2)]}
     for name, model in (("component", comp_model), ("identity", id_model)):
         torch.cuda.empty_cache()
-        times, peak = comp_timed_steps(model, pools[name], COMP_ITERS)
-        step = float(np.median(times[4:]))
+        if name in COMP_TIMED:
+            times, peak = comp_timed_steps(model, pools[name], COMP_ITERS)
+            step = float(np.median(times[4:]))
+        else:  # its step's profile only
+            times, peak, step = [float("nan")] * COMP_ITERS, None, \
+                float("nan")
         if name == "component":
             ranges = {"irt.roi_align": (gfpgan_model, "roi_align"),
                       "irt.char_ds_forward": (model.net_d_char, "forward")}
@@ -4771,11 +4834,13 @@ def phase_comp_throughput(comp_model, id_model):
                           range_ms=range_ms,
                           top=[dict(ms=t, count=n, name=k[:200])
                                for t, n, k in kernels[:12]])
-        log(f"{name} step bs={COMP_BS}: {step * 1e3:.2f} ms/step (median of "
-            f"steps 5-32), {COMP_BS / step:.2f} imgs/s, steps 16/32 (with "
-            f"R1) {times[15] * 1e3:.1f}/{times[31] * 1e3:.1f} ms, peak "
-            f"{peak:.0f} MiB; profiled step: wall {wall:.2f} ms, device "
-            f"busy {busy:.2f} ms ({100 * busy / wall:.1f}% of that wall, "
+        log(f"{name} step bs={COMP_BS}: " + (
+            f"{step * 1e3:.2f} ms/step (median of steps 5-32), "
+            f"{COMP_BS / step:.2f} imgs/s, steps 16/32 (with R1) "
+            f"{times[15] * 1e3:.1f}/{times[31] * 1e3:.1f} ms, peak "
+            f"{peak:.0f} MiB; " if name in COMP_TIMED else "not timed; ")
+            + f"profiled step: wall {wall:.2f} ms, device busy {busy:.2f} "
+            f"ms ({100 * busy / wall:.1f}% of that wall, "
             f"{100 * busy / (step * 1e3):.1f}% of the median step); "
             + ", ".join(f"{k} {v:.3f} ms" for k, v in range_ms.items()))
         for t, n, k in kernels[:8]:
@@ -5314,7 +5379,8 @@ FID_STATS_BS = 64
 FID_TRUNCATION = 0.7
 K1_FID = 8 + (FID_IMAGES // FID_G_BS) * K1_PER_SG2_G[1]  # mean_latent + G
 IO_CHECK_ITEMS = 64          # FFHQDataset items compared across backends
-IO_SPEED_IMAGES = {3: 192, 64: 512}  # images read per timed loader run
+# images read per timed loader run; bs 3 cut to make room for path 14
+IO_SPEED_IMAGES = {64: 512}
 INCEPTION_TOL = 1e-4         # of max|CPU|, card vs CPU features, TF32 off
 LPIPS_RTOL = 1e-4            # card vs CPU distance, TF32 off
 G_SAMPLE_TOL = 1e-5          # of max|y|, the G sample on K1 vs plain K1
@@ -5362,7 +5428,7 @@ def phase_fid_io(root):
     and a pak by the `create_pak` CLI; every key read back bit-equal to
     the PNG's bytes through FileClient("lmdb"), "pak" (the native reader)
     and "disk"; FFHQDataset items equal across the three backends; images/s
-    through FFHQDataset and the DataLoader at bs 3 and 64 per backend."""
+    through FFHQDataset and the DataLoader at bs 64 per backend."""
     from image_restoration_tpu_torch.data import build_dataset
     from image_restoration_tpu_torch.scripts import create_pak
     from image_restoration_tpu_torch.utils.file_client import FileClient
@@ -5710,10 +5776,11 @@ def phase_fid(tmp):
 
 # ------- path 13: the image zoo and the data preparation that feeds it
 
-ZOO_PHOTOS = 8               # DIV2K-size photos; the first 4 are the test sets
-ZOO_TEST = 4
+ZOO_PHOTOS = 8               # DIV2K-size photos; the first ZOO_TEST are the test sets
+ZOO_TEST = 2                 # test-set images; 4 before path 14
 ZOO_HW = (1356, 2040)        # DIV2K's 2040×1356, a multiple of 12
 ZOO_ITERS = 16
+ZOO_TIMED = ("EDSR-L x4", "RCAN x2")  # phase 55; the others cut for path 14
 ZOO_BS = 16                  # every zoo train config's batch_size_per_gpu
 # BasicSR's DIV2K sub-image crops and steps, HR and each LR scale
 ZOO_SUB = {1: (480, 240), 2: (240, 120), 3: (160, 80), 4: (120, 60)}
@@ -5780,7 +5847,7 @@ def phase_zoo_data(root):
     """Phase 52: 8 seeded 2040×1356 photos as DIV2K_train_HR (0001.png…);
     on the card, `generate_bicubic` (mod 12) writes each ×2/×3/×4 LR under
     DIV2K_train_LR_bicubic/X{s} named the DIV2K way (0001x4.png), and for
-    the first 4 the test sets Set5/GTmod12 and LRbicx{2,3,4} (and the
+    the first ZOO_TEST the test sets Set5/GTmod12 and LRbicx{2,3,4} (and the
     DIV2K_valid pair, LR named 0001x4.png); `extract_subimages` cuts HR at
     480/240 and each LR at 240/120, 160/80, 120/60. Checks: 40 sub-images
     per image and scale, each GT sub-image's LQ partner present under the
@@ -5828,7 +5895,7 @@ def phase_zoo_data(root):
         f"{d}/DIV2K/DIV2K_train_LR_bicubic/X{s}_sub/{n}") for n in gt_names)
         for s in (2, 3, 4)}
     log(f"zoo data: {ZOO_PHOTOS} photos {w}×{h}; generate_bicubic on the "
-        f"card (LR ×2/×3/×4 of 8, GTmod12 + LRbicx2/3/4 of 4) in "
+        f"card (LR ×2/×3/×4 of 8, GTmod12 + LRbicx2/3/4 of {ZOO_TEST}) in "
         f"{t_gen:.2f} s; extract_subimages in {t_sub:.2f} s: {counts} "
         f"sub-images (HR, X2, X3, X4); GT sub-images without an LQ partner "
         f"under '{{}}': {missing}")
@@ -6133,13 +6200,18 @@ def _zoo_batches(model, n=4):
 
 
 def phase_zoo_speed(models, nets):
-    """Phase 55: per trainer s per step (median of steps 5-16 of a loop
-    with no synchronize between steps, on 4 pre-read batches of its own
-    sub-images, bs 16), imgs/s and peak MiB; the device-busy share of one
+    """Phase 55: for EDSR-L and RCAN (ZOO_TIMED) s per step (median of
+    steps 5-16 of a loop with no synchronize between steps, on 4 pre-read
+    batches of its own sub-images, bs 16), imgs/s and peak MiB; the
+    device-busy share of one
     profiled step of EDSR-L and of RCAN; RIDNet's and DFDNet's ms per 512²
     forward (CUDA events, 10 forwards as the host issues them)."""
     rows = {}
     for name, model in models.items():
+        if name not in ZOO_TIMED:  # a throughput repetition, cut
+            models[name] = None
+            del model
+            continue
         batches = _zoo_batches(model)
         times, peak = timed_sr_steps(model, batches, ZOO_ITERS)
         step = float(np.median(times[4:]))
@@ -6187,6 +6259,631 @@ def phase_zoo(tmp):
                                        main_path=main_path, speed=speed)
 
 
+# ------- path 14: video (EDVR, BasicVSR/IconVSR, DUF, TOFlow, the video
+# datasets and trainers, VideoPipeline)
+
+VID_CLIPS = ("001", "002", "003", "004")  # none of REDS4's 000/011/015/020
+VID_FRAMES = 15              # BasicVSR's and IconVSR's training num_frame
+VID_TEST_FRAMES = 10         # the test configs' clips, cut to 10 frames
+VID_VAL_FRAMES = 5           # the trainers' validation clip
+VID_HW = (720, 1280)         # REDS's GT; LQ ×1/4, 180×320
+VID4_HW = (288, 352)         # the DUF / TOFlow test clip (Vid4-style)
+VID_ITERS = 16
+VID_CUT = 8                  # tsa_iter and fix_flow
+# the trainers whose step is profiled: EDVR-L (the DCN on a device-bound
+# step) and IconVSR (the DCN and the warps); a 15-frame recurrent step
+# holds ≈ 60k trace events, which take the profiler 30-50 s to process
+VID_PROFILED = ("EDVR-L", "IconVSR")
+VID_TOL = 1e-4               # of max|CPU| (and of max|grad|), TF32 off
+VID_TRAIN = {
+    "EDVR-L": ("configs/options/train/EDVR/train_EDVR_L_x4_SR_REDS.yml",
+               ["path:pretrain_network_g=~", f"train:tsa_iter={VID_CUT}"]),
+    "BasicVSR": ("configs/options/train/BasicVSR/train_BasicVSR_REDS.yml",
+                 ["network_g:spynet_path=~", f"train:fix_flow={VID_CUT}"]),
+    "IconVSR": ("configs/options/train/BasicVSR/train_IconVSR_REDS.yml",
+                ["network_g:spynet_path=~", "network_g:edvr_path=~",
+                 f"train:fix_flow={VID_CUT}"]),
+    "VideoRecurrentGAN": ("configs/options/train/VideoRecurrentGAN/"
+                          "train_VideoRecurrentGANModel_REDS.yml",
+                          ["network_g:spynet_path=~",
+                           "path:pretrain_network_g=~"]),
+}
+# each arch at its config's width (the EDVR-L / EDVR-M, IconVSR, DUF and
+# TOF option files), frames and LQ size of the card-vs-CPU check
+VID_ARCHS = {
+    "SpyNet": (dict(type="SpyNet"), None),
+    "EDVR-L": (dict(type="EDVR", num_feat=128, num_frame=5,
+                    deformable_groups=8, num_extract_block=5,
+                    num_reconstruct_block=40), (5, 64, 64)),
+    "EDVR-M": (dict(type="EDVR", num_feat=64, num_frame=5,
+                    deformable_groups=8, num_extract_block=5,
+                    num_reconstruct_block=10), (5, 64, 64)),
+    "BasicVSR": (dict(type="BasicVSR", num_feat=64, num_block=30),
+                 (5, 64, 64)),
+    "IconVSR": (dict(type="IconVSR", num_feat=64, num_block=30,
+                     keyframe_stride=5, temporal_padding=2), (5, 64, 64)),
+    "DUF-52": (dict(type="DUF", scale=4, num_layer=52,
+                    adapt_official_weights=True), (7, 64, 64)),
+    "TOFlow": (dict(type="TOFlow", adapt_official_weights=True),
+               (7, 64, 64)),
+}
+VID_VIDEO = dict(frames=48, hw=(480, 640), batch=4)
+
+
+def _video_scene(seed, hw, frames, motion):
+    """`frames` GT frames (uint8 RGB, on the card) of a seeded scene moving
+    by `motion` = (Δx, Δy) px a frame, sub-pixel: each frame is the padded
+    scene warped by t·motion (the port's flow_warp, border padding) and
+    cropped."""
+    from image_restoration_tpu_torch.archs.arch_util import flow_warp
+    h, w = hw
+    pad = int(math.ceil(max(abs(m) for m in motion) * frames)) + 4
+    scene = torch.from_numpy(scene_image(h + 2 * pad, w + 2 * pad, seed)
+                             .astype(np.float32)).cuda()[None]
+    out = []
+    for t in range(frames):
+        flow = torch.tensor([motion[0] * t, motion[1] * t],
+                            device="cuda").expand(1, h + 2 * pad,
+                                                  w + 2 * pad, 2)
+        f = flow_warp(scene, flow, padding_mode="border")
+        out.append(f[0, pad:pad + h, pad:pad + w].round().clamp(0, 255)
+                   .to(torch.uint8))
+    return out
+
+
+def _write_pngs(jobs):
+    """cv2.imwrite of (path, RGB uint8 array) on 8 threads."""
+    import cv2
+    from concurrent.futures import ThreadPoolExecutor
+
+    def one(job):
+        path, img = job
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        require(cv2.imwrite(path, np.ascontiguousarray(img[..., ::-1])),
+                f"cannot write {path}")
+
+    with ThreadPoolExecutor(8) as pool:
+        list(pool.map(one, jobs))
+
+
+def phase_video_data(root):
+    """Phase 56: seeded synthetic clips on the card in REDS's layout: 4
+    clips of 15 720×1280 GT frames (train_sharp/<clip>/<frame>.png), each
+    a scene moving by its own sub-pixel motion, their ×1/4 LQ by the port's
+    MATLAB-bicubic `imresize` (train_sharp_bicubic/X4); the meta-info list
+    by `scripts/generate_meta_info.py reds --root`; the test clips (the 4
+    clips cut to 10 frames), a 5-frame validation clip, a Vid4-style
+    288×352 clip of 7 frames with its ×1/4 LQ and that LQ bicubic-upscaled
+    (TOFlow's input), a Vimeo-style folder of 2 septuplets (256×448, LQ
+    64×112) with its list; and a 640×480 mp4v video (MJPG .avi where cv2
+    cannot write mp4v) of a car scene panning across 48 frames."""
+    import cv2
+    from image_restoration_tpu_torch.ops.resize import imresize
+    from image_restoration_tpu_torch.scripts import (generate_meta_info,
+                                                     regroup_reds_dataset)
+    d = f"{root}/datasets"
+    t0 = time.perf_counter()
+    jobs = []
+
+    def add_clip(gt_root, lq_root, up_root, name, frames):
+        for i, f in enumerate(frames):
+            lq = imresize(f.float()[None] / 255.0, 0.25)[0]
+            lq_u8 = (lq * 255.0).round().clamp(0, 255).to(torch.uint8)
+            jobs.append((f"{gt_root}/{name}/{i:08d}.png", f.cpu().numpy()))
+            jobs.append((f"{lq_root}/{name}/{i:08d}.png",
+                         lq_u8.cpu().numpy()))
+            if up_root:
+                up = cv2.resize(lq_u8.cpu().numpy(), (f.shape[1],
+                                                      f.shape[0]),
+                                interpolation=cv2.INTER_CUBIC)
+                jobs.append((f"{up_root}/{name}/{i:08d}.png", up))
+
+    reds = f"{d}/REDS"
+    for k, clip in enumerate(VID_CLIPS):
+        frames = _video_scene(5600 + k, VID_HW, VID_FRAMES,
+                              (0.37 + 0.5 * k, -0.61 + 0.3 * k))
+        add_clip(f"{reds}/train_sharp", f"{reds}/train_sharp_bicubic/X4",
+                 None, clip, frames)
+        add_clip(f"{reds}/test/GT", f"{reds}/test/X4", None, clip,
+                 frames[:VID_TEST_FRAMES])
+        if k == 0:
+            add_clip(f"{reds}/val/GT", f"{reds}/val/X4", None, clip,
+                     frames[:VID_VAL_FRAMES])
+    add_clip(f"{d}/Vid4/GT", f"{d}/Vid4/BIx4", f"{d}/Vid4/BIx4up_direct",
+             "calendar", _video_scene(5700, VID4_HW, 7, (0.8, 0.45)))
+    vimeo = f"{d}/vimeo90k"
+    for k, key in enumerate(("00001/0001", "00001/0002")):
+        frames = _video_scene(5800 + k, (256, 448), 7, (0.5, 0.25))
+        for i, f in enumerate(frames):
+            lq = imresize(f.float()[None] / 255.0, 0.25)[0]
+            jobs.append((f"{vimeo}/GT/{key}/im{i + 1}.png", f.cpu().numpy()))
+            jobs.append((f"{vimeo}/BIx4/{key}/im{i + 1}.png",
+                         (lq * 255.0).round().clamp(0, 255).to(torch.uint8)
+                         .cpu().numpy()))
+    _write_pngs(jobs)
+    t_clips = time.perf_counter() - t0
+    with contextlib.redirect_stdout(io.StringIO()):
+        meta = {"train": f"{d}/meta_REDS_GT.txt",
+                "test": f"{d}/meta_REDS_test.txt",
+                "val": f"{d}/meta_REDS_val.txt"}
+        lines = {k: generate_meta_info.main(["reds", "--root", src,
+                                              "--out", meta[k]])
+                 for k, src in (("train", f"{reds}/train_sharp"),
+                                ("test", f"{reds}/test/GT"),
+                                ("val", f"{reds}/val/GT"))}
+        with open(f"{d}/sep_testlist.txt", "w") as f:
+            f.write("00001/0001\n00001/0002\n")
+        meta["vimeo"] = f"{d}/meta_Vimeo90K_test.txt"
+        generate_meta_info.main(["vimeo", "--list",
+                                 f"{d}/sep_testlist.txt", "--out",
+                                 meta["vimeo"]])
+    require(lines["train"] == [f"{c} {VID_FRAMES} ({VID_HW[0]},{VID_HW[1]},3)"
+                               for c in VID_CLIPS],
+            f"meta-info: {lines['train']}")
+    # the regroup script on a copy of one clip as REDS's val split
+    os.makedirs(f"{d}/regroup/train")
+    shutil.copytree(f"{reds}/val/X4/001", f"{d}/regroup/val/001")
+    with contextlib.redirect_stdout(io.StringIO()):
+        moved = regroup_reds_dataset.regroup_reds_dataset(
+            f"{d}/regroup/train", f"{d}/regroup/val")
+    require(moved == ["241"], f"regroup_reds_dataset: {moved}")
+
+    # the video file: a car scene panning right and down, 48 frames
+    vh, vw = VID_VIDEO["hw"]
+    video = f"{root}/cars.mp4"
+    frames = _video_scene(5900, (vh, vw), VID_VIDEO["frames"], (2.5, 1.25))
+    wr = cv2.VideoWriter(video, cv2.VideoWriter_fourcc(*"mp4v"), 25,
+                         (vw, vh))
+    if not wr.isOpened():
+        video = f"{root}/cars.avi"
+        wr = cv2.VideoWriter(video, cv2.VideoWriter_fourcc(*"MJPG"), 25,
+                             (vw, vh))
+    for f in frames:
+        wr.write(np.ascontiguousarray(f.cpu().numpy()[..., ::-1]))
+    wr.release()
+    cap = cv2.VideoCapture(video)
+    n_read = int(cap.get(cv2.CAP_PROP_FRAME_COUNT))
+    cap.release()
+    require(n_read == VID_VIDEO["frames"], f"{video}: {n_read} frames")
+    wall = time.perf_counter() - t0
+    log(f"video data: {len(VID_CLIPS)} REDS-layout clips of {VID_FRAMES} "
+        f"{VID_HW[1]}×{VID_HW[0]} GT frames with ×1/4 LQ (imresize on the "
+        f"card), test clips of {VID_TEST_FRAMES}, a {VID_VAL_FRAMES}-frame "
+        f"val clip, a Vid4-style {VID4_HW[1]}×{VID4_HW[0]} clip of 7, "
+        f"2 Vimeo septuplets, {len(jobs)} PNGs in {t_clips:.2f} s; meta "
+        f"lists by generate_meta_info; {os.path.basename(video)} "
+        f"({vw}×{vh}, {n_read} frames); {wall:.2f} s in all")
+    return dict(root=d, meta=meta, video=video, clips_s=t_clips,
+                pngs=len(jobs), data_s=wall, video_frames=n_read)
+
+
+def _rel_err(card, cpu):
+    return float((card.float().cpu() - cpu.float()).abs().max()
+                 / cpu.float().abs().max())
+
+
+def phase_video_card_vs_cpu():
+    """Phase 57 (TF32 off): the modulated deformable conv at EDVR-L's
+    shapes (128 channels, 8 deformable groups, 3×3, offsets uniform in ±8
+    px, a sigmoid mask) at 64² and 180×320 and `flow_warp` at BasicVSR's
+    64 channels and 180×320 (flows uniform in ±8 px; zero and border
+    padding): outputs within 1e-4 of max|CPU|, and the gradients of
+    Σ out·c to every input within 1e-4 of max|grad| (on the card a
+    gather's backward adds atomically, in no fixed order). Then each arch
+    at its config's width, card against CPU within 1e-4 of max|CPU|:
+    SpyNet on a 180×320 pair, EDVR-L, EDVR-M, BasicVSR and IconVSR on 5
+    frames of 64², DUF-52 (official weights' BatchNorm, drawn statistics)
+    and TOFlow on 7 frames of 64²."""
+    from image_restoration_tpu_torch.archs import build_network
+    from image_restoration_tpu_torch.archs.arch_util import flow_warp
+    from image_restoration_tpu_torch.ops.deform_conv import \
+        modulated_deform_conv
+    rows = {}
+    old = _tf32_off()
+    try:
+        for h, w in ((64, 64), (180, 320)):
+            g = torch.Generator().manual_seed(5700 + h)
+            ins = [torch.randn(1, h, w, 128, generator=g),
+                   torch.rand(1, h, w, 8 * 18, generator=g) * 16 - 8,
+                   torch.sigmoid(torch.randn(1, h, w, 8 * 9, generator=g)),
+                   torch.randn(128, 128, 3, 3, generator=g) * 0.03,
+                   torch.randn(128, generator=g) * 0.1]
+            c = torch.randn(1, h, w, 128, generator=g)
+
+            def run(dev):
+                xs = [t.detach().to(dev).requires_grad_(True) for t in ins]
+                t0 = time.perf_counter()
+                y = modulated_deform_conv(*xs, deformable_groups=8)
+                (y * c.to(dev)).sum().backward()
+                if dev == "cuda":
+                    torch.cuda.synchronize()
+                return y.detach(), [t.grad for t in xs], \
+                    time.perf_counter() - t0
+
+            y_cpu, g_cpu, t_cpu = run("cpu")
+            y_card, g_card, _ = run("cuda")
+            grads = {n: _rel_err(a, b) for n, a, b in zip(
+                ("x", "offset", "mask", "weight", "bias"), g_card, g_cpu)}
+            rows[f"DCN {h}×{w}"] = dict(out_rel=_rel_err(y_card, y_cpu),
+                                        grad_rel=grads, cpu_s=t_cpu)
+        g = torch.Generator().manual_seed(5710)
+        x = torch.randn(2, 180, 320, 64, generator=g)
+        flow = torch.rand(2, 180, 320, 2, generator=g) * 16 - 8
+        c = torch.randn(2, 180, 320, 64, generator=g)
+        for pad in ("zeros", "border"):
+            res = {}
+            for dev in ("cpu", "cuda"):
+                xs = [t.detach().to(dev).requires_grad_(True)
+                      for t in (x, flow)]
+                y = flow_warp(*xs, padding_mode=pad)
+                (y * c.to(dev)).sum().backward()
+                res[dev] = (y.detach(), [t.grad for t in xs])
+            rows[f"flow_warp 64ch 180×320 {pad}"] = dict(
+                out_rel=_rel_err(res["cuda"][0], res["cpu"][0]),
+                grad_rel={n: _rel_err(a, b) for n, a, b in zip(
+                    ("x", "flow"), res["cuda"][1], res["cpu"][1])})
+        for i, (name, (opt, shape)) in enumerate(VID_ARCHS.items()):
+            net = build_network(opt, torch.Generator().manual_seed(571 + i))
+            randomize_weights(net, 581 + i)
+            g = torch.Generator().manual_seed(591 + i)
+            if name == "DUF-52":  # drawn BatchNorm statistics
+                with torch.no_grad():
+                    for bn, b in net.named_buffers():
+                        if bn.endswith("running_mean"):
+                            b.copy_(0.1 * torch.randn(b.shape, generator=g))
+                        elif bn.endswith("running_var"):
+                            b.copy_(1 + 0.2 * torch.rand(b.shape,
+                                                         generator=g))
+            net.eval()
+            if shape is None:
+                args = [torch.rand(1, 180, 320, 3, generator=g)
+                        for _ in range(2)]
+            else:
+                args = [torch.rand((1,) + shape + (3,), generator=g)]
+            t0 = time.perf_counter()
+            with torch.inference_mode():
+                cpu = net(*args)
+            t_cpu = time.perf_counter() - t0
+            with torch.inference_mode():
+                card = net.cuda()(*[a.cuda() for a in args])
+            rows[name] = dict(out_rel=_rel_err(card, cpu),
+                              out=list(cpu.shape), cpu_s=t_cpu)
+            del net
+    finally:
+        _tf32_restore(old)
+    log("video card vs CPU (TF32 off, random weights), of max|CPU| (grads "
+        "of max|grad|): " + "; ".join(
+            f"{k} {v['out_rel']:.3g}" + (
+                " grads " + ", ".join(f"{n} {e:.3g}"
+                                      for n, e in v["grad_rel"].items())
+                if "grad_rel" in v else f" {v['out']}")
+            + (f" (CPU {v['cpu_s']:.2f} s)" if "cpu_s" in v else "")
+            for k, v in rows.items()))
+    for k, v in rows.items():
+        worst = max([v["out_rel"]] + list(v.get("grad_rel", {}).values()))
+        require(worst <= VID_TOL, f"{k}: card vs CPU {v}")
+    return rows
+
+
+def _video_ranges():
+    """Patches that run each DCN and flow_warp call of the video archs in
+    the profiler ranges irt.dcn and irt.flow_warp."""
+    from image_restoration_tpu_torch.archs import (basicvsr_arch, edvr_arch,
+                                                   spynet_arch, tof_arch)
+    return ([mock.patch.object(edvr_arch, "modulated_deform_conv", _ranged(
+        "irt.dcn", edvr_arch.modulated_deform_conv))]
+        + [mock.patch.object(m, "flow_warp", _ranged("irt.flow_warp",
+                                                      m.flow_warp))
+           for m in (basicvsr_arch, spynet_arch, tof_arch)])
+
+
+def _video_step_profile(model, batch):
+    """(wall ms, busy ms, {part: device ms}) of one profiled step: the DCN's
+    and the warps' forwards (their ranges) and backwards (the autograd
+    nodes of their gathers)."""
+    from torch.profiler import ProfilerActivity, profile
+    patches = _video_ranges()
+    for p in patches:
+        p.start()
+    try:
+        model.optimize_parameters(model.iter + 1, batch)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            model.optimize_parameters(model.iter + 1, batch)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+    finally:
+        for p in patches:
+            p.stop()
+    # one aggregation of the trace (a 15-frame recurrent step holds tens of
+    # thousands of events; each key_averages() pass takes seconds)
+    busy, cpu_ms, host = 0.0, {}, []
+    for e in prof.key_averages():
+        kind = getattr(e, "device_type", None)
+        if kind == torch.autograd.DeviceType.CUDA:
+            busy += getattr(e, "self_device_time_total",
+                            getattr(e, "self_cuda_time_total", 0.0)) / 1e3
+        elif kind == torch.autograd.DeviceType.CPU:
+            cpu_ms[e.key] = getattr(e, "device_time_total",
+                                    getattr(e, "cuda_time_total", 0.0)) / 1e3
+            host.append((e.self_cpu_time_total / 1e3, e.count, e.key))
+    ev = "autograd::engine::evaluate_function: "
+    parts = {"dcn_forward": cpu_ms.get("irt.dcn", 0.0),
+             "dcn_gather_backward": cpu_ms.get(ev + "IndexSelectBackward0",
+                                               0.0),
+             "warp_forward": cpu_ms.get("irt.flow_warp", 0.0),
+             "warp_backward": cpu_ms.get(ev + "GridSampler2DBackward0", 0.0)}
+    # where the host's time goes: the ops with the most self CPU time
+    parts["host_top"] = [dict(ms=t, count=n, op=k[:80])
+                         for t, n, k in sorted(host, reverse=True)[:6]]
+    return wall, busy, parts
+
+
+def _record_video_validation(store):
+    """Wrap VideoBaseModel.validation so that every result it returns is
+    kept in `store`."""
+    from image_restoration_tpu_torch.models.video_models import \
+        VideoBaseModel
+    orig = VideoBaseModel.validation
+
+    def wrapped(self, *a, **k):
+        out = orig(self, *a, **k)
+        store.append(out)
+        return out
+
+    return mock.patch.object(VideoBaseModel, "validation", wrapped)
+
+
+def _first_batch(opt):
+    from image_restoration_tpu_torch.data import (build_dataloader,
+                                                  build_dataset)
+    ds_opt = dict(opt["datasets"]["train"])
+    for batch in build_dataloader(build_dataset(ds_opt), ds_opt, seed=2):
+        return {k: v for k, v in batch.items() if k in ("lq", "gt")}
+
+
+def phase_video_main_path(root, data):
+    """Phase 58, main path: counts at 0; `train_pipeline` for 16 steps on
+    train_EDVR_L_x4_SR_REDS.yml (bs 4, gt 256, 5 frames; `tsa_iter` 8),
+    train_BasicVSR_REDS.yml and train_IconVSR_REDS.yml (bs 4, 15 frames;
+    `fix_flow` 8) and train_VideoRecurrentGANModel_REDS.yml (bs 4, 15
+    frames, VGG19 and a 256² D), each as written but for its dataroots and
+    meta-info files, `spynet_path`/`edvr_path`/`pretrain_network_g` (no
+    `.pth` here) and the iteration cuts, each logged. Checks: below
+    `tsa_iter` only `fusion.*` moved; below `fix_flow` `spynet.*` and
+    `edvr.*` stayed bit-unchanged; every loss finite; a validation PSNR.
+    s per step is the median of steps 5-16 of the run itself (CUDA events
+    after each step, no synchronize between), with clips/s, peak MiB, and
+    one profiled step's busy share and DCN / warp shares (EDVR-L and
+    IconVSR). Then test.py:
+    test_EDVR_L_x4_SR_REDS.yml on EDVR-L's net_g_16.pth over the 4 clips
+    cut to 10 frames, test_BasicVSR_REDS.yml (whole clips) on BasicVSR's,
+    test_BasicVSR_Vimeo90K_BIx4.yml (flip_seq, center_frame_only) on the
+    septuplets, test_DUF_official.yml (DUF's Gaussian downsampling of the
+    GT on the host) and test_TOF_official.yml on seeded reference-layout
+    `.pth` files over the Vid4-style clip: frames/s and PSNR."""
+    from image_restoration_tpu_torch.archs import build_network
+    from image_restoration_tpu_torch.test import test_pipeline
+    from image_restoration_tpu_torch.train import train_pipeline
+    from image_restoration_tpu_torch.models import video_models
+    d, meta = data["root"], data["meta"]
+    reds = f"{d}/REDS"
+    kernels = _counts_zero()
+    rows, ckpts, vals = {}, {}, []
+    for name, (cfg, cuts) in VID_TRAIN.items():
+        argv = ["-opt", cfg, "--force_yml",
+                f"datasets:train:dataroot_gt={reds}/train_sharp",
+                f"datasets:train:dataroot_lq={reds}/train_sharp_bicubic/X4",
+                f"datasets:train:meta_info_file={meta['train']}",
+                f"datasets:val:dataroot_gt={reds}/val/GT",
+                f"datasets:val:dataroot_lq={reds}/val/X4",
+                f"datasets:val:meta_info_file={meta['val']}",
+                f"train:total_iter={VID_ITERS}", "logger:print_freq=8",
+                *cuts]
+        log(f"video {name}: --force_yml cuts {cuts + [f'train:total_iter={VID_ITERS}']}"
+            " (and the dataroots / meta-info files)")
+        cls = getattr(video_models, {"EDVR-L": "EDVRModel",
+                                     "VideoRecurrentGAN":
+                                     "VideoRecurrentGANModel"}.get(
+                                         name, "VideoRecurrentModel"))
+        orig = cls.optimize_parameters
+        rec = dict(events=[], snap=None, moved=None)
+
+        def step(self, current_iter, batch, generator=None, rec=rec,
+                 orig=orig):
+            if current_iter == 1:
+                rec["snap"] = {k: v.clone() for k, v in
+                               self.net_g.state_dict().items()}
+                rec["events"].append(torch.cuda.Event(enable_timing=True))
+                rec["events"][-1].record()
+            out = orig(self, current_iter, batch, generator)
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            rec["events"].append(ev)
+            if current_iter == VID_CUT - 1 and rec["snap"] is not None:
+                rec["moved"] = sorted(
+                    k for k, v in self.net_g.state_dict().items()
+                    if not torch.equal(v, rec["snap"][k]))
+                rec["snap"] = None
+            if current_iter == VID_ITERS:
+                rec["peak"] = torch.cuda.max_memory_allocated() / 2 ** 20
+            return out
+
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        with mock.patch.object(cls, "optimize_parameters", step), \
+                _record_video_validation(vals):
+            model = train_pipeline(root, argv=argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        ev = rec["events"]
+        times = [a.elapsed_time(b) / 1e3 for a, b in zip(ev, ev[1:])]
+        s_step = float(np.median(times[4:]))
+        bs = model.opt["datasets"]["train"]["batch_size_per_gpu"]
+        logs = model.log_dict
+        val = vals[-1] if vals else {}
+        ckpts[name] = os.path.join(model.opt["path"]["models"],
+                                   f"net_g_{VID_ITERS}.pth")
+        names = list(model.net_g.state_dict())
+        moved = rec["moved"]
+        cut = name != "VideoRecurrentGAN"
+        if name == "EDVR-L":  # below tsa_iter only the TSA fusion trains
+            require(moved and all(k.startswith("fusion.") for k in moved),
+                    f"video {name}: moved below tsa_iter: {moved}")
+        elif cut:  # below fix_flow SpyNet and the EDVR extractor stay
+            require(moved and not any(k.startswith(("spynet.", "edvr."))
+                                      for k in moved),
+                    f"video {name}: moved below fix_flow: {moved}")
+        prof = {}
+        if name in VID_PROFILED:
+            pwall, busy, parts = _video_step_profile(model,
+                                                     _first_batch(model.opt))
+            prof = dict(profiled_step_ms=pwall, busy_ms=busy,
+                        busy_share=busy / pwall, parts_ms=parts,
+                        parts_share={k: v / busy for k, v in parts.items()
+                                     if k != "host_top"})
+        rows[name] = dict(
+            wall_s=wall, iters=model.iter, s_per_step=s_step,
+            clips_per_s=bs / s_step, batch=bs, peak_mib=rec.get("peak"),
+            last_losses=logs, validation=val,
+            moved_below_cut=dict(count=len(moved), of=len(names))
+            if cut else None, **prof)
+        log(f"video {name}: {VID_ITERS} iterations in {wall:.2f} s (wall: "
+            f"build and validation included); {s_step * 1e3:.2f} ms/step "
+            f"(median of steps 5-{VID_ITERS}), {bs / s_step:.3f} clips/s at "
+            f"bs {bs}, peak {rec.get('peak', float('nan')):.0f} MiB; last "
+            "losses " + ", ".join(f"{k}={v:.4g}" for k, v in logs.items())
+            + (f"; below the cut {len(moved)} of {len(names)} tensors "
+               "moved, the frozen ones bit-unchanged" if cut else "")
+            + f"; validation {val}" + (
+                f"; a profiled step: wall {pwall:.2f} ms, busy {busy:.2f} "
+                f"ms ({100 * busy / pwall:.1f}%), " + ", ".join(
+                    f"{k} {v:.3f} ms ({100 * v / busy:.1f}%)"
+                    for k, v in parts.items() if k != "host_top")
+                + "; host's top ops (self CPU ms, count): " + ", ".join(
+                    f"{h['op']} {h['ms']:.1f} x{h['count']}"
+                    for h in parts["host_top"]) if prof else ""))
+        require(model.iter >= VID_ITERS and os.path.exists(ckpts[name])
+                and logs and all(math.isfinite(v) for v in logs.values())
+                and val and all(math.isfinite(v) for v in val.values()),
+                f"video {name}: iter {model.iter}, {logs}, {val}")
+        del model
+        torch.cuda.empty_cache()
+
+    # test.py
+    duf = build_network(dict(type="DUF", scale=4, num_layer=52,
+                             adapt_official_weights=True),
+                        torch.Generator().manual_seed(590))
+    tof = build_network(dict(type="TOFlow", adapt_official_weights=True),
+                        torch.Generator().manual_seed(591))
+    pths = {"DUF": save_pth(duf, f"{root}/DUF.pth"),
+            "TOF": save_pth(tof, f"{root}/TOF.pth")}
+    del duf, tof
+    tests = {
+        "EDVR-L REDS4": ("configs/options/test/EDVR/test_EDVR_L_x4_SR_REDS.yml",
+                         ckpts["EDVR-L"], f"{reds}/test/GT",
+                         f"{reds}/test/X4", meta["test"],
+                         len(VID_CLIPS) * VID_TEST_FRAMES),
+        "BasicVSR REDS4": ("configs/options/test/BasicVSR/"
+                           "test_BasicVSR_REDS.yml", ckpts["BasicVSR"],
+                           f"{reds}/test/GT", f"{reds}/test/X4", None,
+                           len(VID_CLIPS) * VID_TEST_FRAMES),
+        "BasicVSR Vimeo90K": ("configs/options/test/BasicVSR/"
+                              "test_BasicVSR_Vimeo90K_BIx4.yml",
+                              ckpts["BasicVSR"], f"{d}/vimeo90k/GT",
+                              f"{d}/vimeo90k/BIx4", meta["vimeo"], 2),
+        "DUF Vid4": ("configs/options/test/DUF/test_DUF_official.yml",
+                     pths["DUF"], f"{d}/Vid4/GT", f"{d}/Vid4/BIx4", None, 7),
+        "TOF Vid4": ("configs/options/test/TOF/test_TOF_official.yml",
+                     pths["TOF"], f"{d}/Vid4/GT", f"{d}/Vid4/BIx4up_direct",
+                     None, 7),
+    }
+    test_rows = {}
+    for name, (cfg, pth, gt, lq, mi, frames) in tests.items():
+        key = "test_1" if "BasicVSR" in name else "test"  # the files' keys
+        sets = [f"datasets:{key}:dataroot_gt={gt}",
+                f"datasets:{key}:dataroot_lq={lq}",
+                f"datasets:{key}:meta_info_file={mi or '~'}"]
+        if "BasicVSR" in name:  # its SpyNet comes with the checkpoint
+            sets.append("network_g:spynet_path=~")
+        t0 = time.perf_counter()
+        res = test_pipeline(root, argv=["-opt", cfg, "--force_yml", *sets,
+                                        f"path:pretrain_network_g={pth}"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        (metrics,) = res.values()
+        test_rows[name] = dict(wall_s=wall, frames=frames,
+                               frames_per_s=frames / wall, metrics=metrics)
+        log(f"video test.py {cfg}: {frames} frames in {wall:.2f} s "
+            f"({frames / wall:.2f} frames/s, build, PSNR on the host and "
+            f"data included): {metrics}")
+        require(metrics and all(math.isfinite(v) for v in metrics.values()),
+                f"video test.py {name}: {res}")
+    return rows, test_rows, kernels
+
+
+def phase_video_pipeline(video, kernels):
+    """Phase 59: `VideoPipeline` on the 640×480 video with the port's
+    Resnet18 detector at 224² (calibrated statistics), batches of 4:
+    frames/s, tracks, and the detector's share of the wall (its calls
+    timed, a synchronize ending each); then K1, K2 and K3 must count 0 on
+    the whole path."""
+    from image_restoration_tpu_torch.serve.video import VideoPipeline
+    det = build_detector("Resnet18", "cuda", seed=0)
+    pipe = VideoPipeline(det, batch_size=VID_VIDEO["batch"])
+    pipe.run(video, max_frames=VID_VIDEO["batch"])  # warm up
+    pipe = VideoPipeline(det, batch_size=VID_VIDEO["batch"])
+    det_s = [0.0]
+    orig = pipe.detect_batch
+
+    def timed(frames):
+        t0 = time.perf_counter()
+        out = orig(frames)
+        det_s[0] += time.perf_counter() - t0
+        return out
+
+    pipe.detect_batch = timed
+    out = f"{os.path.dirname(video)}/annotated.mp4"
+    t0 = time.perf_counter()
+    res = pipe.run(video, out)
+    wall = time.perf_counter() - t0
+    ids = {t.track_id for _, tracks in res for t in tracks}
+    per_frame = [len(t) for _, t in res]
+    counts = [k.launches for k in kernels]
+    row = dict(frames=len(res), wall_s=wall, frames_per_s=len(res) / wall,
+               tracks=len(ids), mean_tracks_per_frame=float(
+                   np.mean(per_frame)), detector_s=det_s[0],
+               detector_share=det_s[0] / wall, launches=counts)
+    log(f"VideoPipeline: {len(res)} frames of {VID_VIDEO['hw'][1]}×"
+        f"{VID_VIDEO['hw'][0]} in {wall:.2f} s ({len(res) / wall:.2f} "
+        f"frames/s, batches of {VID_VIDEO['batch']}), {len(ids)} tracks, "
+        f"{np.mean(per_frame):.2f} a frame, detector {det_s[0]:.2f} s "
+        f"({100 * det_s[0] / wall:.1f}% of the wall: decode, tracking, "
+        f"annotation and mp4v writing the rest); K1/K2/K3 launches on path "
+        f"14 {counts}")
+    require(len(res) == VID_VIDEO["frames"] and os.path.exists(out),
+            f"VideoPipeline: {len(res)} frames")
+    require(counts == [0, 0, 0], f"video path: kernels {counts}")
+    return row
+
+
+def phase_video(tmp):
+    """Path 14: phases 56-59."""
+    t0 = time.perf_counter()
+    data = phase_video_data(tmp)
+    check = phase_video_card_vs_cpu()
+    train, test, kernels = phase_video_main_path(tmp, data)
+    pipeline = phase_video_pipeline(data["video"], kernels)
+    data = {k: v for k, v in data.items() if k not in ("root", "meta")}
+    log(f"path 14: {time.perf_counter() - t0:.1f} s")
+    return pipeline["launches"], dict(data=data, card_vs_cpu=check,
+                                      train=train, test=test,
+                                      pipeline=pipeline)
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", default=None,
@@ -6206,6 +6903,8 @@ def main(argv=None):
         path_s[name] = time.perf_counter() - t_start - sum(path_s.values())
         log(f"{name}: {path_s[name]:.1f} s")
 
+    for cut in CUTS:
+        log(f"cut: {cut}")
     smi = phase_device()
     build = phase_build()
 
@@ -6296,6 +6995,10 @@ def main(argv=None):
         zoo_counts, zoo = phase_zoo(tmp)
     lap("path 13")
 
+    with tempfile.TemporaryDirectory(prefix="irt_video_") as tmp:
+        video_counts, video = phase_video(tmp)
+    lap("path 14")
+
     a = agg[("float32", 16)]
     kernels = [{
         "name": "fused_bias_lrelu",
@@ -6359,7 +7062,8 @@ def main(argv=None):
         artifact_correctness=art_check, dyn_int8=dyn, train=train,
         sr_train=sr_trainers, stylegan2=stylegan2, components=components,
         detector_train=detector_train, hifacegan=hifacegan, fid=fid,
-        zoo=zoo, zoo_launches=zoo_counts, path_seconds=path_s,
+        zoo=zoo, zoo_launches=zoo_counts, video=video,
+        video_launches=video_counts, cuts=CUTS, path_seconds=path_s,
         seconds=time.perf_counter() - t_start,
         note="kernels[].ms/plain_ms/bound_ms: device time (calls back to "
              "back, CUDA events) and bound, summed over the 39 K1 launches "
@@ -6374,7 +7078,7 @@ def main(argv=None):
              "are those of the main-path phases of paths 1, 4, 5, 6, 8, 9, "
              "10 and 12 (4, 17, 21, 26, 36, 39, 42, 50), "
              "K2's those of paths 2, 5 and 7 (8, 21, 31: the "
-             "engine built from the QAT checkpoint); paths 11 and 13 "
+             "engine built from the QAT checkpoint); paths 11, 13 and 14 "
              "launch none")
     if out:
         os.makedirs(os.path.dirname(out), exist_ok=True)

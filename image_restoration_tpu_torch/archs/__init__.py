@@ -26,6 +26,11 @@ from . import srresnet_arch  # noqa: F401
 from . import rcan_arch  # noqa: F401
 from . import ridnet_arch  # noqa: F401
 from . import dfdnet_arch  # noqa: F401
+from . import spynet_arch  # noqa: F401
+from . import edvr_arch  # noqa: F401
+from . import basicvsr_arch  # noqa: F401
+from . import duf_arch  # noqa: F401
+from . import tof_arch  # noqa: F401
 
 _DTYPE_ALIASES = {
     "bf16": torch.bfloat16, "bfloat16": torch.bfloat16,
@@ -47,11 +52,15 @@ def build_network(opt, generator: torch.Generator | None = None):
 
     Accepts the square `out_size` spelling for the rectangle-aware archs and
     dtype strings ("bf16", "float32", ...). Parameters are drawn from
-    `generator`, or from a generator seeded with 0.
+    `generator`, or from a generator seeded with 0; then a submodule that
+    names a reference `.pth` (SpyNet's and EDVRFeatureExtractor's
+    `load_path`) loads it.
     """
     opt = deepcopy(opt)
     network_type = opt.pop("type")
     cls = ARCH_REGISTRY.get(network_type)
+    # one device: a BatchNorm's batch statistics are the whole batch's
+    opt.pop("syncbn", None)
     if "out_size" in opt:
         size = opt.pop("out_size")
         opt.setdefault("input_width", size)
@@ -67,4 +76,7 @@ def build_network(opt, generator: torch.Generator | None = None):
     opt = {k: tuple(v) if isinstance(v, list) else v for k, v in opt.items()}
     net = cls(**opt)
     init_weights(net, generator or torch.Generator().manual_seed(0))
+    for m in net.modules():  # a reference `.pth` the options name
+        if hasattr(m, "load_pretrained"):
+            m.load_pretrained()
     return net

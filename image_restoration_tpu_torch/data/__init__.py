@@ -11,4 +11,6 @@ def build_dataset(opt):
     from . import datasets  # noqa: F401  (registration)
     opt = deepcopy(opt)
     dataset_type = opt.pop("type")
+    if dataset_type not in DATASET_REGISTRY:
+        from . import video_datasets  # noqa: F401  (registered when asked)
     return DATASET_REGISTRY.get(dataset_type)(opt)

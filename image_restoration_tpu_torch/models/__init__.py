@@ -12,6 +12,8 @@ def build_model(opt, device=None):
                    hifacegan_model, sr_model, srgan_model,
                    stylegan2_model)  # (registration)
     opt = deepcopy(opt)
+    if opt["model_type"] not in MODEL_REGISTRY:
+        from . import video_models  # noqa: F401  (registered when asked)
     model = MODEL_REGISTRY.get(opt["model_type"])(opt, device=device)
     get_root_logger().info(
         f"Model [{model.__class__.__name__}] is created.")

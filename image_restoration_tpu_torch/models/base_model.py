@@ -20,7 +20,7 @@ from __future__ import annotations
 
 import os
 from os import path as osp
-from typing import Dict, Optional
+from typing import Callable, Dict, Optional
 
 import torch
 
@@ -33,29 +33,38 @@ from .lr_scheduler import build_schedule
 
 class TrainOptimizer:
     """A torch optimizer over the named parameters of `net` outside
-    `frozen_prefix`, stepping at lr = schedule(updates so far)."""
+    `frozen_prefix`, stepping at lr = schedule(updates so far), times
+    `lr_mul(name)` for each parameter: the update scaled, as an
+    `optax.masked(optax.scale(m))` after the optimizer scales it
+    (EDVR's `dcn_lr_mul`, BasicVSR's `flow_lr_mul`)."""
 
     def __init__(self, net: torch.nn.Module, opt_cfg: dict, train_opt: dict,
                  frozen_prefix: Optional[str] = None, lr_scale: float = 1.0,
-                 betas=(0.9, 0.999)):
+                 betas=(0.9, 0.999),
+                 lr_mul: Optional[Callable[[str], float]] = None):
         opt_cfg = dict(opt_cfg)
         opt_type = opt_cfg.pop("type", "Adam").lower()
         lr = float(opt_cfg.pop("lr", 1e-4)) * lr_scale
         betas = tuple(opt_cfg.pop("betas", betas))
         self.grad_clip = opt_cfg.pop("grad_clip", None)
         self.schedule = build_schedule(train_opt, lr)
-        self.params = [p for name, p in net.named_parameters()
-                       if frozen_prefix is None
-                       or name.split(".")[0] != frozen_prefix]
+        named = [(name, p) for name, p in net.named_parameters()
+                 if frozen_prefix is None
+                 or name.split(".")[0] != frozen_prefix]
+        self.params = [p for _, p in named]
+        groups = {}
+        for name, p in named:
+            groups.setdefault(1.0 if lr_mul is None else float(lr_mul(name)),
+                              []).append(p)
+        params = [{"params": ps, "lr_mul": m} for m, ps in groups.items()]
         if opt_type == "adam":
-            self.opt = torch.optim.Adam(self.params, lr=lr, betas=betas,
-                                        eps=1e-8)
+            self.opt = torch.optim.Adam(params, lr=lr, betas=betas, eps=1e-8)
         elif opt_type == "adamw":
             self.opt = torch.optim.AdamW(
-                self.params, lr=lr, betas=betas, eps=1e-8,
+                params, lr=lr, betas=betas, eps=1e-8,
                 weight_decay=opt_cfg.get("weight_decay", 0.0))
         elif opt_type == "sgd":
-            self.opt = torch.optim.SGD(self.params, lr=lr,
+            self.opt = torch.optim.SGD(params, lr=lr,
                                        momentum=opt_cfg.get("momentum", 0.9))
         else:
             raise ValueError(f"unsupported optimizer {opt_type}")
@@ -83,7 +92,7 @@ class TrainOptimizer:
             self._clip(float(self.grad_clip))
         lr = self.schedule(self.count)
         for group in self.opt.param_groups:
-            group["lr"] = lr
+            group["lr"] = lr * group.get("lr_mul", 1.0)
         self.opt.step()
         self.count += 1
 
@@ -120,10 +129,11 @@ class BaseModel:
 
     def make_optimizer(self, train_opt_key: str, net: torch.nn.Module,
                        frozen_prefix: Optional[str] = None,
-                       lr_scale: float = 1.0,
-                       betas=(0.9, 0.999)) -> TrainOptimizer:
+                       lr_scale: float = 1.0, betas=(0.9, 0.999),
+                       lr_mul=None) -> TrainOptimizer:
         tx = TrainOptimizer(net, self.opt["train"][train_opt_key],
-                            self.opt["train"], frozen_prefix, lr_scale, betas)
+                            self.opt["train"], frozen_prefix, lr_scale, betas,
+                            lr_mul)
         self.optimizers.append(tx)
         return tx
 

@@ -78,7 +78,13 @@ class SRModel(BaseModel):
         self.cri_perceptual = loss("perceptual_opt")
         if self.cri_perceptual is not None:
             self.cri_perceptual.to(self.device)
-        self.optimizer_g = self.make_optimizer("optim_g", self.net_g)
+        self.optimizer_g = self.make_optimizer("optim_g", self.net_g,
+                                               lr_mul=self.g_lr_mul(train_opt))
+
+    def g_lr_mul(self, train_opt: dict):
+        """None, or the multiplier of each G parameter's update by name (the
+        video trainers' `dcn_lr_mul` and `flow_lr_mul`)."""
+        return None
 
     def _init_qat(self, train_opt: dict) -> None:
         """`train.quant_opt` (present, even empty, enables it): checks the

@@ -13,7 +13,8 @@ mode in every training call). After the D update, `_refresh_d_stats` moves
 them from the GT and then from the detached output, as JAX's
 `_refresh_d_stats` does, for a later eval or export. The gate counts
 iterations from the model's own count (`self.iter + 1`), as JAX's from its
-state.
+state. A video net's (N, T, H, W, C) clips reach D and the perceptual
+loss as N·T frames (`_flatten_time`, JAX `srgan_model.py:49`).
 """
 
 from __future__ import annotations
@@ -40,13 +41,19 @@ class SRGANModel(SRModel):
 
     # ------------------------------------------------------------- pieces
 
+    @staticmethod
+    def _flatten_time(x: torch.Tensor) -> torch.Tensor:
+        """(N, T, H, W, C) clips → (N·T, H, W, C); images pass."""
+        return x.reshape((-1,) + x.shape[2:]) if x.dim() == 5 else x
+
     def _gan_g_loss(self, output: torch.Tensor, gt: torch.Tensor):
-        return self.cri_gan(self.net_d(output), True, is_disc=False)
+        return self.cri_gan(self.net_d(self._flatten_time(output)), True,
+                            is_disc=False)
 
     def _gan_d_losses(self, output: torch.Tensor, gt: torch.Tensor):
         """(l_d, {name: loss}) of the D step at a detached output."""
-        real = self.net_d(gt)
-        fake = self.net_d(output.detach())
+        real = self.net_d(self._flatten_time(gt))
+        fake = self.net_d(self._flatten_time(output.detach()))
         l_real = self.cri_gan(real, True, is_disc=True)
         l_fake = self.cri_gan(fake, False, is_disc=True)
         return l_real + l_fake, {"l_d_real": l_real, "l_d_fake": l_fake,
@@ -60,7 +67,8 @@ class SRGANModel(SRModel):
         if self.cri_pix is not None:
             losses["l_g_pix"] = self.cri_pix(out, gt)
         if self.cri_perceptual is not None:
-            l_p, l_s = self.cri_perceptual(out, gt)
+            l_p, l_s = self.cri_perceptual(self._flatten_time(out),
+                                           self._flatten_time(gt))
             if l_p is not None:
                 losses["l_g_percep"] = l_p
             if l_s is not None:
@@ -77,7 +85,7 @@ class SRGANModel(SRModel):
         fake batches; the training forwards never read them."""
         if self._d_has_stats:
             for batch in (gt, output):
-                self.net_d(batch, refresh_stats=True)
+                self.net_d(self._flatten_time(batch), refresh_stats=True)
 
     # --------------------------------------------------------------- step
 

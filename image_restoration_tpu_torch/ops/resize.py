@@ -67,17 +67,24 @@ def cv2_resize_matrix(in_length: int, out_length: int,
     """Dense (out, in) matrix matching cv2.resize along one axis.
 
     bilinear: half-pixel centres `u = (i + 0.5) * in/out - 0.5`,
-    border-replicate taps. nearest: cv2's INTER_NEAREST,
-    `src = min(floor(i * in/out), in - 1)`, one-hot rows (`resize` gathers
-    those rows instead of multiplying, so the result is exact)."""
+    border-replicate taps; bilinear_ac: torch's `align_corners=True`,
+    `u = i * (in - 1)/(out - 1)` (JAX `ops/resize.py:140`). nearest:
+    cv2's INTER_NEAREST, `src = min(floor(i * in/out), in - 1)`, one-hot
+    rows (`resize` gathers those rows instead of multiplying, so the
+    result is exact)."""
     if interpolation == "nearest":
         mat = np.zeros((out_length, in_length), dtype=np.float32)
         mat[np.arange(out_length), nearest_index(in_length, out_length)] = 1
         return mat
-    if interpolation not in ("bilinear", "linear"):
+    if interpolation == "bilinear_ac":   # torch's align_corners=True
+        u = (np.zeros(1) if out_length == 1 else
+             np.arange(out_length, dtype=np.float64) *
+             (in_length - 1) / (out_length - 1))
+    elif interpolation in ("bilinear", "linear"):
+        u = (np.arange(out_length, dtype=np.float64) + 0.5) * \
+            (in_length / out_length) - 0.5
+    else:
         raise ValueError(f"interpolation {interpolation!r} is not ported")
-    u = (np.arange(out_length, dtype=np.float64) + 0.5) * \
-        (in_length / out_length) - 0.5
     left = np.floor(u - 1.0) + 1
     indices = left[:, None] + np.arange(2)[None, :]
     weights = np.maximum(0.0, 1.0 - np.abs(u[:, None] - indices))
