@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py [--out report.json]
 
-Drives the port's fourteen main paths with random weights made from a seed,
+Drives the port's fifteen main paths with random weights made from a seed,
 and fails loudly if any phase fails:
 
   1. device: the card's name and power limit (nvidia-smi);
@@ -117,7 +117,7 @@ artifacts (K1, K2 and K3 are the custom ops `irt::…`) behind
  22. dyn-int8: the card against the CPU on one image and the uint8 path
      against its float path (≥ 30 dB, TF32 off; the dB against the float32
      Restorer is printed), imgs/s and peak MiB of float32, bf16 and
-     dyn-int8 at batch 1, 8 and 32, a profile of one batch-32 dyn-int8
+     dyn-int8 at batch 32 (`SPEED_BATCHES`), a profile of one batch-32 dyn-int8
      restore with the shares of `_int_mm`, of the im2col and quantize
      passes and of K1, and ms per call of the exported module against the
      eager Restorer at batch 1 and 32.
@@ -146,7 +146,7 @@ plates, the degradation on the card inside each step:
      validation forwards' 39 each, K2 and K3 never); every loss finite;
      `net_g_32.pth` served by `Restorer(ckpt_path=...)` (≤1 LSB against the
      trained EMA G) and one POST /Restore/ through `ServiceCore`;
- 27. s per step (median of steps 5-32, run as a training loop runs them,
+ 27. s per step (median of steps 5-16, run as a training loop runs them,
      with no synchronize between steps), trained imgs/s, the R1 step's ms,
      peak MiB and TFLOP/s against `analytic_gfpgan_flops` at bs 4;
  28. where one bs-4 step's device time goes: a profile of
@@ -192,7 +192,7 @@ from its checkpoint:
  34. the restore at PRODUCTION_GFPGAN in the four FUSE settings (off, up,
      down, both): each flagged forward against the unflagged one (TF32
      off; float32 ≤1 LSB and ≤2e-4·max|y|, dyn-int8 ≥30 dB), K1 39 per
-     forward in each; device ms of a bs-16 forward, imgs/s at bs 1, 16 and
+     forward in each; device ms of a bs-16 forward, imgs/s at bs 16 and
      32, and the FIR depthwise convs' and the fused ops' shares of a bs-16
      forward's device time;
  35. the tiny config's (32²) D+G, R1 and path-length pieces on the card
@@ -206,7 +206,7 @@ from its checkpoint:
      model's own draws; K2 and K3 never); every loss finite; `net_g_32.pth`
      in a fresh StyleGAN2Generator samples what the trained EMA G samples
      at truncation 0.7 around `mean_latent(4096)`;
- 37. s per step (median of steps 5-32, no synchronize between steps),
+ 37. s per step (median of steps 5-16, no synchronize between steps),
      imgs/s and peak MiB at bs 3, the R1 and path-length steps' ms,
      and the device-busy share of a profiled bs-3 step with K1's forward
      and its PyTorch-op backward.
@@ -234,7 +234,7 @@ IResNet18), on seeded synthetic plates and char boxes:
      --auto_resume from ckpt_32.pth restores the char Ds and their Adam
      bit-equal; then 16 iterations of the identity config, counted
      likewise: l_identity finite, the IResNet bit-unchanged;
- 40. s per step (median of steps 5-32, no synchronize between steps),
+ 40. s per step (median of steps 5-16, no synchronize between steps),
      imgs/s and peak MiB of both configs at bs 4; from a profiled step of
      each, the device-busy share and the device ms under the forward
      ranges of roi_align, the char Ds and the IResNet; their forward +
@@ -261,7 +261,7 @@ matching and loss batched on the card), its `.pth` served by
  43. `detector_convergence` at its defaults (1500 iterations, decay at
      70%, 16 held-out scenes made on the card): trained top-1 mean IoU ≥
      0.90 and detection rate 1.0, the random-init scores beside them;
- 44. s per step (median of steps 5-32, no synchronize between steps),
+ 44. s per step (median of steps 5-16, no synchronize between steps),
      imgs/s, peak MiB, and a profiled step's device-busy share with the
      net's forward and the matching + loss forward.
 
@@ -280,7 +280,7 @@ configs:
      validation at the end) and test.py with test_hifacegan.yml and
      test_hifacegan_woGT.yml on net_g_32.pth; counts read (no kernel of
      the port on this path);
- 47. s per step (median of steps 5-32), imgs/s, peak MiB and a profiled
+ 47. s per step (median of steps 5-16), imgs/s, peak MiB and a profiled
      step's device-busy share.
 
 Path 12, the IO backends and the metrics: the StyleGAN2 config as written
@@ -380,9 +380,40 @@ on a video file; no kernel of the port runs on this path:
  59. `VideoPipeline` (Resnet18 224², batches of 4) on the video: frames/s,
      tracks, the detector's share of the wall; K1, K2 and K3 counted 0.
 
-To make room for path 14, throughput repetitions of paths 5, 6, 8, 9, 12
-and 13 were cut (`CUTS`, logged first); no correctness comparison,
-kernel-vs-plain check or launch-count assertion was cut.
+Path 15, the last modules of the port: `Restorer` over every single-image
+arch, the OCR masks in the GAN trainer, the FLOP counter, the profiler,
+the restoration helper, and the multi-device code in a world of one (the
+card has one H100; larger worlds run on the CPU in
+tests/test_torch_parallel.py):
+
+ 60. `Restorer` over GFPGANv1 (BasicSR's 512 options), MSRResNet ×4,
+     EDSR-L ×4, RCAN 10×20 ×4, RIDNet, SPADEGenerator and HiFaceGAN at
+     their configs' widths on seeded inputs at their configured sizes:
+     card vs CPU on `restore_batch_u8` (TF32 off, ≤1 LSB), ms per call at
+     bs 1, and EDSR-L ×4's `restore_tiled_u8` on a 1024×768 photo;
+ 61. the mask apply halves card vs CPU at the same draws (bit-equal), then
+     main path: counts set to 0, `train_pipeline` on
+     configs/train_gfpgan_plate_256.yml with the train set overridden to
+     OCRDegradationDataset and `random_mask: true` (16 steps at bs 4, R1
+     at 16), K1 exactly 16·84 + 15 + the validation forwards' 39 each;
+     s per step and the masked share of the batch;
+ 62. `count_flops` of a bs-16 PRODUCTION_GFPGAN forward on the card beside
+     `analytic_gfpgan_flops`, and the forward's counted TFLOP/s;
+ 63. `trace_training_window` of 3 GAN steps: the Chrome trace holds the
+     three `train_step_*` spans and CUDA kernels;
+ 64. main path: counts set to 0, `RestorationHelper` on a 640×480 photo
+     with the calibrated Resnet18 detector (2 detections kept) and a
+     PRODUCTION_GFPGAN restorer, K1 exactly 39 per restored crop; the same
+     detections restored and pasted on the CPU (montage ≤4 LSB max, ≤0.05
+     mean);
+ 65. `init_dist("nccl")` in a world of one: a GAN + R1 step through the
+     collectives bit-equal to the step without a process group,
+     `spatial_sharded_apply` against the direct forward (interior ≤1e-5 of
+     max|y|), `Restorer(data_parallel=1)` bit-equal to `Restorer`.
+
+To make room for paths 14 and 15, throughput repetitions of paths 5, 6, 8,
+9, 12, 13 and 14 were cut (`CUTS`, logged first); no correctness
+comparison, kernel-vs-plain check or launch-count assertion was cut.
 
 Each path's seconds are printed as it ends. The last line of stdout is
 {"ok": true, "device": {...}}; the line before it lists the kernels as
@@ -436,9 +467,9 @@ HOLD_CYCLES = 40_000_000
 ROUTE_METHODS = {"/Restore/": "restore", "/RestoreConcat/": "restore_concat"}
 
 
-# depth cut from earlier paths to make room for path 14: throughput
-# repetitions only; every correctness comparison, kernel-vs-plain check and
-# launch-count assertion stays
+# depth cut from earlier paths to make room for paths 14 and 15:
+# throughput repetitions only; every correctness comparison,
+# kernel-vs-plain check and launch-count assertion stays
 CUTS = (
     "path 5, phase 22: dyn-int8/float32/bf16 imgs/s at bs 1 and 32 (bs 8 "
     "timing dropped)",
@@ -454,6 +485,20 @@ CUTS = (
     "path 13, phases 52/54: test sets of 2 DIV2K-size images (were 4)",
     "path 13, phase 55: step timings of EDSR-L and RCAN only (MSRResNet and "
     "MSRGAN dropped)",
+    # to make room for path 15
+    "path 14, phase 58: a profiled step of EDVR-L only (IconVSR's 15-frame "
+    "recurrent profile dropped; its s/step, clips/s and peak MiB stay)",
+    "paths 6-11, phases 27, 31, 37, 40, 44, 47: every re-timed training "
+    "loop 16 steps, the median of steps 5-16 (were 32 and 5-32)",
+    "path 13, phases 52/54: test sets of 1 DIV2K-size image (were 2)",
+    "path 5, phase 22: float32/bf16/dyn-int8 imgs/s at bs 32 only (bs 1 "
+    "dropped)",
+    "path 8, phase 34: FUSE 'off'/'both' imgs/s at bs 16 and 32 (bs 1 "
+    "dropped)",
+    "path 3, phase 14: the ladder's medians of 2 int8 / 3 float calls (were "
+    "3 / 5)",
+    "path 12, phase 51: G samples/s over 10 calls, Inception images/s over "
+    "5 (were 20 / 10)",
 )
 
 
@@ -1689,11 +1734,12 @@ def phase_rrdb_ladder():
                 f"{name} bs={bs}: {tuple(out.shape)}")
         peak = torch.cuda.max_memory_allocated() / 2 ** 20
         del out
-        med, lo, hi = median_ms(call, 3 if is_int8 else 5)
+        runs = 2 if is_int8 else 3  # 3 and 5 before path 15
+        med, lo, hi = median_ms(call, runs)
         row = dict(mode=name, bs=bs, ms=med, ms_min=lo, ms_max=hi,
                    tiles_per_s=bs / med * 1e3, peak_mib=peak)
         if is_int8:
-            calls = 1 + 2 + 3  # checked call, median_ms's warm-up and runs
+            calls = 1 + 2 + runs  # checked call, median_ms's warm-up, runs
             row["k2_launches"] = int8_conv3x3_requant.launches
             require(row["k2_launches"] == calls * K2_STAGE_LAUNCHES * nb,
                     f"{name} bs={bs}: K2 launched {row['k2_launches']} "
@@ -2197,7 +2243,7 @@ def phase_pipeline_throughput(pipe):
 ENGINE_BATCH = 32           # export_gfpgan's default batch
 GEO_BATCH = 8
 DYN_INT8_GATE_DB = 30.0     # tests/test_serve.py:206-217's gate
-SPEED_BATCHES = (1, 32)      # bs 8 cut to make room for path 14
+SPEED_BATCHES = (32,)        # bs 8 cut for path 14, bs 1 for path 15
 
 
 def _tf32_off():
@@ -2508,7 +2554,7 @@ def phase_dyn_int8(restorer, exported):
     """Restorer(quant="dyn-int8") at PRODUCTION_GFPGAN on the card: the
     card against the CPU on one image and the uint8 path against the float
     path (≥ 30 dB, TF32 off); imgs/s and peak MiB of float32, bf16 and
-    dyn-int8 at batch 1, 8 and 32 (PyTorch's default TF32 settings); a
+    dyn-int8 at SPEED_BATCHES (PyTorch's default TF32 settings); a
     profile of one batch-32 dyn-int8 restore; and ms per call of the
     exported module against the eager Restorer at batch 1 and 32."""
     from image_restoration_tpu_torch.infer import PRODUCTION_GFPGAN, Restorer
@@ -2596,6 +2642,9 @@ K1_PER_GD_STEP = K1_LAUNCHES_PER_FORWARD + 3 * K1_PER_D_FORWARD
 K1_PER_R1_STEP = K1_PER_D_FORWARD   # the double backward launches none
 TRAIN_ITERS = 32                    # R1 at 16 and 32
 TRAIN_SPEED_BATCHES = (4,)          # bs 16 cut to make room for path 14
+# steps of every re-timed training loop (paths 6-11: the median of steps
+# 5-16); 32 before path 15
+TIMED_STEPS = 16
 FIR_KERNEL_KEYS = ("conv2d_grouped_direct", "dgrad2d_c1_k1")
 TRAIN_VAL_IMAGES = 4
 LOSS_RTOL = 1e-5                    # kernel vs plain, card vs CPU
@@ -3005,8 +3054,8 @@ def timed_steps(model, bs, iters, seed):
 
 
 def phase_train_throughput(root, model4):
-    """Phase 27: s per step (median of steps 5-32 as `timed_steps` runs
-    them, the R1 steps 16 and 32 included in the run), trained imgs/s, the
+    """Phase 27: s per step (median of steps 5-16 as `timed_steps` runs
+    them, the R1 step 16 included in the run), trained imgs/s, the
     R1 step's ms, peak MiB and achieved TFLOP/s against
     analytic_gfpgan_flops, at bs 4 (TRAIN_SPEED_BATCHES), with PyTorch's default TF32
     settings."""
@@ -3017,7 +3066,7 @@ def phase_train_throughput(root, model4):
         model = model4 if bs == 4 else build_trainer(root, bs)[0]
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
-        times, host_mean = timed_steps(model, bs, TRAIN_ITERS, 3000 + bs)
+        times, host_mean = timed_steps(model, bs, TIMED_STEPS, 3000 + bs)
         peak = torch.cuda.max_memory_allocated() / 2 ** 20
         step = float(np.median(times[4:]))
         gt = torch.from_numpy(plate_batch(bs, 3100)).cuda() * 2 - 1
@@ -3033,12 +3082,13 @@ def phase_train_throughput(root, model4):
                         steps_per_s=1 / step,
                         imgs_per_s=bs / step, r1_step_ms=r1_ms,
                         peak_mib=peak, tflops=flops / step / 1e12,
-                        steps_16_32_s=[times[15], times[31]])
+                        step_16_s=times[15])
         log(f"GAN step bs={bs}: {step * 1e3:.2f} ms/step (median of steps "
-            f"5-32), host clock {host_mean * 1e3:.2f} ms/step (mean of "
-            f"5-32), {1 / step:.3f} steps/s, {bs / step:.2f} imgs/s, "
-            f"R1 step {r1_ms:.2f} ms, steps 16/32 (with R1) "
-            f"{times[15] * 1e3:.1f}/{times[31] * 1e3:.1f} ms, peak "
+            f"5-{TIMED_STEPS}), host clock {host_mean * 1e3:.2f} ms/step "
+            f"(mean of 5-{TIMED_STEPS}), {1 / step:.3f} steps/s, "
+            f"{bs / step:.2f} imgs/s, "
+            f"R1 step {r1_ms:.2f} ms, step 16 (with R1) "
+            f"{times[15] * 1e3:.1f} ms, peak "
             f"{peak:.0f} MiB, {flops / step / 1e12:.2f} TFLOP/s against "
             "analytic_gfpgan_flops")
         if bs != 4:
@@ -3615,7 +3665,7 @@ def phase_qat(root):
     del fake, served, xb, q
 
     batches = [{"gt": scene_batch(SR_BS, 3400 + 20 * i)} for i in range(2)]
-    res["steps"] = sr_step_rates("QAT step", model, batches, QAT_ITERS)
+    res["steps"] = sr_step_rates("QAT step", model, batches, TIMED_STEPS)
     med, lo, hi = median_ms(lambda: engine.serve(x), 10)
     res.update(engine_ms_per_call=med,
                engine_tiles_per_s=SR["batch"] / med * 1e3)
@@ -3741,7 +3791,7 @@ FUSE_SETTINGS = {"off": (False, False), "up": (True, False),
                  "down": (False, True), "both": (True, True)}
 # the settings timed (all four are checked); up and down cut for path 14
 FUSE_SPEED_SETTINGS = ("off", "both")
-FUSE_SPEED_BATCHES = (1, 16, 32)
+FUSE_SPEED_BATCHES = (16, 32)  # bs 1 cut to make room for path 15
 FUSED_FLOAT_TOL = 2e-4       # of max|y|, flagged vs unflagged float output
 # the path piece at 512 channels: the card's error against float64 at most
 # this many times the CPU's largest float32 error (plus LOSS_RTOL or
@@ -3805,8 +3855,8 @@ def phase_fuse_restore():
     quantizes the FIR-folded weight, so the operands differ: ≥30 dB, the
     serving gate, with the worst LSB printed), and K1 39 per forward in
     every setting. TF32 at PyTorch's defaults, in FUSE_SPEED_SETTINGS:
-    device ms of a bs-16 forward (calls back to back), imgs/s at bs 1, 16
-    and 32, and a profile
+    device ms of a bs-16 forward (calls back to back), imgs/s at
+    FUSE_SPEED_BATCHES, and a profile
     of a bs-16 forward with the FIR depthwise convs' and the fused ops'
     shares of device time."""
     from image_restoration_tpu_torch.infer import PRODUCTION_GFPGAN, Restorer
@@ -4295,8 +4345,8 @@ def sg2_step_profile(model, batch, it):
 
 
 def phase_sg2_throughput(root, model3):
-    """Phase 37: s per step (median of steps 5-32 of a loop with no
-    synchronize between steps; R1 at 16 and 32, the path step every 4),
+    """Phase 37: s per step (median of steps 5-16 of a loop with no
+    synchronize between steps; R1 at 16, the path step every 4),
     imgs/s and peak MiB at bs 3 (the trained model); the R1 step's and the path-length step's ms alone; the
     device-busy share of one profiled bs-3 D+G step and of one with the
     path step, with K1's forward and its PyTorch-op backward. TF32 at
@@ -4311,7 +4361,7 @@ def phase_sg2_throughput(root, model3):
         model = model3 if bs == 3 else build_model(sg2_options(root),
                                                    device="cuda")
         pool = [faces[i * bs:(i + 1) * bs] for i in range(48 // bs)]
-        times, peak = sg2_timed_steps(model, pool, SG2_ITERS)
+        times, peak = sg2_timed_steps(model, pool, TIMED_STEPS)
         step = float(np.median(times[4:]))
         real = torch.from_numpy(pool[0]).cuda()
         pb = model.path_batch(bs)
@@ -4334,12 +4384,12 @@ def phase_sg2_throughput(root, model3):
         rows[bs] = dict(s_per_step=step, imgs_per_s=bs / step,
                         peak_mib=peak, r1_step_ms=r1_ms,
                         path_step_ms=path_ms, path_batch=pb,
-                        steps_16_32_s=[times[15], times[31]])
+                        step_16_s=times[15])
         log(f"StyleGAN2 step bs={bs}: {step * 1e3:.2f} ms/step (median of "
-            f"steps 5-{SG2_ITERS}), {bs / step:.2f} imgs/s, peak {peak:.0f} "
+            f"steps 5-{TIMED_STEPS}), {bs / step:.2f} imgs/s, peak {peak:.0f} "
             f"MiB; R1 step {r1_ms:.2f} ms, path step (batch {pb}) "
-            f"{path_ms:.2f} ms; steps 16/32 (R1 + path) "
-            f"{times[15] * 1e3:.1f}/{times[31] * 1e3:.1f} ms")
+            f"{path_ms:.2f} ms; step 16 (R1 + path) "
+            f"{times[15] * 1e3:.1f} ms")
         if bs != 3:
             del model
             torch.cuda.empty_cache()
@@ -4795,7 +4845,7 @@ def comp_step_profile(step, ranges):
 
 
 def phase_comp_throughput(comp_model, id_model):
-    """Phase 40: s per step (median of steps 5-32 of a loop with no
+    """Phase 40: s per step (median of steps 5-16 of a loop with no
     synchronize between steps; R1 at 16 and 32), trained imgs/s and peak
     MiB of the component and the identity config at bs 4; from a profiled
     step of each, the device-busy share and the device ms under the
@@ -4813,10 +4863,10 @@ def phase_comp_throughput(comp_model, id_model):
     for name, model in (("component", comp_model), ("identity", id_model)):
         torch.cuda.empty_cache()
         if name in COMP_TIMED:
-            times, peak = comp_timed_steps(model, pools[name], COMP_ITERS)
+            times, peak = comp_timed_steps(model, pools[name], TIMED_STEPS)
             step = float(np.median(times[4:]))
         else:  # its step's profile only
-            times, peak, step = [float("nan")] * COMP_ITERS, None, \
+            times, peak, step = [float("nan")] * TIMED_STEPS, None, \
                 float("nan")
         if name == "component":
             ranges = {"irt.roi_align": (gfpgan_model, "roi_align"),
@@ -4826,8 +4876,7 @@ def phase_comp_throughput(comp_model, id_model):
         wall, busy, range_ms, kernels = comp_step_profile(
             lambda: model.optimize_parameters(5, pools[name][0]), ranges)
         rows[name] = dict(s_per_step=step, imgs_per_s=COMP_BS / step,
-                          peak_mib=peak, steps_16_32_s=[times[15],
-                                                        times[31]],
+                          peak_mib=peak, step_16_s=times[15],
                           profile_wall_ms=wall, busy_ms=busy,
                           busy_share_of_wall=busy / wall,
                           busy_share_of_step=busy / (step * 1e3),
@@ -4835,9 +4884,9 @@ def phase_comp_throughput(comp_model, id_model):
                           top=[dict(ms=t, count=n, name=k[:200])
                                for t, n, k in kernels[:12]])
         log(f"{name} step bs={COMP_BS}: " + (
-            f"{step * 1e3:.2f} ms/step (median of steps 5-32), "
-            f"{COMP_BS / step:.2f} imgs/s, steps 16/32 (with R1) "
-            f"{times[15] * 1e3:.1f}/{times[31] * 1e3:.1f} ms, peak "
+            f"{step * 1e3:.2f} ms/step (median of steps 5-{TIMED_STEPS}), "
+            f"{COMP_BS / step:.2f} imgs/s, step 16 (with R1) "
+            f"{times[15] * 1e3:.1f} ms, peak "
             f"{peak:.0f} MiB; " if name in COMP_TIMED else "not timed; ")
             + f"profiled step: wall {wall:.2f} ms, device busy {busy:.2f} "
             f"ms ({100 * busy / wall:.1f}% of that wall, "
@@ -4901,7 +4950,7 @@ DET_BS = 24                  # the Resnet18 cfg's batch_size, JAX's recipe
 DET_TRAIN_IMAGES = 48        # two steps an epoch at bs 24
 DET_EPOCHS = 3               # then one more after --resume_epoch 3
 DET_EVAL_PHOTOS = 4
-DET_TIMED_STEPS = 32
+DET_TIMED_STEPS = TIMED_STEPS
 DET_PARAM_TOL = 5e-3         # JAX's DP bound (tests/test_detect.py:160)
 CONV_MIN_IOU = 0.90          # trained top-1 mean IoU; detection rate 1.0
 BGR_MEAN = (104.0, 117.0, 123.0)
@@ -5082,7 +5131,7 @@ def phase_det_convergence():
 
 
 def phase_det_speed():
-    """Phase 44: s per Resnet18 step at 224², bs 24 (median of steps 5-32
+    """Phase 44: s per Resnet18 step at 224², bs 24 (median of steps 5-16
     of a loop with no synchronize between steps, CUDA events after each;
     two pre-drawn device batches), imgs/s, peak MiB; a profiled step's
     device-busy share and the device time under the net's forward and
@@ -5332,7 +5381,7 @@ def phase_hiface_main_path(root):
 
 def phase_hiface_speed(model, root):
     """Phase 47: s per step at the config's full width (median of steps
-    5-32 of a loop with no synchronize between steps, on two 512² pairs
+    5-16 of a loop with no synchronize between steps, on two 512² pairs
     from disk), imgs/s, peak MiB, and a profiled step's device-busy
     share."""
     import cv2
@@ -5343,7 +5392,7 @@ def phase_hiface_speed(model, root):
               for s in ("lq", "gt")]
         batches.append({k: (v[None].astype(np.float32) / 255.0).copy()
                         for k, v in zip(("lq", "gt"), rd)})
-    times, peak = comp_timed_steps(model, batches, HIFACE_ITERS)
+    times, peak = comp_timed_steps(model, batches, TIMED_STEPS)
     step = float(np.median(times[4:]))
     wall, busy, _, kernels = comp_step_profile(
         lambda: model.optimize_parameters(model.iter + 1, batches[0]), {})
@@ -5352,7 +5401,7 @@ def phase_hiface_speed(model, root):
                profiled_step_ms=wall, busy_ms=busy, busy_share=busy / wall,
                busy_of_median_step=busy / (step * 1e3), top_kernels=top)
     log(f"HiFaceGAN step at 512², bs 1: {step * 1e3:.2f} ms/step (median of "
-        f"steps 5-{HIFACE_ITERS}), {1 / step:.2f} imgs/s, peak {peak:.0f} "
+        f"steps 5-{TIMED_STEPS}), {1 / step:.2f} imgs/s, peak {peak:.0f} "
         f"MiB; a profiled step: wall {wall:.2f} ms, device busy {busy:.2f} "
         f"ms ({100 * busy / wall:.1f}% of that wall, "
         f"{100 * busy / (step * 1e3):.1f}% of the median step); top kernels "
@@ -5722,8 +5771,8 @@ def phase_fid_clis_and_speed(root, io, ckpt, fid_s):
     with torch.inference_mode():
         mean = net.mean_latent(4096, g)
         g_ms = host_time_ms(lambda z: sample(net, z, FID_TRUNCATION, mean),
-                            zs, 20)
-        inc_ms = host_time_ms(extract, x64, 10)
+                            zs, 10)
+        inc_ms = host_time_ms(extract, x64, 5)
         batch = zs[0][0]
         for _ in range(3):
             extract(sample(net, batch, FID_TRUNCATION, mean))
@@ -5777,7 +5826,7 @@ def phase_fid(tmp):
 # ------- path 13: the image zoo and the data preparation that feeds it
 
 ZOO_PHOTOS = 8               # DIV2K-size photos; the first ZOO_TEST are the test sets
-ZOO_TEST = 2                 # test-set images; 4 before path 14
+ZOO_TEST = 1                 # test-set images; 4 before path 14, 2 before 15
 ZOO_HW = (1356, 2040)        # DIV2K's 2040×1356, a multiple of 12
 ZOO_ITERS = 16
 ZOO_TIMED = ("EDSR-L x4", "RCAN x2")  # phase 55; the others cut for path 14
@@ -6273,7 +6322,7 @@ VID_CUT = 8                  # tsa_iter and fix_flow
 # the trainers whose step is profiled: EDVR-L (the DCN on a device-bound
 # step) and IconVSR (the DCN and the warps); a 15-frame recurrent step
 # holds ≈ 60k trace events, which take the profiler 30-50 s to process
-VID_PROFILED = ("EDVR-L", "IconVSR")
+VID_PROFILED = ("EDVR-L",)   # IconVSR's profile cut for path 15
 VID_TOL = 1e-4               # of max|CPU| (and of max|grad|), TF32 off
 VID_TRAIN = {
     "EDVR-L": ("configs/options/train/EDVR/train_EDVR_L_x4_SR_REDS.yml",
@@ -6884,6 +6933,467 @@ def phase_video(tmp):
                                       pipeline=pipeline)
 
 
+# ----------------------------- path 15: the last modules of the port
+
+# each newly served arch at the width of the configs/ file that trains it
+# (EDSR, RCAN, SRResNet_SRGAN, HiFaceGAN; RIDNet's defaults, BasicSR's
+# denoising setting; GFPGANv1 at BasicSR's train_gfpgan_v1_512 options;
+# SPADEGenerator at HiFaceGAN's), its normalization, and the side of its
+# seeded input (the config's LR crop, or its image size)
+P15_SPADE = dict(num_in_ch=3, num_feat=48, use_vae=False, z_dim=256,
+                 crop_size=512, norm_g="spectralspadebatch3x3",
+                 is_train=False)
+P15_ARCHS = {
+    "GFPGANv1 512": (dict(type="GFPGANv1", input_width=512,
+                          input_height=512, num_style_feat=512,
+                          channel_multiplier=1, num_mlp=8,
+                          input_is_latent=True, different_w=True, narrow=1,
+                          sft_half=True), {}, 512),
+    "MSRResNet x4": (ZOO_ARCHS["MSRResNet x4"], "sr", 32),
+    "EDSR-L x4": (ZOO_ARCHS["EDSR-L x4"], "sr", 48),
+    "RCAN 10x20 x4": (ZOO_ARCHS["RCAN 10x20 x4"], "sr", 48),
+    "RIDNet": (ZOO_ARCHS["RIDNet"], dict(mean=(0, 0, 0), std=(1 / 255,) * 3,
+                                         out_min_max=(0, 255)), 128),
+    "SPADEGenerator": (dict(type="SPADEGenerator", **P15_SPADE), {}, 512),
+    "HiFaceGAN": (dict(type="HiFaceGAN", **P15_SPADE), {}, 512),
+}
+P15_TIMED = 10               # calls per arch at bs 1
+P15_PHOTO = (768, 1024)      # EDSR-L ×4's tiled photo (H, W)
+P15_TILE = dict(tile=256, halo=16, scale=4, tile_batch=4)
+OCR_ITERS = 16               # R1 at 16; validation and a checkpoint at 16
+OCR_MASK_PROB = 0.5          # the dataset's default mask_prob
+HELPER_CROPS = 2             # detections the helper restores (keep_top_k)
+WORLD1_GT = 4                # the world-of-one GAN step's batch (32²)
+
+
+def _seeded_rgb(h, w, seed):
+    """An RGB uint8 scene of h×w (scene_image is RGB)."""
+    return np.ascontiguousarray(scene_image(h, w, seed))
+
+
+def phase_restorer_archs():
+    """Phase 60: a `Restorer` over each newly admitted arch at its config's
+    width on a seeded input at its configured size: card vs CPU on
+    `restore_batch_u8` (TF32 off, ≤1 LSB), ms per call at bs 1 (host
+    clock around calls that end in the device→host copy, median of
+    P15_TIMED, TF32 as PyTorch leaves it), and EDSR-L ×4's
+    `restore_tiled_u8` on a 1024×768 photo."""
+    from image_restoration_tpu_torch.infer import SR_MEAN_STD, Restorer
+    rows = {}
+    for i, (name, (opt, norm, size)) in enumerate(P15_ARCHS.items()):
+        norm = SR_MEAN_STD if norm == "sr" else norm
+        card = Restorer(opt, device="cuda", seed=600 + i, **norm)
+        cpu = Restorer(opt, device="cpu", seed=600 + i, **norm)
+        u8 = _seeded_rgb(size, size, 6000 + i)[None]
+        old = _tf32_off()
+        try:
+            got = card.restore_batch_u8(u8)
+        finally:
+            _tf32_restore(old)
+        t0 = time.perf_counter()
+        want = cpu.restore_batch_u8(u8)
+        cpu_s = time.perf_counter() - t0
+        lsb = _lsb(got, want)
+        times = []
+        for _ in range(P15_TIMED + 2):
+            t0 = time.perf_counter()
+            card.restore_batch_u8(u8)
+            times.append((time.perf_counter() - t0) * 1e3)
+        ms = float(np.median(times[2:]))
+        rows[name] = dict(input=size, output=list(got.shape[1:3]),
+                          card_vs_cpu_lsb=lsb, ms_bs1=ms, cpu_s=cpu_s,
+                          params=sum(p.numel() for p in card.net.parameters()))
+        log(f"Restorer({opt['type']}) {name}: {size}² in -> "
+            f"{got.shape[1]}×{got.shape[2]} out, card vs CPU max {lsb} LSB "
+            f"(CPU {cpu_s:.2f} s), {ms:.3f} ms per restore_batch_u8 at bs 1")
+        require(lsb <= 1, f"Restorer {name}: card vs CPU {lsb} LSB")
+        if name == "EDSR-L x4":
+            photo = _seeded_rgb(*P15_PHOTO, 6100)
+            card.restore_tiled_u8(photo[:96, :96], **P15_TILE)  # warm up
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            big = card.restore_tiled_u8(photo, **P15_TILE)
+            tiled_s = time.perf_counter() - t0
+            want_hw = (P15_PHOTO[0] * 4, P15_PHOTO[1] * 4, 3)
+            require(big.shape == want_hw and big.dtype == np.uint8,
+                    f"EDSR-L tiled: {big.shape}")
+            rows[name]["tiled_1024x768_s"] = tiled_s
+            log(f"EDSR-L ×4 restore_tiled_u8 on a 1024×768 photo (tile "
+                f"{P15_TILE['tile']}, halo {P15_TILE['halo']}, "
+                f"{P15_TILE['tile_batch']} tiles a call): {tiled_s:.3f} s "
+                f"-> {big.shape[1]}×{big.shape[0]}")
+        del card, cpu
+        torch.cuda.empty_cache()
+    return rows
+
+
+def phase_ocr_masks(root):
+    """Phase 61: the mask apply halves on the card against the CPU at one
+    set of drawn parameters (bs 16, 256²; bit-equal), then the main path:
+    counts at 0, `train_pipeline` on configs/train_gfpgan_plate_256.yml
+    with the train dataset's type overridden to OCRDegradationDataset and
+    `random_mask: true` (OCR_ITERS steps at the config's bs 4, R1 at 16,
+    validation and a checkpoint at 16); K1 exactly OCR_ITERS·84 + 15 + the
+    validation forwards' 39 each; s per step (median of steps 5-16, CUDA
+    events, no synchronize between) and the masked share of the batch."""
+    from image_restoration_tpu_torch.data import masks as M
+    from image_restoration_tpu_torch.data import pipelines
+    from image_restoration_tpu_torch.data.degradations import params_to
+    from image_restoration_tpu_torch.models.gfpgan_model import GFPGANModel
+    from image_restoration_tpu_torch.train import train_pipeline
+    g = torch.Generator().manual_seed(61)
+    bank = torch.from_numpy(M.build_irregular_mask_bank(256))
+    p = M.sample_random_mask(g, 16, bank.shape[0], OCR_MASK_PROB)
+    img = torch.rand((16, 256, 256, 3), generator=g)
+    pc = params_to(p, "cuda")
+    checks = {
+        "rect": (M.rect_masks(p["rect"], 256, 256),
+                 M.rect_masks(pc["rect"], 256, 256)),
+        "half": (M.half_mask(p["side"], 256, 256),
+                 M.half_mask(pc["side"], 256, 256)),
+    }
+    cpu_out, cpu_mask = M.apply_random_mask(img, bank, p, fill=1.0)
+    card_out, card_mask = M.apply_random_mask(img.cuda(), bank.cuda(), pc,
+                                              fill=1.0)
+    checks["mask"] = (cpu_mask, card_mask)
+    checks["masked image"] = (cpu_out, card_out)
+    for k, (a, b) in checks.items():
+        require(torch.equal(a, b.cpu()), f"mask {k}: card and CPU differ")
+    log(f"masks card vs CPU at the same draws (bs 16, 256²): "
+        f"{', '.join(checks)} bit-equal; {int(p['do'].sum())} of 16 masked")
+
+    write_plates(f"{root}/train", 8, 6110)
+    write_plates(f"{root}/val", TRAIN_VAL_IMAGES, 6120)
+    argv = ["-opt", TRAIN_CONFIG, "--force_yml",
+            f"datasets:train:dataroot_gt={root}/train",
+            f"datasets:val:dataroot_gt={root}/val",
+            "datasets:train:type=OCRDegradationDataset",
+            "datasets:train:random_mask=true",
+            f"train:total_iter={OCR_ITERS}", f"val:val_freq={OCR_ITERS}",
+            f"logger:save_checkpoint_freq={OCR_ITERS}", "logger:print_freq=8"]
+    log(f"OCR-masked GAN: {TRAIN_CONFIG} with --force_yml "
+        f"{' '.join(argv[3:])}")
+    shares, in_step = [], [False]  # the training steps' masks (validation
+    orig_mask = pipelines.apply_random_mask  # degrades with them too)
+
+    def record_mask(img, bank, p, fill=1.0):
+        out, mask = orig_mask(img, bank, p, fill)
+        if in_step[0]:
+            shares.append(mask.detach().mean(dim=(1, 2, 3)))
+        return out, mask
+
+    events = []
+    orig_step = GFPGANModel.optimize_parameters
+
+    def step(self, current_iter, batch, generator=None):
+        if not events:
+            events.append(torch.cuda.Event(enable_timing=True))
+            events[-1].record()
+        in_step[0] = True
+        out = orig_step(self, current_iter, batch, generator)
+        in_step[0] = False
+        events.append(torch.cuda.Event(enable_timing=True))
+        events[-1].record()
+        return out
+
+    kernels = _counts_zero()
+    t0 = time.perf_counter()
+    with mock.patch.object(pipelines, "apply_random_mask", record_mask), \
+            mock.patch.object(GFPGANModel, "optimize_parameters", step):
+        model = train_pipeline(root, argv=argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    k1, k2, k3 = (k.launches for k in kernels)
+    want = (OCR_ITERS * K1_PER_GD_STEP + (OCR_ITERS // 16) * K1_PER_R1_STEP
+            + 2 * TRAIN_VAL_IMAGES * K1_LAUNCHES_PER_FORWARD)
+    times = [a.elapsed_time(b) / 1e3 for a, b in zip(events, events[1:])]
+    s_step = float(np.median(times[4:]))
+    per = torch.cat(shares).cpu()
+    masked = float((per > 0).float().mean())
+    logs = model.log_dict
+    log(f"OCR-masked GAN: {OCR_ITERS} iterations in {wall:.2f} s (wall, "
+        f"build, validation and saves included), {s_step * 1e3:.2f} ms/step "
+        f"(median of steps 5-{OCR_ITERS}), "
+        f"{4 / s_step:.2f} imgs/s at bs 4; masked: {masked:.3f} of "
+        f"{per.numel()} images (mask_prob {OCR_MASK_PROB}), "
+        f"{float(per.mean()):.4f} of all pixels, "
+        f"{float(per[per > 0].mean()):.4f} of a masked image's; K1 {k1} "
+        f"(expected {want}), K2 {k2}, K3 {k3}; last losses "
+        + ", ".join(f"{k}={v:.4g}" for k, v in logs.items()))
+    require(type(model.degrade_fn).__name__ == "OCRDegradation",
+            "the OCR pipeline did not run")
+    require(per.numel() == OCR_ITERS * 4, f"{per.numel()} masked images")
+    require(k1 == want, f"OCR main path: K1 {k1}, expected {want}")
+    require(k2 == 0 and k3 == 0, "OCR main path launched K2 or K3")
+    require(all(math.isfinite(v) for v in logs.values()), "a non-finite loss")
+    require("l_d_r1" in logs, "R1 did not run at the last step")
+    return k1, dict(wall_s=wall, s_per_step=s_step, imgs_per_s=4 / s_step,
+                    masked_image_share=masked,
+                    masked_pixel_share=float(per.mean()), k1=k1,
+                    k1_expected=want, last_losses=logs)
+
+
+def phase_flop_counter():
+    """Phase 62: `count_flops` of a bs-16 PRODUCTION_GFPGAN training
+    forward (return_rgb, as the GAN step runs it) on the card, beside
+    `analytic_gfpgan_flops`'s G term, and the forward's TFLOP/s by the
+    count (CUDA events over 10 host-issued calls)."""
+    from image_restoration_tpu_torch.archs import build_network
+    from image_restoration_tpu_torch.utils.flops import (count_flops,
+                                                         dilation_extra)
+    from image_restoration_tpu_torch.infer import PRODUCTION_GFPGAN
+    net = build_network(PRODUCTION_GFPGAN).cuda().eval()
+    x = torch.rand((16, 256, 256, 3), device="cuda")
+
+    def fwd(x):
+        return net(x, return_rgb=True, randomize_noise=False)
+
+    with torch.no_grad():
+        r = count_flops(fwd, x, top=100_000)
+        ms = host_time_ms(fwd, [(x,)], 10)
+    extra = dilation_extra(r["top_shapes"])
+    g_analytic = 85e9 * 16   # analytic_gfpgan_flops's G forward at bs 16
+    step = analytic_gfpgan_flops(16)
+    log(f"count_flops, PRODUCTION_GFPGAN forward at bs 16 on the card: "
+        f"{r['total'] / 1e12:.4f} TFLOP ({r['conv'] / 1e12:.4f} conv, "
+        f"{r['matmul'] / 1e12:.4f} matmul; {len(r['top_shapes'])} shapes); "
+        f"JAX's way (the transposed convs' dilated zeros counted) "
+        f"{(r['total'] + extra) / 1e12:.4f}; analytic_gfpgan_flops takes "
+        f"{g_analytic / 1e12:.4f} for it ({g_analytic / r['total']:.2f}× the "
+        f"count: its 85 GFLOP per image is a rough conv-sum estimate of "
+        f"scripts/bench_train.py) in a {step / 1e12:.4f} TFLOP step; the "
+        f"forward {ms:.3f} ms, {r['total'] / ms / 1e9:.1f} TFLOP/s counted")
+    require(r["total"] > 0 and r["flags"] == [], "count_flops")
+    return dict(total=r["total"], conv=r["conv"], matmul=r["matmul"],
+                dilation_extra=extra, analytic_g=g_analytic,
+                analytic_step=step, forward_ms=ms,
+                tflops_counted=r["total"] / ms / 1e9,
+                top=r["top_shapes"][:8])
+
+
+def phase_profiler(root):
+    """Phase 63: `trace_training_window` of 3 production GAN steps at bs 4
+    (one warm-up step outside): the Chrome trace must hold the three
+    `train_step_*` spans and CUDA kernels."""
+    from image_restoration_tpu_torch.utils.profiler import \
+        trace_training_window
+    model, _ = build_trainer(root, bs=4)
+    batches = [{"gt": plate_batch(4, 6300 + 4 * i)} for i in range(2)]
+    gen = torch.Generator("cuda").manual_seed(63)
+    log_dir = os.path.join(root, "trace")
+    t0 = time.perf_counter()
+    trace_training_window(model, batches, gen, log_dir, num_steps=3)
+    wall = time.perf_counter() - t0
+    path = os.path.join(log_dir, "trace.json")
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    spans = {e["name"]: e.get("dur", 0) / 1e3 for e in events
+             if str(e.get("name", "")).startswith("train_step_")}
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    busy = sum(e.get("dur", 0) for e in kernels) / 1e3
+    log(f"trace_training_window: 3 GAN steps at bs 4 in {wall:.2f} s "
+        f"(warm-up and export included); {os.path.getsize(path) / 2**20:.1f} "
+        f"MiB trace, spans "
+        + ", ".join(f"{k} {v:.1f} ms" for k, v in sorted(spans.items()))
+        + f", {len(kernels)} CUDA kernel events, {busy:.1f} ms of them")
+    require(set(spans) >= {"train_step_1", "train_step_2", "train_step_3"},
+            f"trace spans: {sorted(spans)}")
+    require(len(kernels) > 0, "the trace holds no CUDA kernel")
+    del model
+    torch.cuda.empty_cache()
+    return dict(wall_s=wall, spans_ms=spans, kernel_events=len(kernels),
+                kernel_ms=busy, mib=os.path.getsize(path) / 2 ** 20)
+
+
+class _ReplayDetector:
+    """Gives back one recorded `detect_image` result."""
+
+    def __init__(self, result):
+        self.result = result
+
+    def detect_image(self, img):
+        return self.result
+
+
+def phase_restoration_helper():
+    """Phase 64: `RestorationHelper` on one 640×480 car photo with the
+    Resnet18 detector (calibrated, HELPER_CROPS detections kept) and a
+    PRODUCTION_GFPGAN restorer on the card, counts at 0 (K1 39 per
+    restored crop); the same detections restored and pasted on the CPU,
+    montage card vs CPU ≤4 LSB max, ≤0.05 mean (phase 5's rule; TF32
+    off)."""
+    from image_restoration_tpu_torch.infer import PRODUCTION_GFPGAN, Restorer
+    from image_restoration_tpu_torch.utils.face_util import RestorationHelper
+    det = build_detector("Resnet18", "cuda")
+    det.keep_top_k = HELPER_CROPS
+    card = Restorer(PRODUCTION_GFPGAN, device="cuda", seed=0)
+    randomize_weights(card.net, seed=1)
+    cpu = Restorer(PRODUCTION_GFPGAN, device="cpu", seed=0)
+    cpu.net.load_state_dict({k: v.cpu() for k, v in
+                             card.net.state_dict().items()})
+    photo = car_photo(6400)
+    seen = []
+    orig = det.detect_image
+
+    def detect(img):
+        seen.append(orig(img))
+        return seen[-1]
+
+    det.detect_image = detect
+    old = _tf32_off()
+    kernels = _counts_zero()
+    try:
+        t0 = time.perf_counter()
+        helper = RestorationHelper(detector=det, face_size=256)
+        n = helper.detect_landmarks(photo)
+        helper.warp_crop_faces()
+        helper.restore_faces(card)
+        got = helper.paste_faces_to_input_image()
+        wall = time.perf_counter() - t0
+        k1, k2, k3 = (k.launches for k in kernels)
+    finally:
+        _tf32_restore(old)
+    other = RestorationHelper(detector=_ReplayDetector(seen[0]),
+                              face_size=256)
+    other.detect_landmarks(photo)
+    other.warp_crop_faces()
+    other.restore_faces(cpu)
+    want = other.paste_faces_to_input_image()
+    d = np.abs(got.astype(np.int16) - want.astype(np.int16))
+    log(f"RestorationHelper: {n} crops of a 640×480 photo detected, "
+        f"aligned, restored and pasted in {wall:.3f} s; card vs CPU montage "
+        f"max {int(d.max())} LSB, mean {float(d.mean()):.4f}; K1 {k1} "
+        f"(expected {K1_LAUNCHES_PER_FORWARD * n}), K2 {k2}, K3 {k3}")
+    require(n >= 1, "the helper found no plate")
+    require(got.shape == photo.shape, f"montage {got.shape}")
+    require(int(d.max()) <= 4 and float(d.mean()) <= 0.05,
+            f"helper card vs CPU: max {int(d.max())}, mean {d.mean():.4f}")
+    require(k1 == K1_LAUNCHES_PER_FORWARD * n and k2 == 0 and k3 == 0,
+            f"helper launches K1 {k1}, K2 {k2}, K3 {k3}")
+    return k1, dict(crops=n, wall_s=wall, lsb_max=int(d.max()),
+                    lsb_mean=float(d.mean()), k1=k1)
+
+
+def _world1_gan_step(root):
+    """JAX's dry-run GAN step and R1 (32², batch WORLD1_GT) from a fresh
+    seeded model: (losses, G and D parameters)."""
+    from image_restoration_tpu_torch.models import build_model
+    from image_restoration_tpu_torch.parallel.dryrun import (gan_degradation,
+                                                             gan_options)
+    model = build_model(gan_options(1, root), device="cuda")
+    model.set_degradation_pipeline(gan_degradation())
+    gt = np.random.default_rng(0).random((WORLD1_GT, 32, 32, 3), np.float32)
+    model.optimize_parameters(1, {"gt": gt})
+    params = {f"g.{k}": v.detach().clone()
+              for k, v in model.net_g.state_dict().items()}
+    params.update({f"d.{k}": v.detach().clone()
+                   for k, v in model.net_d.state_dict().items()})
+    return model.log_dict, params
+
+
+def phase_world_of_one(root):
+    """Phase 65: `init_dist("nccl")` in a world of one (the card has one
+    H100; larger worlds run on the CPU in tests/test_torch_parallel.py),
+    then: one GAN step and its R1 step through the multi-device code path
+    (the collectives run on a world of one) bit-equal to the same step
+    without a process group (cuDNN deterministic, TF32 off);
+    `spatial_sharded_apply` of the ×4 SRVGG engine's net at world 1
+    against its direct forward (the interior beyond the halo ≤1e-5 of
+    max|y|); `Restorer(data_parallel=1)` (the split, the replica thread and
+    the gather) bit-equal to the plain Restorer."""
+    import torch.distributed as dist
+    from image_restoration_tpu_torch.archs import build_network
+    from image_restoration_tpu_torch.infer import SR_MEAN_STD, Restorer
+    from image_restoration_tpu_torch.parallel.dryrun import free_port
+    from image_restoration_tpu_torch.parallel.spatial import \
+        spatial_sharded_apply
+    from image_restoration_tpu_torch.utils.dist_util import (get_dist_info,
+                                                             init_dist)
+    old = _tf32_off()
+    det = (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = \
+        True, False
+    env = {k: os.environ.get(k) for k in ("RANK", "WORLD_SIZE", "LOCAL_RANK",
+                                          "MASTER_ADDR", "MASTER_PORT")}
+    try:
+        plain_losses, plain = _world1_gan_step(os.path.join(root, "plain"))
+        os.environ.update(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0",
+                          MASTER_ADDR="localhost", MASTER_PORT=str(free_port()))
+        t0 = time.perf_counter()
+        require(init_dist("nccl") == (0, 1), "init_dist: not a world of one")
+        init_s = time.perf_counter() - t0
+        try:
+            world_losses, world = _world1_gan_step(os.path.join(root, "w1"))
+            diff = [k for k in plain if not torch.equal(plain[k], world[k])]
+            require(world_losses == plain_losses and not diff,
+                    f"world-of-one GAN step differs: {diff[:5]} "
+                    f"{world_losses} vs {plain_losses}")
+            net = build_network(dict(type="SRVGGNetCompact", **{
+                k: SR[k] for k in ("num_feat", "num_conv", "upscale")}),
+                torch.Generator().manual_seed(65)).cuda().eval()
+            img = torch.from_numpy(_seeded_rgb(256, 256, 6500)[None]
+                                   .astype(np.float32) / 255.0).cuda()
+            with torch.no_grad():
+                sharded = spatial_sharded_apply(net, img,
+                                                halo=RECEPTIVE_RADIUS,
+                                                scale=4)
+                full = net(img)
+            inner = slice(4 * RECEPTIVE_RADIUS, -4 * RECEPTIVE_RADIUS)
+            sp_err = float((sharded[:, inner] - full[:, inner]).abs().max()
+                           / full.abs().max())
+            require(sharded.shape == full.shape and sp_err <= 1e-5,
+                    f"spatial_sharded_apply at world 1: {sp_err}")
+            opt = dict(type="SRVGGNetCompact", num_feat=SR["num_feat"],
+                       num_conv=SR["num_conv"], upscale=4)
+            one = Restorer(opt, device="cuda", seed=66, **SR_MEAN_STD)
+            dp = Restorer(opt, data_parallel=1, seed=66, **SR_MEAN_STD)
+            u8 = np.stack([_seeded_rgb(64, 64, 6600 + i) for i in range(3)])
+            photo = _seeded_rgb(200, 300, 6610)
+            same = (np.array_equal(dp.restore_batch_u8(u8),
+                                   one.restore_batch_u8(u8))
+                    and np.array_equal(
+                        dp.restore_tiled_u8(photo, tile=128, halo=8,
+                                            tile_batch=3),
+                        one.restore_tiled_u8(photo, tile=128, halo=8,
+                                             tile_batch=3)))
+            require(same, "Restorer(data_parallel=1) differs from Restorer")
+            dp.mesh.close()
+            info = get_dist_info()
+        finally:
+            dist.destroy_process_group()
+    finally:
+        _tf32_restore(old)
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = \
+            det
+        for k, v in env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    log(f"world of one (nccl, rank/world {info}, init {init_s:.2f} s): the "
+        f"GAN + R1 step through the collectives bit-equal to the plain step "
+        f"({len(plain)} tensors, losses {world_losses}); "
+        f"spatial_sharded_apply interior vs direct {sp_err:.2e} of max|y|; "
+        f"Restorer(data_parallel=1) bit-equal to Restorer (bs 3 and tiled)")
+    return dict(init_s=init_s, gan_bit_equal=True, spatial_rel_err=sp_err,
+                restorer_dp1_bit_equal=True)
+
+
+def phase_last_modules(tmp):
+    """Path 15: phases 60-65."""
+    archs = phase_restorer_archs()
+    ocr_k1, ocr = phase_ocr_masks(os.path.join(tmp, "ocr"))
+    flops = phase_flop_counter()
+    prof = phase_profiler(os.path.join(tmp, "ocr"))
+    helper_k1, helper = phase_restoration_helper()
+    world1 = phase_world_of_one(os.path.join(tmp, "world1"))
+    torch.cuda.empty_cache()
+    return ocr_k1 + helper_k1, dict(restorer_archs=archs, ocr_masks=ocr,
+                                    flops=flops, profiler=prof,
+                                    restoration_helper=helper,
+                                    world_of_one=world1)
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", default=None,
@@ -6999,6 +7509,10 @@ def main(argv=None):
         video_counts, video = phase_video(tmp)
     lap("path 14")
 
+    with tempfile.TemporaryDirectory(prefix="irt_last_") as tmp:
+        last_k1, last = phase_last_modules(tmp)
+    lap("path 15")
+
     a = agg[("float32", 16)]
     kernels = [{
         "name": "fused_bias_lrelu",
@@ -7006,7 +7520,7 @@ def main(argv=None):
         "source": "image_restoration_tpu_torch/csrc/fused_bias_act.cu",
         "replaces": "image_restoration_tpu/ops/pallas/fused_act_kernel.py:43",
         "launches": (launches + pipe_launches + art_k1 + train_k1 + sg2_k1
-                     + comp_k1 + det_k1 + fid_k1),
+                     + comp_k1 + det_k1 + fid_k1 + last_k1),
         "max_abs_err": worst,
         "ms": a["ms"],
         "plain_ms": a["plain_ms"],
@@ -7063,7 +7577,8 @@ def main(argv=None):
         sr_train=sr_trainers, stylegan2=stylegan2, components=components,
         detector_train=detector_train, hifacegan=hifacegan, fid=fid,
         zoo=zoo, zoo_launches=zoo_counts, video=video,
-        video_launches=video_counts, cuts=CUTS, path_seconds=path_s,
+        video_launches=video_counts, last_modules=last,
+        last_modules_k1=last_k1, cuts=CUTS, path_seconds=path_s,
         seconds=time.perf_counter() - t_start,
         note="kernels[].ms/plain_ms/bound_ms: device time (calls back to "
              "back, CUDA events) and bound, summed over the 39 K1 launches "
@@ -7076,7 +7591,7 @@ def main(argv=None):
              "bf16 conv; "
              "K3's launches are those of probe_conv.main(); K1's launches "
              "are those of the main-path phases of paths 1, 4, 5, 6, 8, 9, "
-             "10 and 12 (4, 17, 21, 26, 36, 39, 42, 50), "
+             "10, 12 and 15 (4, 17, 21, 26, 36, 39, 42, 50, 61, 64), "
              "K2's those of paths 2, 5 and 7 (8, 21, 31: the "
              "engine built from the QAT checkpoint); paths 11, 13 and 14 "
              "launch none")

@@ -59,7 +59,8 @@ def build_network(opt, generator: torch.Generator | None = None):
     opt = deepcopy(opt)
     network_type = opt.pop("type")
     cls = ARCH_REGISTRY.get(network_type)
-    # one device: a BatchNorm's batch statistics are the whole batch's
+    # a train-mode BatchNorm's statistics are always the global batch's
+    # (over a torch.distributed world too), as in JAX: syncbn has no role
     opt.pop("syncbn", None)
     if "out_size" in opt:
         size = opt.pop("out_size")

@@ -30,6 +30,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.resize import resize
+from ..utils.dist_util import world_mean
 from ..utils.registry import ARCH_REGISTRY
 
 
@@ -74,10 +75,10 @@ class _BatchNorm(nn.BatchNorm2d):
         super().reset_parameters()
 
     def forward(self, x, refresh_stats: bool = False):
-        if self.training:
-            mean = x.mean(dim=(0, 1, 2))
-            var = torch.clamp((x * x).mean(dim=(0, 1, 2)) - mean * mean,
-                              min=0.0)
+        if self.training:  # the global batch's moments in a world
+            mean = world_mean(x.mean(dim=(0, 1, 2)))
+            var = torch.clamp(world_mean((x * x).mean(dim=(0, 1, 2)))
+                              - mean * mean, min=0.0)
             if refresh_stats:
                 with torch.no_grad():
                     self.running_mean.copy_(0.9 * self.running_mean

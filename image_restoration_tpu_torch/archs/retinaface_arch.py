@@ -29,6 +29,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..utils.dist_util import in_world, world_mean
 from ..utils.registry import ARCH_REGISTRY
 
 # (out channels, stride, expansion) of the MobileNetV3 blocks; taps after
@@ -75,12 +76,28 @@ class BN(nn.BatchNorm2d):
             return F.batch_norm(x, self.running_mean.to(dt),
                                 self.running_var.to(dt), self.weight.to(dt),
                                 self.bias.to(dt), False, 0.0, self.eps)
+        if in_world():
+            return self._world_forward(x)
         with torch.no_grad():
             var, mean = torch.var_mean(x, dim=(0, 2, 3), unbiased=False)
-            self.running_mean.lerp_(mean.float(), 0.1)
-            self.running_var.lerp_(var.float(), 0.1)
+            self.running_mean.lerp_(mean.to(self.running_mean.dtype), 0.1)
+            self.running_var.lerp_(var.to(self.running_var.dtype), 0.1)
         return F.batch_norm(x, None, None, self.weight.to(dt),
                             self.bias.to(dt), True, 0.0, self.eps)
+
+    def _world_forward(self, x):
+        """Train mode in a `torch.distributed` world: the global batch's
+        mean, then its biased variance as the world's mean of (x − mean)²
+        (two passes: E[x²] − E[x]² cancels on the stem's [0, 255] inputs),
+        both differentiable, as JAX's BatchNorm over a sharded batch."""
+        mean = world_mean(x.mean(dim=(0, 2, 3)))
+        var = world_mean(((x - mean[:, None, None]) ** 2).mean(dim=(0, 2, 3)))
+        with torch.no_grad():
+            self.running_mean.lerp_(mean.to(self.running_mean.dtype), 0.1)
+            self.running_var.lerp_(var.to(self.running_var.dtype), 0.1)
+        scale = torch.rsqrt(var + self.eps) * self.weight.to(x.dtype)
+        return (x - mean[:, None, None]) * scale[:, None, None] + \
+            self.bias.to(x.dtype)[:, None, None]
 
 
 def _lrelu(x, slope):

@@ -24,6 +24,7 @@ import torch
 from torch import nn
 import torch.nn.functional as F
 
+from ..utils.dist_util import gather_batch, rank_rows
 from ..utils.registry import ARCH_REGISTRY
 from ..ops import fused_act
 from ..ops.fused_act import FusedLeakyReLU, ScaledLeakyReLU
@@ -488,7 +489,8 @@ class StyleGAN2Discriminator(nn.Module):
     channel, and `final_linear` (a fused-lrelu EqualLinear, then one to a
     logit). The final flatten is (C, H, W), as in the reference, so a
     reference `net_d` loads; the JAX module flattens (H, W, C) and its
-    importer permutes.
+    importer permutes. In a `torch.distributed` world the stddev groups
+    are those of the global batch, as under JAX's sharded batch.
     """
 
     def __init__(self, input_width: int = 256, input_height: int = 256,
@@ -521,6 +523,8 @@ class StyleGAN2Discriminator(nn.Module):
 
     def forward(self, x):
         out = self.conv_body(x)
+        b_local = out.shape[0]
+        out = gather_batch(out)  # in a world the global batch's statistic
         b, h, w, c = out.shape
         group = min(b, self.stddev_group)
         grouped = out.reshape(group, b // group, h, w, c)
@@ -528,6 +532,9 @@ class StyleGAN2Discriminator(nn.Module):
         stddev = stddev.mean(dim=(1, 2, 3))            # (b // group,)
         stat = stddev.repeat(group)[:, None, None, None]
         out = torch.cat([out, stat.expand(b, h, w, 1).to(out.dtype)], dim=-1)
+        if b != b_local:  # this rank's rows
+            out = rank_rows(out, b)
+            b = b_local
         out = self.final_conv(out)
         out = out.permute(0, 3, 1, 2).reshape(b, -1)   # (C, H, W) flatten
         return self.final_linear(out)

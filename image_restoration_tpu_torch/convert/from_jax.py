@@ -103,7 +103,7 @@ def _leaves(tree: Dict, prefix=()) -> Dict[Tuple[str, ...], np.ndarray]:
 
 def _flatten_fixes(net) -> Dict[str, Tuple[int, int, int]]:
     """Linears fed by a flattened feature map: key prefix → (C, H, W)."""
-    if type(net).__name__ == "GFPGANv1OCR":
+    if type(net).__name__ in ("GFPGANv1OCR", "GFPGANv1"):
         c4 = net.final_conv[0].weight.shape[0]
         return {"final_linear.": (c4, 4, 4 * net.ratio)}
     if type(net).__name__ == "StyleGAN2Discriminator":

@@ -4,7 +4,8 @@ Port of `image_restoration_tpu/data/datasets.py`: the degradation
 synthesis runs on the device (data/pipelines.py), so a GT-only dataset
 returns GT images and exposes `device_pipeline()`, the degradation for the
 step. Ported: `FFHQDegradationDataset` (with `crop_components`: each item
-gains the (10, 4) `char_boxes` of its image), `FFHQDataset` (GT only, for
+gains the (10, 4) `char_boxes` of its image), `OCRDegradationDataset` (the
+padded plates and the masks), `FFHQDataset` (GT only, for
 StyleGAN2Model), `RealESRGANDataset` (with its `RealSRDegradationDataset`
 alias), `PairedImageDataset` and `SingleImageDataset`. The GT-only and
 LQ-only datasets read through `utils/file_client.py`'s backends (disk,
@@ -24,8 +25,10 @@ from ..utils.file_client import FileClient
 from ..utils.img_util import imfrombytes
 from ..utils.misc import scandir
 from ..utils.registry import DATASET_REGISTRY
-from .pipelines import (FFHQDegradationConfig, RealESRGANDegradationConfig,
-                        make_ffhq_degradation, make_realesrgan_degradation)
+from .masks import build_irregular_mask_bank
+from .pipelines import (FFHQDegradationConfig, OCRDegradation,
+                        RealESRGANDegradationConfig, make_ffhq_degradation,
+                        make_realesrgan_degradation)
 from .transforms import augment, paired_random_crop
 
 
@@ -140,6 +143,53 @@ class FFHQDegradationDataset(_BaseDataset):
             use_hflip=opt.get("use_hflip", False),
             mean=tuple(self.mean), std=tuple(self.std))
         return make_ffhq_degradation(cfg)
+
+
+@DATASET_REGISTRY.register()
+class OCRDegradationDataset(FFHQDegradationDataset):
+    """FFHQ's pipeline, an aspect-preserving pad and random occlusion masks
+    (JAX :172-223; the reference's `pad_input` :214-223, mask suite
+    :92-183). With `pad_input` (the default) an image is resized (cv2
+    bilinear) to fit input_width × input_height and centred on a white
+    canvas, else resized to it. With `random_mask`, `device_pipeline()`
+    chains the FFHQ degradation with `masks.apply_random_mask` under
+    `mask_prob`, filled white in normalized space (also for a non-square
+    plate, where JAX's square bank fails: ROADMAP Queue 3)."""
+
+    def __getitem__(self, index: int):
+        import cv2
+        path = self.paths[index]
+        img = self._read(path)
+        if self.opt.get("pad_input", True):
+            h, w = img.shape[:2]
+            scale = min(self.input_width / w, self.input_height / h)
+            nw, nh = max(1, int(w * scale)), max(1, int(h * scale))
+            resized = cv2.resize(img, (nw, nh),
+                                 interpolation=cv2.INTER_LINEAR)
+            img = np.ones((self.input_height, self.input_width, 3),
+                          np.float32)
+            y0 = (self.input_height - nh) // 2
+            x0 = (self.input_width - nw) // 2
+            img[y0:y0 + nh, x0:x0 + nw] = resized
+        else:
+            img = cv2.resize(img, (self.input_width, self.input_height),
+                             interpolation=cv2.INTER_LINEAR)
+        return {"gt": img[..., ::-1].copy(), "gt_path": path}
+
+    def device_pipeline(self):
+        base = super().device_pipeline()
+        if not self.opt.get("random_mask", False):
+            return base
+        mean = np.asarray(self.mean, np.float32)
+        std = np.asarray(self.std, np.float32)
+        white = float(((1.0 - mean) / std)[0])  # fill in normalized space
+        # JAX's bank is input_height² and its masks fail to broadcast over
+        # a non-square plate; the port draws a max(H, W)² bank and crops
+        # it (the same bank as JAX's for a square input)
+        h, w = self.input_height, self.input_width
+        bank = build_irregular_mask_bank(max(h, w))[:, :h, :w]
+        return OCRDegradation(base, bank, self.opt.get("mask_prob", 0.5),
+                              white)
 
 
 @DATASET_REGISTRY.register()

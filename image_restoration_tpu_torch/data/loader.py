@@ -1,9 +1,11 @@
 """Batching and prefetching data loader.
 
-Port of `image_restoration_tpu/data/loader.py` on one device (numpy and a
-thread, the same index stream at one replica): `EnlargedSampler` (an
-epoch-seeded shuffle over len(dataset)·enlarge_ratio), one background thread
-that reads and collates numpy batches, and `build_dataloader`'s policies.
+Port of `image_restoration_tpu/data/loader.py` (numpy and a thread):
+`EnlargedSampler` (an epoch-seeded shuffle over len(dataset)·enlarge_ratio),
+one background thread that reads and collates numpy batches, and
+`build_dataloader`'s policies. In a `torch.distributed` world every rank
+walks the same index stream of global batches (`batch_size_per_gpu`, JAX's
+global batch) and reads its own contiguous 1/world of each.
 The options' `num_worker_per_gpu` is not read: the reader is one thread. The
 trainer copies each batch to the device; CUDA runs asynchronously, so
 the next batch is read while the step runs.
@@ -16,6 +18,8 @@ import threading
 from typing import Dict, Iterator, Optional
 
 import numpy as np
+
+from ..utils.dist_util import check_global_batch
 
 
 class EnlargedSampler:
@@ -40,7 +44,8 @@ class DataLoader:
 
     def __init__(self, dataset, batch_size: int, sampler=None,
                  shuffle: bool = False, drop_last: bool = True,
-                 prefetch: int = 3, seed: int = 0):
+                 prefetch: int = 3, seed: int = 0, rank: int = 0,
+                 world: int = 1):
         self.dataset = dataset
         self.batch_size = batch_size
         self.sampler = sampler
@@ -49,6 +54,8 @@ class DataLoader:
         self.prefetch = prefetch
         self.seed = seed
         self.epoch = 0
+        self.rank, self.world = rank, world
+        self.local_batch = check_global_batch(batch_size, world)
 
     def __len__(self):
         n = (self.sampler.per_rank if self.sampler is not None
@@ -72,8 +79,9 @@ class DataLoader:
             idx = np.arange(len(self.dataset))
         n = len(idx)
         stop = n - n % self.batch_size if self.drop_last else n
+        lo = self.rank * self.local_batch
         for start in range(0, stop, self.batch_size):
-            yield idx[start:start + self.batch_size]
+            yield idx[start:start + self.batch_size][lo:lo + self.local_batch]
 
     @staticmethod
     def _collate(samples) -> Dict:
@@ -126,8 +134,10 @@ class DataLoader:
 
 
 def build_dataloader(dataset, dataset_opt: dict, seed: int = 0,
-                     sampler: Optional[EnlargedSampler] = None):
-    """Train: sampler, `batch_size_per_gpu`, drop_last; val: in order."""
+                     sampler: Optional[EnlargedSampler] = None,
+                     rank: int = 0, world: int = 1):
+    """Train: sampler, `batch_size_per_gpu` (the global batch, of which
+    this rank reads its 1/world), drop_last; val: in order."""
     phase = dataset_opt.get("phase", "train")
     if phase == "train":
         if sampler is None:
@@ -135,6 +145,7 @@ def build_dataloader(dataset, dataset_opt: dict, seed: int = 0,
                 len(dataset), dataset_opt.get("dataset_enlarge_ratio", 1))
         return DataLoader(dataset,
                           batch_size=dataset_opt["batch_size_per_gpu"],
-                          sampler=sampler, drop_last=True, seed=seed)
+                          sampler=sampler, drop_last=True, seed=seed,
+                          rank=rank, world=world)
     return DataLoader(dataset, batch_size=dataset_opt.get("batch_size", 1),
                       shuffle=False, drop_last=False)

@@ -31,6 +31,7 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from . import degradations as D
+from .masks import apply_random_mask, sample_random_mask
 from .pyblur_bank import build_pyblur_bank
 from ..ops.filter2d import filter2d
 from ..ops.resize import dynamic_resize_matrix, resize
@@ -120,8 +121,9 @@ class FFHQDegradation:
             p["jitter_pt"] = D.sample_color_jitter_pt(generator, n)
         return p
 
-    def apply(self, gt: torch.Tensor, p: Dict):
-        """Degrade `gt` with the drawn parameters `p`."""
+    def apply(self, gt: torch.Tensor, p: Dict, generator=None):
+        """Degrade `gt` with the drawn parameters `p` (every draw is in
+        `p`; `generator` is unused, as for the other chains' signature)."""
         cfg = self.cfg
         if cfg.use_hflip:
             gt = torch.where(p["flip"], torch.flip(gt, dims=(2,)), gt)
@@ -169,6 +171,39 @@ class FFHQDegradation:
 
 def make_ffhq_degradation(cfg: FFHQDegradationConfig) -> FFHQDegradation:
     return FFHQDegradation(cfg)
+
+
+class OCRDegradation:
+    """The FFHQ chain, then `masks.apply_random_mask` on its LQ with
+    probability `mask_prob`, filled with `fill` (JAX's
+    `OCRDegradationDataset.device_pipeline`, data/datasets.py:199-223).
+    The brush-stroke bank is host numpy, copied once per device."""
+
+    def __init__(self, base: FFHQDegradation, bank, mask_prob: float = 0.5,
+                 fill: float = 1.0):
+        self.base = base
+        self.bank_np = bank
+        self.mask_prob = mask_prob
+        self.fill = fill
+        self._banks = DeviceConstants(
+            lambda dev: torch.as_tensor(bank, device=dev), maxsize=4)
+
+    def sample(self, generator: torch.Generator, n: int, h: int, w: int,
+               c: int = 3) -> Dict:
+        return {"base": self.base.sample(generator, n, h, w, c),
+                "mask": sample_random_mask(generator, n,
+                                           self.bank_np.shape[0],
+                                           self.mask_prob)}
+
+    def apply(self, gt: torch.Tensor, p: Dict, generator=None):
+        lq, gt_n = self.base.apply(gt, p["base"])
+        lq, _ = apply_random_mask(lq, self._banks(torch.device(lq.device)),
+                                  p["mask"], self.fill)
+        return lq, gt_n
+
+    def __call__(self, generator: torch.Generator, gt: torch.Tensor):
+        n, h, w, c = gt.shape
+        return self.apply(gt, self.sample(generator, n, h, w, c))
 
 
 # ------------------------------------------------- the Real-ESRGAN chain
@@ -272,6 +307,8 @@ class RealESRGANDegradation:
     those from `generator` where `params` has none and keeps them there, so
     a second `apply` with the same `params` (on another device, through
     `degradations.params_to`) replays the same draw."""
+
+    draws_in_apply = True  # the Poisson counts
 
     def __init__(self, cfg: RealESRGANDegradationConfig):
         self.cfg = cfg

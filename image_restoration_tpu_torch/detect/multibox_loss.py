@@ -5,7 +5,8 @@ Port of `image_restoration_tpu/detect/multibox_loss.py:25-93` (parity with
 Plate_Detect/Retina-License-Plate/layers/modules/multibox_loss.py:9-125).
 JAX vmaps the per-image matching; here `match` runs batched over B in one
 call. The positive and negative counts are masked reductions, so the loss
-never waits on the host.
+never waits on the host. In a `torch.distributed` world the normalizers
+count the global batch's positives.
 
 Targets are a padded (B, M, 15) tensor: 4 corner bbox coordinates and 10
 landmark coordinates in [0, 1], then the label (1 = plate with landmarks,
@@ -16,7 +17,18 @@ from __future__ import annotations
 
 import torch
 
+from ..utils.dist_util import all_reduce_sum, get_dist_info, in_world
 from .box_utils import jaccard, match, point_form
+
+
+def _normalizer(mask: torch.Tensor) -> torch.Tensor:
+    """max(count, 1) of the set entries of `mask`; in a world, the global
+    batch's count over the world size, so the world's mean of the ranks'
+    losses is the global batch's loss."""
+    if not in_world():
+        return torch.clamp(mask.sum(), min=1)
+    return torch.clamp(all_reduce_sum(mask.sum().float()), min=1) / \
+        get_dist_info()[1]
 
 
 def smooth_l1(x: torch.Tensor) -> torch.Tensor:
@@ -59,12 +71,12 @@ def multibox_loss(predictions, priors: torch.Tensor, targets: torch.Tensor,
 
     # landmark loss: positives with landmarks (conf_t == 1)
     pos1 = conf_t > 0
-    n1 = torch.clamp(pos1.sum(), min=1).to(landm_data.dtype)
+    n1 = _normalizer(pos1).to(landm_data.dtype)
     loss_landm = (smooth_l1(landm_data - landm_t) * pos1[..., None]).sum() / n1
 
     # localization loss: every object (conf_t != 0)
     pos = conf_t != 0
-    n = torch.clamp(pos.sum(), min=1).to(loc_data.dtype)
+    n = _normalizer(pos).to(loc_data.dtype)
     loss_loc = (smooth_l1(loc_data - loc_t) * pos[..., None]).sum() / n
 
     # confidence loss with hard-negative mining; −1 labels train class 1

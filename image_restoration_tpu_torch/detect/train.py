@@ -1,4 +1,4 @@
-"""Detector training on one GPU.
+"""Detector training on one GPU, or data-parallel over several.
 
 Port of `image_restoration_tpu/detect/train.py:27-248` (parity with
 Plate_Detect/Retina-License-Plate/train.py:95-169): SGD with momentum 0.9
@@ -20,6 +20,12 @@ weights and the BatchNorm statistics, not the momentum trace.
 
     python -m image_restoration_tpu_torch.detect.train \\
         --training_dataset data/train/label.txt --network resnet18
+
+`data_parallel=N` (`--data_parallel N`, under `torchrun --nproc_per_node
+N`) trains JAX's data-parallel step (detect/train.py:33-82): the global
+batch is split over the world's N ranks, the SGD gradients are averaged
+over it, train-mode BatchNorm and the loss normalizers count the global
+batch (`utils/dist_util.py`); rank 0 writes the checkpoints.
 """
 
 from __future__ import annotations
@@ -32,6 +38,9 @@ import torch
 
 from ..archs import build_network
 from ..utils.device import resolve_device
+from ..utils.dist_util import (average_gradients, check_global_batch,
+                               get_dist_info, in_world, init_dist,
+                               local_device)
 from ..utils.logger import get_root_logger
 from .config import get_cfg
 from .multibox_loss import multibox_loss
@@ -43,7 +52,9 @@ class DetectorTrainer:
 
     Parameters are drawn from a generator seeded with 0 (the trunk from
     `resnet_pretrain_path` when given). `device=None` means "cuda" and
-    raises without a GPU.
+    raises without a GPU; with `data_parallel=N` > 1 the process must be
+    one of a `torch.distributed` world of N (its device cuda:LOCAL_RANK
+    unless `device` is given), and `train_step` takes the global batch.
     """
 
     def __init__(self, backbone: str = "Resnet18", image_size: int = 224,
@@ -51,11 +62,16 @@ class DetectorTrainer:
                  weight_decay: float = 5e-4,
                  resnet_pretrain_path: Optional[str] = None,
                  decay_steps=(), data_parallel: int = 0, device=None):
-        if int(data_parallel or 0) > 1:
-            raise NotImplementedError(
-                f"data_parallel={data_parallel}: multi-device training is "
-                "ROADMAP item 21; the port trains on one device")
-        self.device = resolve_device(device)
+        self.rank, self.world = get_dist_info()
+        self.data_parallel = int(data_parallel or 0)
+        if max(self.data_parallel, 1) != self.world:
+            raise RuntimeError(
+                f"data_parallel={data_parallel} needs a torch.distributed "
+                f"world of {max(self.data_parallel, 1)} processes (this one "
+                f"is in a world of {self.world}); start it with torchrun "
+                "--nproc_per_node N")
+        self.device = (local_device(device) if in_world()
+                       else resolve_device(device))
         self.cfg = get_cfg(backbone)
         self.image_size = image_size
         self.net = build_network(
@@ -98,16 +114,24 @@ class DetectorTrainer:
 
     def train_step(self, images, targets) -> dict:
         """One SGD step on (B, S, S, 3) mean-subtracted BGR images and
-        (B, M, 15) targets (numpy or tensors). Returns the losses (also
-        kept as `last_losses`) as detached 0-dim tensors on the device:
-        nothing waits on the card."""
-        images = torch.as_tensor(images).to(self.device, torch.float32)
-        targets = torch.as_tensor(targets).to(self.device, torch.float32)
+        (B, M, 15) targets (numpy or tensors): the global batch, of which
+        each rank of a world takes its 1/world. Returns this rank's losses
+        (also kept as `last_losses`; their world mean is the global
+        batch's) as detached 0-dim tensors on the device: nothing waits on
+        the card."""
+        if in_world():
+            n = check_global_batch(len(images), self.world)
+            images = images[self.rank * n:(self.rank + 1) * n]
+            targets = targets[self.rank * n:(self.rank + 1) * n]
+        dtype = self.priors.dtype  # float32 unless the net was cast
+        images = torch.as_tensor(images).to(self.device, dtype)
+        targets = torch.as_tensor(targets).to(self.device, dtype)
         for group in self.optimizer.param_groups:
             group["lr"] = self.lr_at(self.step)
         self.optimizer.zero_grad(set_to_none=True)
         total, losses = self.losses(images, targets)
         total.backward()
+        average_gradients(self.net.parameters())
         self.optimizer.step()
         self.step += 1
         self.last_losses = {k: v.detach() for k, v in losses.items()}
@@ -204,7 +228,11 @@ def main(argv=None):
                    help="torchvision resnet18/50 .pth for the trunk")
     p.add_argument("--device", default=None,
                    help="cuda (the default) or cpu")
+    p.add_argument("--data_parallel", default=0, type=int,
+                   help="N > 1: one of N processes started by torchrun")
     args = p.parse_args(argv)
+    if args.data_parallel > 1:
+        init_dist("gloo" if args.device == "cpu" else "nccl")
 
     backbone = _BACKBONE_ALIASES[args.network]
     cfg = get_cfg(backbone)
@@ -220,15 +248,17 @@ def main(argv=None):
         backbone=backbone, image_size=args.image_size, lr=args.lr,
         momentum=args.momentum, weight_decay=args.weight_decay,
         resnet_pretrain_path=args.resnet_pretrain,
-        decay_steps=decay_steps, device=args.device)
+        decay_steps=decay_steps, data_parallel=args.data_parallel,
+        device=args.device)
     if args.resume_net:
         trainer.load(args.resume_net)
         trainer.step = args.resume_epoch * steps_per_epoch
     trainer.fit(dataset, epochs=epochs - args.resume_epoch,
                 batch_size=batch_size)
-    out = os.path.join(args.save_folder, f"{backbone}_final.pth")
-    trainer.save(out)
-    trainer.logger.info(f"saved final checkpoint to {out}")
+    if trainer.rank == 0:
+        out = os.path.join(args.save_folder, f"{backbone}_final.pth")
+        trainer.save(out)
+        trainer.logger.info(f"saved final checkpoint to {out}")
     return trainer
 
 

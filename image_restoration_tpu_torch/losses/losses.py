@@ -16,6 +16,7 @@ import torch
 import torch.nn.functional as F
 
 from ..utils.device import const_tensor
+from ..utils.dist_util import world_mean
 from ..utils.registry import LOSS_REGISTRY
 
 
@@ -318,10 +319,10 @@ def g_path_regularize(fake_fn: Callable, latents: torch.Tensor,
     (grad,) = torch.autograd.grad((fake_img * noise).sum(), latents,
                                   create_graph=True)
     path_lengths = torch.sqrt(torch.mean(torch.sum(grad ** 2, dim=2), dim=1))
-    path_mean = mean_path_length + decay * (path_lengths.mean()
-                                            - mean_path_length)
+    batch_mean = world_mean(path_lengths.mean())  # the global batch's
+    path_mean = mean_path_length + decay * (batch_mean - mean_path_length)
     penalty = torch.mean((path_lengths - path_mean) ** 2)
-    return penalty, path_lengths.mean().detach(), \
+    return penalty, batch_mean.detach(), \
         torch.as_tensor(path_mean).detach()
 
 

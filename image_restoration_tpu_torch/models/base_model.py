@@ -1,6 +1,6 @@
 """BaseModel — the trainers' shared machinery.
 
-Port of `image_restoration_tpu/models/base_model.py` on one device:
+Port of `image_restoration_tpu/models/base_model.py`:
 
   * `TrainOptimizer`: Adam, AdamW or SGD with the lr of
     `build_schedule(...)(count)` at each update's count (optax's
@@ -11,9 +11,14 @@ Port of `image_restoration_tpu/models/base_model.py` on one device:
   * checkpoints: `ckpt_{iter}.pth` holds the training state (`torch.save`)
     that `resume` reads, where JAX writes an orbax directory; the trainer
     adds the reference's `{"params", "params_ema"}` files;
-  * `load_pretrain_torch`: a reference `.pth` through `load_state_dict`.
-
-One device only: `num_devices` above 1 raises (ROADMAP item 21).
+  * `load_pretrain_torch`: a reference `.pth` through `load_state_dict`;
+  * `num_devices: N` above 1: the step of JAX's global batch over N
+    devices, as N processes of a `torch.distributed` world (`torchrun
+    --nproc_per_node N -m image_restoration_tpu_torch.train`). Each rank
+    takes its 1/N of the global batch (`batch_size_per_gpu`), the
+    optimizers average the gradients over the world before each update,
+    and the logged losses are the world's means (`utils/dist_util.py`).
+    Without a matching world it raises.
 """
 
 from __future__ import annotations
@@ -27,6 +32,8 @@ import torch
 from ..archs import build_network
 from ..convert.pth import load_pth
 from ..utils.device import resolve_device
+from ..utils.dist_util import (average_gradients, get_dist_info, in_world,
+                               local_device, reduce_loss_dict)
 from ..utils.logger import get_root_logger
 from .lr_scheduler import build_schedule
 
@@ -88,6 +95,7 @@ class TrainOptimizer:
         for p in self.params:
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
+        average_gradients(self.params)  # the world's mean (no-op alone)
         if self.grad_clip:
             self._clip(float(self.grad_clip))
         lr = self.schedule(self.count)
@@ -109,12 +117,16 @@ class BaseModel:
         self.opt = opt
         self.is_train = opt.get("is_train", True)
         self.logger = get_root_logger()
+        self.rank, self.world = get_dist_info()
         n = opt.get("num_devices")
-        if n is not None and n > 1:
-            raise NotImplementedError(
-                f"num_devices={n}: the trainer runs on one device; "
-                "multi-device training is ROADMAP item 21")
-        self.device = resolve_device(device)
+        if n is not None and n != self.world and (n > 1 or self.world > 1):
+            raise RuntimeError(
+                f"num_devices={n} needs a torch.distributed world of {n} "
+                f"processes, one a device (this one is in a world of "
+                f"{self.world}); start it with torchrun --nproc_per_node "
+                f"{n} -m image_restoration_tpu_torch.train -opt ...")
+        self.device = (local_device(device) if in_world()
+                       else resolve_device(device))
         self.seed = opt.get("manual_seed", 0) or 0
         self.optimizers = []
         # the last step's losses, detached on the device: the step itself
@@ -192,9 +204,5 @@ class BaseModel:
     @staticmethod
     def reduce_loss_dict(loss_dict) -> Dict[str, float]:
         """Scalar tensors (on one device) to floats, with one copy to the
-        host."""
-        if not loss_dict:
-            return {}
-        vals = torch.stack([v.detach().float().reshape(())
-                            for v in loss_dict.values()]).tolist()
-        return dict(zip(loss_dict.keys(), vals))
+        host; in a world, the world's means (every rank must call it)."""
+        return reduce_loss_dict(loss_dict)

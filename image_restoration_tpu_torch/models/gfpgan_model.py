@@ -1,6 +1,7 @@
 """GFPGANModel — the production license-plate GAN trainer.
 
-Port of `image_restoration_tpu/models/gfpgan_model.py:69-442` on one device:
+Port of `image_restoration_tpu/models/gfpgan_model.py:69-442` (on one
+device, or over a `torch.distributed` world: models/base_model.py):
 
   * G losses: L1 pixel, Sobel, the image-pyramid L1 against the out_rgbs
     (its weight becomes 1e-12 from `remove_pyramid_loss` on), VGG

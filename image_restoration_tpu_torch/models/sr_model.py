@@ -1,7 +1,8 @@
 """SRModel — the L1/perceptual SR trainer, and the generator half of the
 other trainers.
 
-Port of `image_restoration_tpu/models/sr_model.py` on one device:
+Port of `image_restoration_tpu/models/sr_model.py` (on one device, or over
+a `torch.distributed` world: models/base_model.py):
 
   * the G build (and `pretrain_network_g`), its EMA copy, and the model's
     `torch.Generator` on its device (seeded from `manual_seed`) for the
@@ -36,6 +37,7 @@ import torch
 from ..losses import build_loss
 from ..metrics import calculate_metric
 from ..ops.qat import export_int8, qat_srvgg_forward, update_qscale
+from ..utils.dist_util import in_world, rank_rows
 from ..utils.img_util import imwrite, tensor2img
 from ..utils.registry import MODEL_REGISTRY
 from .base_model import BaseModel
@@ -165,10 +167,31 @@ class SRModel(BaseModel):
         """(lq, gt) of a batch on the device: its "gt" through the
         degradation pipeline when there is one, else its "lq" and "gt"."""
         gt = self.to_device(batch["gt"])
-        if self.degrade_fn is not None:
-            with torch.no_grad():
-                return self.degrade_fn(generator or self.generator, gt)
-        return self.to_device(batch["lq"]), gt
+        if self.degrade_fn is None:
+            return self.to_device(batch["lq"]), gt
+        gen = generator or self.generator
+        with torch.no_grad():
+            if not in_world():
+                return self.degrade_fn(gen, gt)
+            return self._degrade_rank_rows(gen, gt)
+
+    def _degrade_rank_rows(self, gen: torch.Generator, gt: torch.Tensor):
+        """This rank's rows of the global batch's degradation: every
+        parameter is drawn for the whole global batch from the shared
+        generator (so all ranks stay in step) and cut to this rank's rows,
+        so the rows equal the one-process step's. Draws that depend on the
+        image (Real-ESRGAN's Poisson counts, `draws_in_apply`) come from a
+        stream seeded by one shared draw plus the rank instead."""
+        n, h, w, c = gt.shape
+        n_global = n * self.world
+        p = rank_rows(self.degrade_fn.sample(gen, n_global, h, w, c),
+                      n_global, self.rank, self.world)
+        if not getattr(self.degrade_fn, "draws_in_apply", False):
+            return self.degrade_fn.apply(gt, p)
+        seed = int(torch.randint(0, 2 ** 62, (), generator=gen,
+                                 device=gen.device))
+        local = torch.Generator(self.device).manual_seed(seed + self.rank)
+        return self.degrade_fn.apply(gt, p, local)
 
     def optimize_parameters(self, current_iter: int, batch, generator=None):
         """One G step on `batch` ("gt", or "lq" and "gt"; numpy or
@@ -185,6 +208,9 @@ class SRModel(BaseModel):
         self.optimizer_g.step()
         self.ema_update(self.net_g_ema, self.net_g, self.ema_decay)
         if self.quant_opt:
+            if in_world():  # the global batch's maxima
+                torch.distributed.all_reduce(
+                    batch_max, op=torch.distributed.ReduceOp.MAX)
             self.qscale = update_qscale(self.qscale, batch_max,
                                         self.quant_opt["ema_decay"])
         self.iter += 1

@@ -1,7 +1,8 @@
 """StyleGAN2Model — generative pretraining of the StyleGAN2 generator.
 
-Port of `image_restoration_tpu/models/stylegan2_model.py` on one device,
-step for step:
+Port of `image_restoration_tpu/models/stylegan2_model.py`, step for step
+(in a `torch.distributed` world the codes and the path-length noise are
+drawn for the global batch and cut to each rank's rows):
 
   * the D logistic step (`wgan_softplus`) on a fake batch and the real one,
     then the G non-saturating step through the updated D, then the EMA
@@ -44,6 +45,7 @@ import torch
 
 from ..losses import build_loss
 from ..losses.losses import g_path_regularize, r1_penalty
+from ..utils.dist_util import check_global_batch, rank_rows
 from ..utils.registry import MODEL_REGISTRY
 from .sr_model import SRModel
 
@@ -86,14 +88,19 @@ class StyleGAN2Model(SRModel):
         mix = float(torch.rand((), generator=self.host_generator)) \
             < self.mixing_prob
         n = 2 if mix else 1
-        codes = [torch.randn((batch, self.num_style_feat), generator=gen,
-                             device=self.device) for _ in range(n)]
+        codes = [self._rows(torch.randn(
+            (batch * self.world, self.num_style_feat), generator=gen,
+            device=self.device)) for _ in range(n)]
         index = None
         if mix:
             index = int(torch.randint(1, self.net_g.num_latent, (),
                                       generator=self.host_generator))
         self.style_draws[part, n] += 1
         return codes, index
+
+    def _rows(self, x: torch.Tensor) -> torch.Tensor:
+        """This rank's rows of a draw for the global batch."""
+        return rank_rows(x, x.shape[0], self.rank, self.world)
 
     def draw_noise(self, generator=None):
         """StyleConv noise maps for one G forward, on the model's device."""
@@ -137,7 +144,10 @@ class StyleGAN2Model(SRModel):
         return weight * penalty, path_mean, new_mean
 
     def path_batch(self, batch: int) -> int:
-        return max(1, batch // self.path_batch_shrink)
+        """This rank's rows of the path-length batch (the global batch
+        shrunk by `path_batch_shrink`)."""
+        pb = max(1, batch * self.world // self.path_batch_shrink)
+        return check_global_batch(pb, self.world)
 
     # -------------------------------------------------------------- steps
 
@@ -182,8 +192,9 @@ class StyleGAN2Model(SRModel):
             pb = self.path_batch(b)
             codes, index = self.mixing_noise(pb, gen, "path")
             noise = self.draw_noise(gen)
-            img_noise = torch.randn((pb, *self._hw, 3), generator=gen,
-                                    device=self.device)
+            img_noise = self._rows(torch.randn(
+                (pb * self.world, *self._hw, 3), generator=gen,
+                device=self.device))
             self.optimizer_g.zero_grad()
             l_path, path_mean, self.mean_path_length = self.path_loss(
                 codes, index, noise, img_noise)

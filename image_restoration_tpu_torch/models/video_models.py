@@ -1,6 +1,6 @@
 """Video SR trainers.
 
-Port of `image_restoration_tpu/models/video_models.py` on one device:
+Port of `image_restoration_tpu/models/video_models.py`:
 
   * `VideoBaseModel` (:27): SRModel over (N, T, H, W, 3) clips, with
     folder-grouped validation (`{folder}/{metric}` means; a whole-clip

@@ -3,7 +3,8 @@
 Port of `image_restoration_tpu/parallel/tiling.py:25-93`: the image is
 reflect-padded to a whole tile grid plus a halo, cut into one batch of
 overlapping tiles, run in chunks of `tile_batch`, and the tiles' centers are
-stitched back.
+stitched back. Over a mesh (`parallel/mesh.py`) each chunk is split in
+order over the mesh's devices and their parts run at once.
 
 The reflect padding repeats the fold as often as needed, as `jnp.pad` and
 `np.pad` do when the pad is wider than the image (a 120×360 plate at tile 512
@@ -18,6 +19,8 @@ from typing import Callable, Optional, Tuple
 
 import numpy as np
 import torch
+
+from .mesh import data_sharding
 
 
 def _reflect_index(n: int, before: int, after: int,
@@ -57,7 +60,7 @@ def untile_image(tiles: torch.Tensor, grid: Tuple[int, int, int, int],
     return out[:, :h * scale, :w * scale, :]
 
 
-def tiled_apply(fn: Callable, img: torch.Tensor, tile: int, halo: int,
+def tiled_apply(fn, img: torch.Tensor, tile: int, halo: int,
                 scale: int = 1, tile_batch: Optional[int] = None,
                 mesh=None, axis: str = "data",
                 out_halo: Optional[int] = None) -> torch.Tensor:
@@ -67,15 +70,18 @@ def tiled_apply(fn: Callable, img: torch.Tensor, tile: int, halo: int,
     padded with zero tiles to the same size, and their outputs dropped).
     out_halo: the halo left on fn's output; 0 when fn crops it itself
     (`quantized_srvgg_forward(crop_halo=...)`). Default: halo.
-    mesh, axis: sharding the chunks over the `axis` of a device mesh is not
-    ported yet (multi-device work); passing a mesh raises.
+    mesh: a one-process `parallel.mesh.Mesh`; tile_batch is rounded up to
+    a multiple of its size (JAX's static shapes), each chunk is split in
+    order over its devices, and `fn` (one callable, or one per device,
+    such as the replicas of a net) runs on every part at once, each on
+    its device's thread. `axis` names the mesh axis, as in JAX.
     """
-    if mesh is not None:
-        raise NotImplementedError("tiled_apply over a device mesh is not "
-                                  "ported yet")
     tiles, grid = tile_image(img, tile, halo)
     num = tiles.shape[0]
     tile_batch = tile_batch or num
+    if mesh is not None:
+        fn = _over_mesh(fn, mesh, img.device)
+        tile_batch += -tile_batch % mesh.size
     outs = []
     for start in range(0, num, tile_batch):
         chunk = tiles[start:start + tile_batch]
@@ -87,3 +93,20 @@ def tiled_apply(fn: Callable, img: torch.Tensor, tile: int, halo: int,
         outs.append(out[:tile_batch - pad] if pad else out)
     return untile_image(torch.cat(outs, dim=0), grid, tile,
                         halo if out_halo is None else out_halo, scale)
+
+
+def _over_mesh(fn, mesh, out_device) -> Callable:
+    """A chunk function that splits its chunk in order over `mesh`'s
+    devices, runs fn (or fn[i] on device i) on the parts at once, and
+    gathers the outputs in order on `out_device`."""
+    if mesh.world:
+        raise ValueError("tiled_apply takes the devices of one process; "
+                         "for a process group use parallel.spatial")
+    fns = list(fn) if isinstance(fn, (list, tuple)) else [fn] * mesh.size
+    split = data_sharding(mesh)
+
+    def run(chunk):
+        outs = mesh.run(fns, split(chunk))
+        return torch.cat([o.to(out_device) for o in outs], dim=0)
+
+    return run

@@ -1,10 +1,21 @@
-"""Training pipeline on one device.
+"""Training pipeline.
 
 Port of `image_restoration_tpu/train.py`:
 
     python -m image_restoration_tpu_torch.train \\
         -opt configs/train_gfpgan_plate_256.yml [--auto_resume] [--debug] \\
         [--force_yml train:total_iter=100 ...]
+
+With `num_devices: N` (N > 1) it trains the global-batch step over N
+devices, one process each:
+
+    torchrun --nproc_per_node N -m image_restoration_tpu_torch.train \\
+        -opt configs/train_gfpgan_plate_256.yml --force_yml num_devices=N
+
+Every rank reads its 1/N of each `batch_size_per_gpu` batch (the global
+batch, as in JAX) and the gradients are averaged over the world
+(`models/base_model.py`); rank 0 alone writes logs, checkpoints and
+validates.
 
 The device is cuda (it raises without a GPU); `train_pipeline(...,
 device="cpu")` runs the plain PyTorch path on the CPU. GT batches are read
@@ -17,6 +28,7 @@ which `--auto_resume` finds) and `net_g_{iter}.pth` (reference layout).
 
 from __future__ import annotations
 
+import logging
 import os
 import time
 from os import path as osp
@@ -24,6 +36,7 @@ from os import path as osp
 from .data import build_dataloader, build_dataset
 from .models import build_model
 from .utils.debug import enable_nan_checks
+from .utils.dist_util import get_dist_info, init_dist
 from .utils.logger import (AvgTimer, MessageLogger, get_env_info,
                            get_root_logger, init_tb_logger)
 from .utils.misc import check_resume, make_exp_dirs, set_random_seed
@@ -49,11 +62,13 @@ def load_resume_state(opt):
 
 def create_train_val_dataloader(opt, logger):
     train_loader, val_loader, train_dataset = None, None, None
+    rank, world = get_dist_info()
     for phase, dataset_opt in opt["datasets"].items():
         if phase == "train":
             train_dataset = build_dataset(dataset_opt)
             train_loader = build_dataloader(train_dataset, dataset_opt,
-                                            seed=opt["manual_seed"])
+                                            seed=opt["manual_seed"],
+                                            rank=rank, world=world)
             logger.info(f"Training set [{dataset_opt['name']}]: "
                         f"{len(train_dataset)} images, "
                         f"{len(train_loader)} iters/epoch")
@@ -67,24 +82,32 @@ def create_train_val_dataloader(opt, logger):
 
 def train_pipeline(root_path: str | None = None, argv=None, device=None):
     """Parse the CLI (`argv`), build data and model, train, validate and
-    save; returns the model. `device` None means cuda."""
+    save; returns the model. `device` None means cuda (in a world,
+    cuda:LOCAL_RANK; "cpu" joins it over gloo)."""
     opt, _ = parse_options(root_path, is_train=True, argv=argv)
     set_random_seed(opt["manual_seed"])
+    if (opt.get("num_devices") or 1) > 1 and get_dist_info()[1] == 1:
+        init_dist("gloo" if str(device) == "cpu" else "nccl")
+    rank = get_dist_info()[0]
 
     if opt.get("debug_nans"):  # anomaly mode (utils/debug.py)
         enable_nan_checks(True)
 
     resume_state_path = load_resume_state(opt)
-    if resume_state_path is None:
-        make_exp_dirs(opt)
-    os.makedirs(opt["path"]["log"], exist_ok=True)
-    log_file = osp.join(opt["path"]["log"],
-                        f"train_{opt['name']}_{int(time.time())}.log")
-    logger = get_root_logger(log_file=log_file)
+    if rank == 0:
+        if resume_state_path is None:
+            make_exp_dirs(opt)
+        os.makedirs(opt["path"]["log"], exist_ok=True)
+        log_file = osp.join(opt["path"]["log"],
+                            f"train_{opt['name']}_{int(time.time())}.log")
+        logger = get_root_logger(log_file=log_file)
+    else:  # the other ranks log warnings only, and write nothing
+        logger = get_root_logger()
+        logger.setLevel(logging.WARNING)
     logger.info(get_env_info())
     logger.info(dict2str(opt))
     tb_logger = None
-    if opt["logger"].get("use_tb_logger"):
+    if opt["logger"].get("use_tb_logger") and rank == 0:
         tb_logger = init_tb_logger(osp.join(opt["path"]["experiments_root"],
                                             "tb_logger"))
 
@@ -128,11 +151,12 @@ def train_pipeline(root_path: str | None = None, argv=None, device=None):
                         "lrs": model.current_learning_rates(current_iter),
                         "time": iter_timer.get_avg_time(),
                         "data_time": data_timer.get_avg_time()}
-                logs.update(model.log_dict)
-                msg_logger(logs)
-            if save_freq and current_iter % save_freq == 0:
+                logs.update(model.log_dict)  # every rank: a collective
+                if rank == 0:
+                    msg_logger(logs)
+            if save_freq and current_iter % save_freq == 0 and rank == 0:
                 model.save(current_iter)
-            if val_freq and val_loader is not None and \
+            if val_freq and val_loader is not None and rank == 0 and \
                     current_iter % val_freq == 0:
                 model.validation(val_loader, current_iter, tb_logger,
                                  val_opt.get("save_img", False))
@@ -141,6 +165,8 @@ def train_pipeline(root_path: str | None = None, argv=None, device=None):
         epoch += 1
 
     logger.info("End of training.")
+    if rank != 0:
+        return model
     model.save(current_iter)
     if val_loader is not None:
         model.validation(val_loader, current_iter, tb_logger,

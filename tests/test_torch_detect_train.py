@@ -429,7 +429,9 @@ def test_lr_schedule_follows_step(jax_trainer):
 
 
 def test_data_parallel_raises_and_device_defaults_to_cuda(monkeypatch):
-    with pytest.raises(NotImplementedError, match="item 21"):
+    """data_parallel=2 outside a torch.distributed world of 2 raises and
+    names torchrun (the world-2 step is in tests/test_torch_parallel.py)."""
+    with pytest.raises(RuntimeError, match="torchrun"):
         DetectorTrainer(backbone="mobilenet0.25", image_size=64,
                         data_parallel=2, device="cpu")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)

@@ -140,7 +140,10 @@ def test_restorer_device_defaults_to_cuda(monkeypatch):
 
 @pytest.mark.parametrize("kwargs", [dict(data_parallel=2)])
 def test_restorer_unported_modes_raise(kwargs):
-    with pytest.raises(NotImplementedError):
+    """data_parallel is ported (tests/test_torch_parallel.py serves over
+    ["cpu", "cpu"]); asked for more CUDA devices than there are, it raises
+    as JAX's raises above its local devices."""
+    with pytest.raises(ValueError, match="local devices"):
         Restorer(TINY_GFPGAN, device="cpu", **kwargs)
 
 

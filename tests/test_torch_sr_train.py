@@ -545,19 +545,28 @@ def test_sr_entry_points_default_to_cuda(tmp_path, monkeypatch):
 
 def test_port_registry_names_are_jax_names():
     """Every arch, model and dataset the port registers carries the JAX
-    package's `type:` name."""
+    package's `type:` name, and every JAX dataset type is registered in the
+    port. Every registering module of both packages is imported first, so
+    the result does not depend on what ran before in the worker."""
     import importlib
+    import pkgutil
+    from image_restoration_tpu.models import register_all_models
     from image_restoration_tpu.utils import registry as jreg
     from image_restoration_tpu_torch.utils import registry as treg
+    register_all_models()
     for pkg in ("image_restoration_tpu", "image_restoration_tpu_torch"):
-        for mod in ("archs", "data.datasets", "models.distill_model",
-                    "models.esrgan_model", "models.gfpgan_model",
-                    "models.sr_model", "models.srgan_model"):
+        models = importlib.import_module(f"{pkg}.models")
+        mods = ["archs", "data.datasets", "data.video_datasets"] + [
+            f"models.{m.name}" for m in pkgutil.iter_modules(models.__path__)]
+        for mod in mods:
             importlib.import_module(f"{pkg}.{mod}")  # registration
     for name in ("ARCH_REGISTRY", "MODEL_REGISTRY", "DATASET_REGISTRY"):
         port, ref = getattr(treg, name), getattr(jreg, name)
         missing = [k for k in port.keys() if k not in ref]
         assert not missing, (name, missing)
+    unported = [k for k in jreg.DATASET_REGISTRY.keys()
+                if k not in treg.DATASET_REGISTRY]
+    assert not unported, unported
     for k in ("SRGANModel", "ESRGANModel", "DistillModel", "SRModel"):
         assert k in treg.MODEL_REGISTRY
     for k in ("VGGStyleDiscriminator128", "VGGStyleDiscriminator256",

@@ -206,8 +206,18 @@ def test_tiled_apply_matches_jax(rng, tile_batch, out_halo):
                               out_halo=out_halo).numpy()
     np.testing.assert_array_equal(got, want)
     assert set(calls) == {tile_batch or 15}  # every chunk at the same size
-    with pytest.raises(NotImplementedError):
-        ttiling.tiled_apply(tfn, _t(img), tile, halo, mesh=object())
+    # over a mesh of two devices (the CPU twice): the same stitched result;
+    # a process-group mesh is not a set of local devices and raises
+    from image_restoration_tpu_torch.parallel.mesh import Mesh
+    mesh = Mesh(["cpu", "cpu"])
+    on_mesh = ttiling.tiled_apply(tfn, _t(img), tile, halo, scale,
+                                  tile_batch=tile_batch, mesh=mesh,
+                                  out_halo=out_halo).numpy()
+    mesh.close()
+    np.testing.assert_array_equal(on_mesh, want)
+    with pytest.raises(ValueError):
+        ttiling.tiled_apply(tfn, _t(img), tile, halo,
+                            mesh=Mesh(["cpu"], world=True))
 
 
 @pytest.fixture(scope="module")
