@@ -382,9 +382,9 @@ on a video file; no kernel of the port runs on this path:
 
 Path 15, the last modules of the port: `Restorer` over every single-image
 arch, the OCR masks in the GAN trainer, the FLOP counter, the profiler,
-the restoration helper, and the multi-device code in a world of one (the
+the restoration helper, the multi-device code in a world of one (the
 card has one H100; larger worlds run on the CPU in
-tests/test_torch_parallel.py):
+tests/test_torch_parallel.py), and the device metrics and resize modes:
 
  60. `Restorer` over GFPGANv1 (BasicSR's 512 options), MSRResNet ×4,
      EDSR-L ×4, RCAN 10×20 ×4, RIDNet, SPADEGenerator and HiFaceGAN at
@@ -409,7 +409,11 @@ tests/test_torch_parallel.py):
  65. `init_dist("nccl")` in a world of one: a GAN + R1 step through the
      collectives bit-equal to the step without a process group,
      `spatial_sharded_apply` against the direct forward (interior ≤1e-5 of
-     max|y|), `Restorer(data_parallel=1)` bit-equal to `Restorer`.
+     max|y|), `Restorer(data_parallel=1)` bit-equal to `Restorer`;
+ 66. `psnr_batch` / `ssim_batch` on a seeded 16 × 256² batch and `resize`
+     at `area` (1024×768 → 256×192) and `bicubic` (256×64 → 1024×256),
+     card vs CPU (TF32 off, 1e-5 relative; the resizes of max|CPU|); K1,
+     K2 and K3 counted 0.
 
 To make room for paths 14 and 15, throughput repetitions of paths 5, 6, 8,
 9, 12, 13 and 14 were cut (`CUTS`, logged first); no correctness
@@ -7379,19 +7383,81 @@ def phase_world_of_one(root):
                 restorer_dp1_bit_equal=True)
 
 
+P66_BATCH = (16, 256, 256, 3)   # psnr_batch / ssim_batch's NHWC batch
+# (mode, (h, w) in, (h, w) out): area 1024×768 → 256×192, bicubic
+# 256×64 → 1024×256
+P66_RESIZES = (("area", (768, 1024), (192, 256)),
+               ("bicubic", (64, 256), (256, 1024)))
+
+
+def phase_metrics_resize():
+    """Phase 66: the device metrics `psnr_batch` / `ssim_batch` on a seeded
+    P66_BATCH batch, and `resize` at `area` and `bicubic` (P66_RESIZES),
+    card against CPU (TF32 off): the metrics within 1e-5 relative, the
+    resizes within 1e-5 of max|CPU|; K1, K2 and K3 counted 0."""
+    from image_restoration_tpu_torch.metrics.psnr_ssim import (psnr_batch,
+                                                               ssim_batch)
+    from image_restoration_tpu_torch.ops.resize import resize
+    t0 = time.perf_counter()
+    g = torch.Generator().manual_seed(66)
+    pred = torch.rand(P66_BATCH, generator=g)
+    gt = (pred + 0.05 * torch.randn(P66_BATCH, generator=g)).clamp_(0, 1)
+    imgs = {mode: torch.rand((2, *hw, 3), generator=g)
+            for mode, hw, _ in P66_RESIZES}
+    old = _tf32_off()
+    kernels = _counts_zero()
+    try:
+        card = dict(psnr=psnr_batch(pred.cuda(), gt.cuda()),
+                    ssim=ssim_batch(pred.cuda(), gt.cuda()))
+        card.update({mode: resize(imgs[mode].cuda(), out, mode)
+                     for mode, _, out in P66_RESIZES})
+        card = {k: v.cpu() for k, v in card.items()}
+        k1, k2, k3 = (k.launches for k in kernels)
+    finally:
+        _tf32_restore(old)
+    cpu = dict(psnr=psnr_batch(pred, gt), ssim=ssim_batch(pred, gt))
+    cpu.update({mode: resize(imgs[mode], out, mode)
+                for mode, _, out in P66_RESIZES})
+    err = {k: float(((card[k] - cpu[k]).abs() / cpu[k].abs()).max())
+           for k in ("psnr", "ssim")}
+    err.update({mode: float((card[mode] - cpu[mode]).abs().max()
+                            / cpu[mode].abs().max())
+                for mode, _, _ in P66_RESIZES})
+    wall = time.perf_counter() - t0
+    log(f"psnr_batch / ssim_batch on {P66_BATCH}: mean PSNR "
+        f"{float(cpu['psnr'].mean()):.4f} dB, mean SSIM "
+        f"{float(cpu['ssim'].mean()):.6f}; card vs CPU "
+        + ", ".join(f"{k} {v:.2e}" for k, v in err.items())
+        + f" (resizes: area {P66_RESIZES[0][1]} -> {P66_RESIZES[0][2]}, "
+        f"bicubic {P66_RESIZES[1][1]} -> {P66_RESIZES[1][2]}, of max|CPU|); "
+        f"K1 {k1}, K2 {k2}, K3 {k3}; {wall:.2f} s")
+    for k, v in err.items():
+        require(v <= 1e-5, f"phase 66 {k}: card vs CPU {v:.2e}")
+    for mode, _, out in P66_RESIZES:
+        require(tuple(card[mode].shape) == (2, *out, 3)
+                and bool(torch.isfinite(card[mode]).all()),
+                f"phase 66 {mode}: {tuple(card[mode].shape)}")
+    require((k1, k2, k3) == (0, 0, 0),
+            f"phase 66 launches K1 {k1}, K2 {k2}, K3 {k3}")
+    return dict(card_vs_cpu=err, psnr_mean=float(cpu["psnr"].mean()),
+                ssim_mean=float(cpu["ssim"].mean()), wall_s=wall)
+
+
 def phase_last_modules(tmp):
-    """Path 15: phases 60-65."""
+    """Path 15: phases 60-66."""
     archs = phase_restorer_archs()
     ocr_k1, ocr = phase_ocr_masks(os.path.join(tmp, "ocr"))
     flops = phase_flop_counter()
     prof = phase_profiler(os.path.join(tmp, "ocr"))
     helper_k1, helper = phase_restoration_helper()
     world1 = phase_world_of_one(os.path.join(tmp, "world1"))
+    metrics_resize = phase_metrics_resize()
     torch.cuda.empty_cache()
     return ocr_k1 + helper_k1, dict(restorer_archs=archs, ocr_masks=ocr,
                                     flops=flops, profiler=prof,
                                     restoration_helper=helper,
-                                    world_of_one=world1)
+                                    world_of_one=world1,
+                                    metrics_resize=metrics_resize)
 
 
 def main(argv=None):

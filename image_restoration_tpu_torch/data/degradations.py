@@ -391,6 +391,16 @@ def gaussian_noise(params: Dict) -> torch.Tensor:
                        noise)
 
 
+def random_gaussian_noise(generator: torch.Generator, shape,
+                          sigma_range=(0, 1.0),
+                          gray_prob: float = 0.0) -> torch.Tensor:
+    """Noise of `shape` with σ per sample in sigma_range/255, gray (the
+    channel mean) w.p. gray_prob: JAX `random_gaussian_noise` (:374-389),
+    drawn and made in one call."""
+    return gaussian_noise(sample_gaussian_noise(generator, shape,
+                                                sigma_range, gray_prob))
+
+
 def add_gaussian_noise(img: torch.Tensor, params: Dict,
                        clip: bool = True) -> torch.Tensor:
     out = img + gaussian_noise(params).to(img.dtype)

@@ -9,7 +9,8 @@ on the device, so a test can apply JAX's drawn parameters and a step can
 draw once and apply on two devices.
 
 The apply halves compute what JAX computes from the same draws:
-`random_rect_masks` :20 (`rect_masks` here, from four uniforms),
+`random_rect_masks` :20 (`rect_masks` here, from four uniforms;
+`random_rect_masks` draws and applies in one call),
 `half_mask` :37 (from the drawn side), `build_irregular_mask_bank` :53
 (host numpy, bit-equal to JAX's for a seed) and `apply_random_mask` :83.
 """
@@ -45,6 +46,17 @@ def rect_masks(p: Dict[str, torch.Tensor], h: int, w: int,
     ww = (min_frac + p["w"] * (max_frac - min_frac)) * w
     inside = (yy >= y0) & (yy <= y0 + hh) & (xx >= x0) & (xx <= x0 + ww)
     return inside.any(dim=-1, keepdim=True).float()
+
+
+def random_rect_masks(generator: torch.Generator, shape, num_rects: int = 3,
+                      min_frac: float = 0.1,
+                      max_frac: float = 0.4) -> torch.Tensor:
+    """(N, H, W, 1) masks of `num_rects` random rectangles for an NHWC
+    `shape`: JAX `random_rect_masks` (:20-34), drawn and made in one
+    call."""
+    n, h, w = shape[0], shape[1], shape[2]
+    return rect_masks(sample_rect_masks(generator, n, num_rects), h, w,
+                      min_frac, max_frac)
 
 
 def sample_half_mask(generator: torch.Generator, n: int) -> torch.Tensor:

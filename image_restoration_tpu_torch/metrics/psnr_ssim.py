@@ -1,15 +1,19 @@
 """PSNR / SSIM.
 
-Port of `image_restoration_tpu/metrics/psnr_ssim.py:23-78`, the host
-versions the validation calls: numpy float64 on HWC images in [0, 255],
+Port of `image_restoration_tpu/metrics/psnr_ssim.py`. The host versions
+the validation calls (:23-78): numpy float64 on HWC images in [0, 255],
 `crop_border`, `test_y_channel`; SSIM with an 11×11 σ=1.5 window per
-channel. The device batch versions are not ported.
+channel. The batch versions (:83-110), `psnr_batch` and `ssim_batch`, take
+NHWC tensors in [0, max_val] and score each sample on the tensors' device.
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
+import torch.nn.functional as F
 
+from ..utils.device import DeviceConstants
 from ..utils.registry import METRIC_REGISTRY
 from .metric_util import reorder_image, to_y_channel
 
@@ -69,3 +73,50 @@ def calculate_ssim(img, img2, crop_border: int, input_order: str = "HWC",
                          test_y_channel)
     return float(np.mean([_ssim_single(img[..., i], img2[..., i])
                           for i in range(img.shape[2])]))
+
+
+# ------------------------------------------------------ batch (on device)
+
+
+def _gaussian_window(size: int = 11, sigma: float = 1.5) -> np.ndarray:
+    g = np.exp(-((np.arange(size) - size // 2) ** 2) / (2 * sigma ** 2))
+    g = g / g.sum()
+    return np.outer(g, g)
+
+
+# the 11×11 window as a (1, 1, 11, 11) conv weight, once per device/dtype
+_window = DeviceConstants(
+    lambda device, dtype: torch.as_tensor(
+        _gaussian_window(), dtype=dtype, device=device)[None, None],
+    maxsize=16)
+
+
+def psnr_batch(pred: torch.Tensor, gt: torch.Tensor,
+               max_val: float = 1.0) -> torch.Tensor:
+    """(N,) PSNR of NHWC batches in [0, max_val], the MSE floored at 1e-12
+    (JAX :83-86)."""
+    mse = torch.mean((pred - gt) ** 2, dim=(1, 2, 3))
+    return 20.0 * torch.log10(max_val / torch.sqrt(
+        torch.clamp(mse, min=1e-12)))
+
+
+def ssim_batch(pred: torch.Tensor, gt: torch.Tensor,
+               max_val: float = 1.0) -> torch.Tensor:
+    """(N,) SSIM of NHWC batches (JAX :89-110): the 11×11 σ=1.5 window as
+    one depthwise VALID conv per statistic, the map's mean per sample."""
+    c = pred.shape[-1]
+    w = _window(pred.device, pred.dtype).expand(c, 1, -1, -1)
+
+    def f(x):
+        return F.conv2d(x.permute(0, 3, 1, 2), w, groups=c)
+
+    c1 = (0.01 * max_val) ** 2
+    c2 = (0.03 * max_val) ** 2
+    mu1, mu2 = f(pred), f(gt)
+    mu1_sq, mu2_sq, mu1_mu2 = mu1 ** 2, mu2 ** 2, mu1 * mu2
+    s1 = f(pred ** 2) - mu1_sq
+    s2 = f(gt ** 2) - mu2_sq
+    s12 = f(pred * gt) - mu1_mu2
+    ssim_map = ((2 * mu1_mu2 + c1) * (2 * s12 + c2)) / \
+        ((mu1_sq + mu2_sq + c1) * (s1 + s2 + c2))
+    return torch.mean(ssim_map, dim=(1, 2, 3))

@@ -1,5 +1,5 @@
-"""cv2-compatible resize (bilinear as two matrix products, nearest as two
-gathers) and MATLAB's bicubic `imresize`.
+"""cv2-compatible resize (bilinear, bicubic and area as two matrix
+products, nearest as two gathers) and MATLAB's bicubic `imresize`.
 
 Port of `image_restoration_tpu/ops/resize.py:29-192`: any separable
 resize is `out = R_h @ img @ R_w^T`, with the (out, in) weight matrices built
@@ -62,32 +62,65 @@ def matlab_resize_matrix(in_length: int, out_length: int,
     return mat.astype(np.float32)
 
 
+def _cubic_cv2(x):
+    """cv2's INTER_CUBIC kernel (a = −0.75)."""
+    a = -0.75
+    absx = np.abs(x)
+    absx2, absx3 = absx ** 2, absx ** 3
+    return (((a + 2) * absx3 - (a + 3) * absx2 + 1) * (absx <= 1) +
+            (a * absx3 - 5 * a * absx2 + 8 * a * absx - 4 * a) *
+            ((absx > 1) & (absx < 2)))
+
+
+def _area_down_matrix(in_length: int, out_length: int) -> np.ndarray:
+    """cv2's INTER_AREA when downscaling: each output pixel is the mean of
+    the source pixels it covers, a partly covered one weighted by its
+    share."""
+    s = in_length / out_length
+    mat = np.zeros((out_length, in_length), dtype=np.float64)
+    for i in range(out_length):
+        lo, hi = i * s, (i + 1) * s
+        for j in range(int(np.floor(lo)), min(int(np.ceil(hi)), in_length)):
+            cover = min(hi, j + 1) - max(lo, j)
+            if cover > 0:
+                mat[i, j] = cover / s
+    return mat.astype(np.float32)
+
+
 def cv2_resize_matrix(in_length: int, out_length: int,
                       interpolation: str = "bilinear") -> np.ndarray:
-    """Dense (out, in) matrix matching cv2.resize along one axis.
+    """Dense (out, in) matrix matching cv2.resize along one axis (JAX
+    `ops/resize.py:111-175`).
 
-    bilinear: half-pixel centres `u = (i + 0.5) * in/out - 0.5`,
-    border-replicate taps; bilinear_ac: torch's `align_corners=True`,
-    `u = i * (in - 1)/(out - 1)` (JAX `ops/resize.py:140`). nearest:
-    cv2's INTER_NEAREST, `src = min(floor(i * in/out), in - 1)`, one-hot
-    rows (`resize` gathers those rows instead of multiplying, so the
-    result is exact)."""
+    bilinear and bicubic: half-pixel centres `u = (i + 0.5) * in/out - 0.5`,
+    border-replicate taps, the weights renormalized per row (bicubic is
+    cv2's a = −0.75 kernel over 4 taps); bilinear_ac: torch's
+    `align_corners=True`, `u = i * (in - 1)/(out - 1)`. area: exact
+    coverage when downscaling; when upscaling cv2's INTER_AREA samples as
+    bilinear does, and so does this. nearest: cv2's INTER_NEAREST,
+    `src = min(floor(i * in/out), in - 1)`, one-hot rows (`resize` gathers
+    those rows instead of multiplying, so the result is exact)."""
+    if interpolation == "area" and in_length > out_length:
+        return _area_down_matrix(in_length, out_length)
     if interpolation == "nearest":
         mat = np.zeros((out_length, in_length), dtype=np.float32)
         mat[np.arange(out_length), nearest_index(in_length, out_length)] = 1
         return mat
+    kernel, support = lambda d: np.maximum(0.0, 1.0 - np.abs(d)), 1.0
     if interpolation == "bilinear_ac":   # torch's align_corners=True
         u = (np.zeros(1) if out_length == 1 else
              np.arange(out_length, dtype=np.float64) *
              (in_length - 1) / (out_length - 1))
-    elif interpolation in ("bilinear", "linear"):
+    elif interpolation in ("bilinear", "linear", "area", "bicubic", "cubic"):
+        if interpolation in ("bicubic", "cubic"):
+            kernel, support = _cubic_cv2, 2.0
         u = (np.arange(out_length, dtype=np.float64) + 0.5) * \
             (in_length / out_length) - 0.5
     else:
-        raise ValueError(f"interpolation {interpolation!r} is not ported")
-    left = np.floor(u - 1.0) + 1
-    indices = left[:, None] + np.arange(2)[None, :]
-    weights = np.maximum(0.0, 1.0 - np.abs(u[:, None] - indices))
+        raise ValueError(f"unknown interpolation {interpolation!r}")
+    left = np.floor(u - support) + 1
+    indices = left[:, None] + np.arange(int(2 * support))[None, :]
+    weights = kernel(u[:, None] - indices)
     wsum = weights.sum(axis=1, keepdims=True)
     weights = np.where(wsum > 0, weights / wsum, weights)
     idx = np.clip(indices.astype(np.int64), 0, in_length - 1)

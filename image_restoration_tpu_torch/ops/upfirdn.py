@@ -103,6 +103,15 @@ def upfirdn_upsample(x: torch.Tensor, kernel, factor: int = 2) -> torch.Tensor:
                      pad=((p + 1) // 2 + factor - 1, p // 2))
 
 
+def upfirdn_downsample(x: torch.Tensor, kernel,
+                       factor: int = 2) -> torch.Tensor:
+    """UpFirDnDownsample (JAX :83-89)."""
+    kernel = _resample_kernel(tuple(kernel), 1, x.device)
+    p = kernel.shape[0] - factor
+    return upfirdn2d(x, kernel, up=1, down=factor,
+                     pad=((p + 1) // 2, p // 2))
+
+
 def upfirdn_smooth(x: torch.Tensor, kernel, upsample_factor: int = 1,
                    downsample_factor: int = 1,
                    kernel_size: int = 1) -> torch.Tensor:

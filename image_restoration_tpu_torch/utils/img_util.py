@@ -1,9 +1,9 @@
 """Image ↔ array conversion utilities.
 
-Port of `image_restoration_tpu/utils/img_util.py:22-100` (img2tensor,
-tensor2img, imfrombytes, imread, imwrite). Arrays are channel-last numpy; BGR↔RGB
-conventions match the reference (cv2 IO is BGR). `tensor2img` also takes a
-torch tensor, which it copies to the host.
+Port of `image_restoration_tpu/utils/img_util.py` (img2tensor,
+tensor2img, imfrombytes, imread, imwrite, crop_border). Arrays are
+channel-last numpy; BGR↔RGB conventions match the reference (cv2 IO is
+BGR). `tensor2img` also takes a torch tensor, which it copies to the host.
 """
 
 from __future__ import annotations
@@ -99,3 +99,20 @@ def imwrite(img: np.ndarray, file_path: str, params=None,
     if not ok:
         raise IOError(f"Failed writing {file_path}")
     return ok
+
+
+def crop_border(imgs, crop_border: int):
+    """Crop `crop_border` pixels off each side of HWC / NHWC images, or of
+    each image of a list (JAX `utils/img_util.py:101-113`)."""
+    if crop_border == 0:
+        return imgs
+
+    def _one(img):
+        if img.ndim == 4:
+            return img[:, crop_border:-crop_border,
+                       crop_border:-crop_border, :]
+        return img[crop_border:-crop_border, crop_border:-crop_border, ...]
+
+    if isinstance(imgs, (list, tuple)):
+        return [_one(i) for i in imgs]
+    return _one(imgs)

@@ -1,7 +1,7 @@
 """Misc utilities.
 
 Port of `image_restoration_tpu/utils/misc.py` (seeding, experiment
-directories, `scandir`, `check_resume`). Training checkpoints are `.pth`
+directories, `scandir`, `check_resume`, `sizeof_fmt`). Training checkpoints are `.pth`
 files here, so `check_resume` points the pretrain paths at `net_*_{iter}.pth`.
 """
 
@@ -92,3 +92,13 @@ def check_resume(opt: dict, resume_iter: int) -> None:
                 opt["path"][name] = osp.join(
                     opt["path"]["models"],
                     f"net_{basename}_{resume_iter}.pth")
+
+
+def sizeof_fmt(size: float, suffix: str = "B") -> str:
+    """A byte count in binary units, e.g. `1.5 KB` (JAX
+    `utils/misc.py:89-94`)."""
+    for unit in ("", "K", "M", "G", "T", "P", "E", "Z"):
+        if abs(size) < 1024.0:
+            return f"{size:3.1f} {unit}{suffix}"
+        size /= 1024.0
+    return f"{size:3.1f} Y{suffix}"

@@ -24,6 +24,17 @@ from image_restoration_tpu_torch.detect import config as tcfg
 from image_restoration_tpu_torch.detect.engine import PlateDetector
 from image_restoration_tpu_torch.detect.priors import prior_box
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One intra-op thread while this file runs: several test workers
+    share the cores, and more threads a worker make them thrash."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 TOL = dict(rtol=2e-4, atol=2e-4)  # the JAX golden's (tests/test_detect.py)
 BACKBONES = {"Resnet18": 256, "Resnet50": 256, "mobilenet0.25": 64,
              "MobilenetV3": 256}

@@ -110,12 +110,13 @@ def test_public_convs_under_int8_serving_match_jax(form):
 
 @pytest.fixture(scope="module", autouse=True)
 def few_threads():
-    """Two intra-op threads for this file's CPU work, so it loads the
+    """One intra-op thread for this file's CPU work, so it loads the
     machine less while other test files run beside it; restored after."""
     n = torch.get_num_threads()
-    torch.set_num_threads(2)
+    torch.set_num_threads(1)
     yield
     torch.set_num_threads(n)
+
 
 @pytest.fixture(scope="module")
 def restorers():

@@ -71,12 +71,13 @@ def _u8(rng, shape):
 
 @pytest.fixture(scope="module", autouse=True)
 def few_threads():
-    """Two intra-op threads for this file's CPU work, so it loads the
+    """One intra-op thread for this file's CPU work, so it loads the
     machine less while other test files run beside it; restored after."""
     n = torch.get_num_threads()
-    torch.set_num_threads(2)
+    torch.set_num_threads(1)
     yield
     torch.set_num_threads(n)
+
 
 @pytest.fixture(scope="module")
 def pth(tmp_path_factory):

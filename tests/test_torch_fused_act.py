@@ -20,6 +20,17 @@ from image_restoration_tpu_torch.ops.fused_act import (
     FusedLeakyReLU, fused_leaky_relu, fused_leaky_relu_plain,
     scaled_leaky_relu)
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One intra-op thread while this file runs: several test workers
+    share the cores, and more threads a worker make them thrash."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 # ragged M (70 rows: not a multiple of block_m=16), narrow and wide C
 SHAPES = [(2, 5, 7, 128), (3, 11, 16), (4, 4, 3), (70, 8)]
 

@@ -13,6 +13,17 @@ import torch
 from image_restoration_tpu.ops import geometry as jg
 from image_restoration_tpu_torch.ops import geometry as tg
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One intra-op thread while this file runs: several test workers
+    share the cores, and more threads a worker make them thrash."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 T = 64
 TOL = dict(rtol=1e-4, atol=1e-4)
 

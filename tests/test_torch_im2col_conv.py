@@ -15,6 +15,16 @@ from image_restoration_tpu_torch.ops.im2col_conv import (
 from image_restoration_tpu_torch.scripts import probe_conv
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One intra-op thread while this file runs: several test workers
+    share the cores, and more threads a worker make them thrash."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _t(a):
     return torch.from_numpy(np.ascontiguousarray(a))
 

@@ -20,6 +20,17 @@ from image_restoration_tpu_torch.ops import quantized_inference as tq
 from image_restoration_tpu_torch.ops.int8_conv import (
     int8_conv3x3_requant, int8_conv3x3_requant_plain)
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One intra-op thread while this file runs: several test workers
+    share the cores, and more threads a worker make them thrash."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 DN = ("NHWC", "HWIO", "NHWC")
 
 

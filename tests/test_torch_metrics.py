@@ -66,10 +66,10 @@ from image_restoration_tpu_torch.utils.lmdb_util import make_lmdb_from_imgs
 
 @pytest.fixture(autouse=True, scope="module")
 def _few_torch_threads():
-    """Two intra-op threads while this file runs: several test workers
+    """One intra-op thread while this file runs: several test workers
     share the cores."""
     n = torch.get_num_threads()
-    torch.set_num_threads(2)
+    torch.set_num_threads(1)
     yield
     torch.set_num_threads(n)
 

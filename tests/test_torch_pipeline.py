@@ -32,6 +32,17 @@ from image_restoration_tpu_torch.serve.batching import MicroBatcher, calibrate
 
 from test_torch_detect import seeded_state_dict
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One intra-op thread while this file runs: several test workers
+    share the cores, and more threads a worker make them thrash."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 TINY_GFPGAN = dict(type="GFPGANv1OCR", input_width=64, input_height=64,
                    num_style_feat=16, channel_multiplier=0.25, num_mlp=2,
                    input_is_latent=True, different_w=True, narrow=0.5,

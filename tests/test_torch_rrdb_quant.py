@@ -23,6 +23,17 @@ from image_restoration_tpu_torch.ops import rrdb_quant as tq
 from image_restoration_tpu_torch.ops.int8_conv import (
     int8_conv3x3_requant, int8_conv3x3_requant_plain)
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One intra-op thread while this file runs: several test workers
+    share the cores, and more threads a worker make them thrash."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 NB = 2
 OPT = dict(type="RRDBNet", num_feat=64, num_grow_ch=32, num_block=NB, scale=4)
 DN = ("NHWC", "HWIO", "NHWC")

@@ -27,6 +27,17 @@ from image_restoration_tpu_torch.serve.api import ServiceCore, make_server
 from image_restoration_tpu_torch.serve.engine_restorer import EngineRestorer
 from image_restoration_tpu_torch.serve.sr_engine import build_engine
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One intra-op thread while this file runs: several test workers
+    share the cores, and more threads a worker make them thrash."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 REPO = pathlib.Path(__file__).resolve().parent.parent
 SMALL = dict(num_feat=16, num_conv=3, upscale=4, tile=24, halo=4, batch=4)
 

@@ -27,6 +27,17 @@ from image_restoration_tpu_torch.ops import packed_inference as tpacked
 from image_restoration_tpu_torch.ops import pixel_ops as tpix
 from image_restoration_tpu_torch.parallel import tiling as ttiling
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One intra-op thread while this file runs: several test workers
+    share the cores, and more threads a worker make them thrash."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 TOL = dict(rtol=1e-4, atol=1e-5)
 
 
