@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py [--out report.json]
 
-Drives the port's fifteen main paths with random weights made from a seed,
+Drives the port's sixteen main paths with random weights made from a seed,
 and fails loudly if any phase fails:
 
   1. device: the card's name and power limit (nvidia-smi);
@@ -120,7 +120,7 @@ artifacts (K1, K2 and K3 are the custom ops `irt::…`) behind
      dyn-int8 at batch 32 (`SPEED_BATCHES`), a profile of one batch-32 dyn-int8
      restore with the shares of `_int_mm`, of the im2col and quantize
      passes and of K1, and ms per call of the exported module against the
-     eager Restorer at batch 1 and 32.
+     eager Restorer at batch 32.
 
 Path 6, the production GFPGAN GAN trainer: `train_pipeline` (`python -m
 image_restoration_tpu_torch.train -opt configs/train_gfpgan_plate_256.yml`)
@@ -336,17 +336,17 @@ option files as written (but for dataroots and absent pretrained paths),
      512² with four part boxes and a seeded K = 64 dictionary; a tiny
      SRModel EDSR step (losses ≤1e-5 relative, gradients ≤1e-4 of
      max|grad|);
- 54. main path: counts set to 0, then 16 steps each of train_EDSR_Lx4.yml
+ 54. main path: counts set to 0, then 8 steps each of train_EDSR_Lx4.yml
      (bs 16, gt 192), train_RCAN_x2.yml (bs 16, gt 96, with
      `network_g:upscale=2`: the file ships upscale 4 at scale 2),
      train_MSRResNet_x4.yml and train_MSRGAN_x4.yml (random VGG19 taps),
-     a checkpoint and a validation on the made Set5 at 16; test.py on
+     a checkpoint and a validation on the made Set5 at 8; test.py on
      test_EDSR_Lx4.yml, test_MSRResNet_x4.yml and _woGT (the runs'
-     net_g_16.pth) and test_RCAN.yml (×4: a seeded RCAN ×4 `.pth`); RIDNet
+     net_g_8.pth) and test_RCAN.yml (×4: a seeded RCAN ×4 `.pth`); RIDNet
      and DFDNet at 512² from `.pth` files written here (DFDNet's with
      spectral-norm triples, and its dictionary); every PSNR finite, K1, K2
      and K3 counted 0;
- 55. EDSR-L's and RCAN's s per step (median of steps 5-16), imgs/s and
+ 55. EDSR-L's and RCAN's s per step (median of steps 5-8), imgs/s and
      peak MiB and the device-busy share of a profiled step; test.py
      images/s; RIDNet's and DFDNet's ms per 512² forward.
 
@@ -356,7 +356,7 @@ REDS configs, `test.py` on five video test configs, and `VideoPipeline`
 on a video file; no kernel of the port runs on this path:
 
  56. 4 clips of 15 720×1280 GT frames (a seeded scene moving sub-pixel)
-     with ×1/4 LQ by `imresize`, the same cut to 10 frames (the test
+     with ×1/4 LQ by `imresize`, the same cut to 5 frames (the test
      set), a 5-frame validation clip, a Vid4-style 352×288 clip of 7
      (LQ, and LQ bicubic-upscaled for TOFlow), 2 Vimeo septuplets, their
      meta-info lists by `scripts/generate_meta_info.py` and a regroup by
@@ -366,12 +366,12 @@ on a video file; no kernel of the port runs on this path:
      `flow_warp` (64 channels, 180×320, both paddings), outputs and
      gradients within 1e-4; SpyNet, EDVR-L, EDVR-M, BasicVSR, IconVSR,
      DUF-52 and TOFlow at their configs' widths within 1e-4 of max|CPU|;
- 58. main path: counts set to 0, then 16 steps each of the four REDS train
-     configs (bs 4, gt 256; `tsa_iter` and `fix_flow` cut to 8: below them
+ 58. main path: counts set to 0, then 8 steps each of the four REDS train
+     configs (bs 4, gt 256; `tsa_iter` and `fix_flow` cut to 4: below them
      only `fusion.*` moved, `spynet.*`/`edvr.*` stayed bit-unchanged), as
      written but for dataroots, meta-info files, the SpyNet/EDVR/pretrained
      paths and the iteration cuts (each logged); s per step (median of
-     steps 5-16 of the run itself), clips/s, peak MiB; a profiled EDVR-L
+     steps 5-8 of the run itself), clips/s, peak MiB; a profiled EDVR-L
      and IconVSR step's busy share and the DCN's and warps' shares; test.py
      on
      test_EDVR_L_x4_SR_REDS.yml and test_BasicVSR_REDS.yml (the trained
@@ -415,9 +415,40 @@ tests/test_torch_parallel.py), and the device metrics and resize modes:
      card vs CPU (TF32 off, 1e-5 relative; the resizes of max|CPU|); K1,
      K2 and K3 counted 0.
 
-To make room for paths 14 and 15, throughput repetitions of paths 5, 6, 8,
-9, 12, 13 and 14 were cut (`CUTS`, logged first); no correctness
-comparison, kernel-vs-plain check or launch-count assertion was cut.
+Path 16, training evidence: the port's counterparts of the JAX scripts
+that show its trainers learn (`scripts/train_convergence.py`,
+`gan_ablation.py`, `qat_distill.py`, `distill_e2e.py`,
+`gfpgan_longrun.py`), at full width on seeded synthetic plate scenes,
+each phase with the counts set to 0 just before it. Phases 67 and 70,
+and phase 71, run in two processes of their own (this script with
+`--phase`), started as the path starts, beside phases 68 and 69: the
+steps are bound by the host, and the card serves all three:
+
+ 67. SR convergence (SRVGG ×4, f32, bs 8, 300 iterations): finite losses,
+     the better head at least 10 dB over iteration 0, no kernel launched;
+ 68. GFPGAN convergence (the production trainer, f32, bs 8, 200
+     iterations): the better head at least 3 dB over iteration 0; K1
+     exactly 84 a G+D step, 15 an R1 step and 39 a validation forward;
+ 69. the GAN-vs-L1 ablation (2 × 50 iterations, bs 4): the arms start
+     bit-equal and see bit-equal first three LQ batches, stay finite, and
+     each arm's better head ends above its iteration 0; K1 as counted;
+ 70. QAT against PTQ at w8a8 (600 iterations an arm, bs 8), both scored
+     through the served int8 engine: |QAT − PTQ| ≤ 0.3 dB, each int8 arm
+     within 0.5 dB of the float arm, K2 34 a call;
+ 71. a short distillation (a 2-block RRDB teacher, students 100
+     iterations an arm): the distilled arm does not diverge, its int8 gap
+     comes through K2 (34 launches), K2 exactly 34 a call over the scoring
+     call and the serving rate's 21; then the GFPGAN long run at recipe
+     scale 2000 (100 bf16 iterations across both lr milestones and the
+     pyramid removal): the lr and the pyramid weight each step used equal
+     the schedule at each crossing, the `torch.export` engine of the
+     trained EMA round-trips at ≥ 60 dB, and K1 is exactly 84 a step, 15
+     an R1 step and 39 a forward (the validations, NIQE, the snapshot
+     against the final EMA and the export's three).
+
+To make room for paths 14-16, throughput repetitions of earlier paths were
+cut (`CUTS`, logged first); no correctness comparison, kernel-vs-plain
+check or launch-count assertion was cut.
 
 Each path's seconds are printed as it ends. The last line of stdout is
 {"ok": true, "device": {...}}; the line before it lists the kernels as
@@ -503,6 +534,17 @@ CUTS = (
     "3 / 5)",
     "path 12, phase 51: G samples/s over 10 calls, Inception images/s over "
     "5 (were 20 / 10)",
+    # to make room for path 16
+    "path 14, phase 58: 8 steps of each video train config, tsa_iter and "
+    "fix_flow at 4, the median of steps 5-8 (were 16, 8 and 5-16)",
+    "path 14, phase 58: test clips of 5 frames (were 10)",
+    "path 13, phases 54-55: 8 steps of each zoo train config, the median of "
+    "steps 5-8 (were 16 and 5-16)",
+    "path 12, phase 48: loader imgs/s over 128 images a backend (were 512)",
+    "path 5, phase 22: the bs-1 GFPGAN artifact's host-cost timing (its "
+    "export and round trip stay; the bs-32 artifact's timing stays)",
+    "path 8, phases 34/37: a profile dropping K1 events is taken again "
+    "once, not twice",
 )
 
 
@@ -2285,8 +2327,8 @@ def save_pth(net, path):
 def phase_export(restorer, pipe, tmp):
     """Export on the card into tmp, through the exporters' entry points:
     the GFPGAN u8 engine at PRODUCTION_GFPGAN (path 1's weights) at batch 32
-    in float32 and in dyn-int8, and at batch 1 (for the host-cost
-    comparison); the geometry engine at batch 8 (the pipeline's weights);
+    in float32 and in dyn-int8, and at batch 1; the geometry engine at
+    batch 8 (the pipeline's weights);
     the SR engine at export_restorer's defaults with --u8-io (path 2's
     calibration). Each is checked against its live graph before it is
     written (the exporters' round trip). Returns {name: (dir, record)}."""
@@ -2620,7 +2662,7 @@ def phase_dyn_int8(restorer, exported):
     # the artifact's host cost: the loaded module against the eager graph
     # on the same device tensors
     host = {}
-    for bs, name in ((1, "gfpgan_bs1"), (ENGINE_BATCH, "gfpgan_bs32")):
+    for bs, name in ((ENGINE_BATCH, "gfpgan_bs32"),):
         module, _ = load_engine(exported[name][0], "cuda")
         x = torch.from_numpy(imgs[:bs]).cuda()
         with torch.inference_mode():
@@ -3944,7 +3986,7 @@ def phase_fuse_restore():
                 p.start()
             try:
                 from torch.profiler import ProfilerActivity, profile
-                for _ in range(3):
+                for _ in range(2):
                     with profile(activities=[ProfilerActivity.CPU,
                                              ProfilerActivity.CUDA]) as prof:
                         t0 = time.perf_counter()
@@ -4318,7 +4360,7 @@ def sg2_step_profile(model, batch, it):
         _ranged("irt.k1_backward", fused_act.fused_leaky_relu_backward))
     patch.start()
     try:
-        for _ in range(3):
+        for _ in range(2):
             before = dict(model.style_draws)
             with profile(activities=[ProfilerActivity.CPU,
                                      ProfilerActivity.CUDA]) as prof:
@@ -5433,7 +5475,7 @@ FID_TRUNCATION = 0.7
 K1_FID = 8 + (FID_IMAGES // FID_G_BS) * K1_PER_SG2_G[1]  # mean_latent + G
 IO_CHECK_ITEMS = 64          # FFHQDataset items compared across backends
 # images read per timed loader run; bs 3 cut to make room for path 14
-IO_SPEED_IMAGES = {64: 512}
+IO_SPEED_IMAGES = {64: 128}
 INCEPTION_TOL = 1e-4         # of max|CPU|, card vs CPU features, TF32 off
 LPIPS_RTOL = 1e-4            # card vs CPU distance, TF32 off
 G_SAMPLE_TOL = 1e-5          # of max|y|, the G sample on K1 vs plain K1
@@ -5832,7 +5874,7 @@ def phase_fid(tmp):
 ZOO_PHOTOS = 8               # DIV2K-size photos; the first ZOO_TEST are the test sets
 ZOO_TEST = 1                 # test-set images; 4 before path 14, 2 before 15
 ZOO_HW = (1356, 2040)        # DIV2K's 2040×1356, a multiple of 12
-ZOO_ITERS = 16
+ZOO_ITERS = 8
 ZOO_TIMED = ("EDSR-L x4", "RCAN x2")  # phase 55; the others cut for path 14
 ZOO_BS = 16                  # every zoo train config's batch_size_per_gpu
 # BasicSR's DIV2K sub-image crops and steps, HR and each LR scale
@@ -6087,14 +6129,14 @@ def _record_validation(store):
 
 
 def phase_zoo_main_path(root, data):
-    """Phase 54, main path: counts at 0; `train_pipeline` for 16 steps on
+    """Phase 54, main path: counts at 0; `train_pipeline` for 8 steps on
     train_EDSR_Lx4.yml (bs 16, gt 192), train_RCAN_x2.yml (bs 16, gt 96,
     `network_g:upscale=2`: the file ships upscale 4 at scale 2, which fails
     at the first loss, as under JAX), train_MSRResNet_x4.yml and
     train_MSRGAN_x4.yml (random VGG19 taps), each as written apart from
     its dataroots (the made sub-images, validation on the made Set5) and
-    `pretrain_network_g` (absent), a checkpoint and a validation at 16;
-    then test.py: test_EDSR_Lx4.yml on EDSR-L's net_g_16.pth,
+    `pretrain_network_g` (absent), a checkpoint and a validation at 8;
+    then test.py: test_EDSR_Lx4.yml on EDSR-L's net_g_8.pth,
     test_MSRResNet_x4.yml and its _woGT twin on MSRResNet's, and
     test_RCAN.yml (×4) on a seeded RCAN ×4 reference-layout `.pth` (the
     trained RCAN is ×2), each set pointed at the made folders (DIV2K100
@@ -6254,7 +6296,7 @@ def _zoo_batches(model, n=4):
 
 def phase_zoo_speed(models, nets):
     """Phase 55: for EDSR-L and RCAN (ZOO_TIMED) s per step (median of
-    steps 5-16 of a loop with no synchronize between steps, on 4 pre-read
+    steps 5-8 of a loop with no synchronize between steps, on 4 pre-read
     batches of its own sub-images, bs 16), imgs/s and peak MiB; the
     device-busy share of one
     profiled step of EDSR-L and of RCAN; RIDNet's and DFDNet's ms per 512²
@@ -6317,12 +6359,12 @@ def phase_zoo(tmp):
 
 VID_CLIPS = ("001", "002", "003", "004")  # none of REDS4's 000/011/015/020
 VID_FRAMES = 15              # BasicVSR's and IconVSR's training num_frame
-VID_TEST_FRAMES = 10         # the test configs' clips, cut to 10 frames
+VID_TEST_FRAMES = 5          # the test configs' clips, cut to 5 frames
 VID_VAL_FRAMES = 5           # the trainers' validation clip
 VID_HW = (720, 1280)         # REDS's GT; LQ ×1/4, 180×320
 VID4_HW = (288, 352)         # the DUF / TOFlow test clip (Vid4-style)
-VID_ITERS = 16
-VID_CUT = 8                  # tsa_iter and fix_flow
+VID_ITERS = 8
+VID_CUT = 4                  # tsa_iter and fix_flow
 # the trainers whose step is profiled: EDVR-L (the DCN on a device-bound
 # step) and IconVSR (the DCN and the warps); a 15-frame recurrent step
 # holds ≈ 60k trace events, which take the profiler 30-50 s to process
@@ -6698,21 +6740,21 @@ def _first_batch(opt):
 
 
 def phase_video_main_path(root, data):
-    """Phase 58, main path: counts at 0; `train_pipeline` for 16 steps on
-    train_EDVR_L_x4_SR_REDS.yml (bs 4, gt 256, 5 frames; `tsa_iter` 8),
+    """Phase 58, main path: counts at 0; `train_pipeline` for 8 steps on
+    train_EDVR_L_x4_SR_REDS.yml (bs 4, gt 256, 5 frames; `tsa_iter` 4),
     train_BasicVSR_REDS.yml and train_IconVSR_REDS.yml (bs 4, 15 frames;
-    `fix_flow` 8) and train_VideoRecurrentGANModel_REDS.yml (bs 4, 15
+    `fix_flow` 4) and train_VideoRecurrentGANModel_REDS.yml (bs 4, 15
     frames, VGG19 and a 256² D), each as written but for its dataroots and
     meta-info files, `spynet_path`/`edvr_path`/`pretrain_network_g` (no
     `.pth` here) and the iteration cuts, each logged. Checks: below
     `tsa_iter` only `fusion.*` moved; below `fix_flow` `spynet.*` and
     `edvr.*` stayed bit-unchanged; every loss finite; a validation PSNR.
-    s per step is the median of steps 5-16 of the run itself (CUDA events
+    s per step is the median of steps 5-8 of the run itself (CUDA events
     after each step, no synchronize between), with clips/s, peak MiB, and
     one profiled step's busy share and DCN / warp shares (EDVR-L and
     IconVSR). Then test.py:
-    test_EDVR_L_x4_SR_REDS.yml on EDVR-L's net_g_16.pth over the 4 clips
-    cut to 10 frames, test_BasicVSR_REDS.yml (whole clips) on BasicVSR's,
+    test_EDVR_L_x4_SR_REDS.yml on EDVR-L's net_g_8.pth over the 4 clips
+    cut to 5 frames, test_BasicVSR_REDS.yml (whole clips) on BasicVSR's,
     test_BasicVSR_Vimeo90K_BIx4.yml (flip_seq, center_frame_only) on the
     septuplets, test_DUF_official.yml (DUF's Gaussian downsampling of the
     GT on the host) and test_TOF_official.yml on seeded reference-layout
@@ -7460,16 +7502,327 @@ def phase_last_modules(tmp):
                                     metrics_resize=metrics_resize)
 
 
+# ------------------------------------------------- path 16: training evidence
+
+CONV_SR = dict(iters=300, bs=8, chunk=25)       # phase 67
+CONV_GAN = dict(iters=200, bs=8, chunk=25)      # phase 68
+CONV_SR_GAIN_DB = 10.0       # JAX: +20.8 dB (live) by iteration 300
+CONV_GAN_GAIN_DB = 3.0       # JAX: +5.8 dB (live) at iteration 200
+ABL = dict(iters=50, bs=4, chunk=25)            # phase 69, per arm
+QAT = dict(total_iters=600, chunk=100, bs=8)    # phase 70, JAX's per arm
+QAT_VS_PTQ_DB = 0.3          # |QAT int8 − PTQ int8| (JAX: −0.023 dB)
+INT8_VS_FLOAT_DB = 0.5       # each int8 arm against the float arm
+DISTILL = dict(teacher_iters=100, student_iters=100, teacher_blocks=2,
+               chunk=25, bs=8)                   # phase 71
+DISTILL_MIN_DB = 20.0        # a distilled student that diverges ends far below
+LONGRUN = dict(iters=100, recipe_scale=2000, bs=4, chunk=25, val_every=25,
+               niqe_every=50, snapshot_iter=50)  # phase 71
+LONGRUN_ENGINE_DB = 60.0     # JAX recorded 66.5 dB
+# K1 forwards of the long run's export: `export_graph`'s eager warm-up, its
+# trace (the wrapper counts on the fake tensors) and the round trip's live
+# forward; the exported program calls the op itself, past the wrapper
+EXPORT_K1_FORWARDS = 3
+# phases 67 and 70, and phase 71, run in processes of their own beside
+# phases 68 and 69
+CHILD_PHASES = ("sr", "distill_longrun")
+CHILD_TIMEOUT_S = 600
+
+
+def _k1_for(steps, r1_steps, forwards):
+    """K1 launches of `steps` G+D steps, `r1_steps` R1 steps and
+    `forwards` G forwards of the production GAN trainer at 256²."""
+    return (steps * K1_PER_GD_STEP + r1_steps * K1_PER_R1_STEP
+            + forwards * K1_LAUNCHES_PER_FORWARD)
+
+
+def _r1_steps(first, last):
+    """R1 steps among the global iterations first..last−1 (every 16)."""
+    return sum(1 for it in range(first, last) if it % 16 == 0)
+
+
+def _counted(fn):
+    """(fn's result, [K1, K2, K3] launches during it, wall s)."""
+    kernels = _counts_zero()
+    t0 = time.perf_counter()
+    res = fn()
+    wall = time.perf_counter() - t0
+    return res, [k.launches for k in kernels], wall
+
+
+def phase_conv_sr():
+    """Phase 67: `train_convergence` of the SRVGG ×4 SRModel at CONV_SR
+    (f32, synthetic plate scenes): finite losses, the better head at least
+    CONV_SR_GAIN_DB over iteration 0, no port kernel launched."""
+    from image_restoration_tpu_torch.scripts import train_convergence as tc
+    rep, counts, wall = _counted(lambda: tc.convergence(
+        "sr", CONV_SR["iters"], CONV_SR["chunk"], CONV_SR["bs"],
+        device="cuda"))
+    c = rep["curve"]
+    gain = tc.better_gain(c)
+    log(f"SR convergence ({CONV_SR['iters']} iters, bs {CONV_SR['bs']}) in "
+        f"{wall:.1f} s: val PSNR {c['val_psnr'][0]} dB at 0 -> "
+        f"{c['val_psnr'][-1]} (ema) / {c['val_psnr_live'][-1]} (live), "
+        f"+{gain:.2f} dB; loss {c['loss'][1]} -> {c['loss'][-1]}; K1/K2/K3 "
+        f"{counts}")
+    require(all(np.isfinite(v) for v in c["loss"][1:]),
+            f"phase 67 losses {c['loss']}")
+    require(gain >= CONV_SR_GAIN_DB, f"phase 67: +{gain:.2f} dB")
+    require(counts == [0, 0, 0], f"phase 67 launches {counts}")
+    return dict(curve=c, gain_db=gain, wall_s=wall, launches=counts)
+
+
+def phase_conv_gfpgan():
+    """Phase 68: `train_convergence` of the production GFPGAN GAN trainer
+    at CONV_GAN (f32): the better head at least CONV_GAN_GAIN_DB over
+    iteration 0; K1 exactly the steps' 84, the R1 steps' 15 and the
+    validation forwards' 39 (one at iteration 0, two a chunk)."""
+    from image_restoration_tpu_torch.scripts import train_convergence as tc
+    n, chunk = CONV_GAN["iters"], CONV_GAN["chunk"]
+    rep, counts, wall = _counted(lambda: tc.convergence(
+        "gfpgan", n, chunk, CONV_GAN["bs"], device="cuda"))
+    c = rep["curve"]
+    gain = tc.better_gain(c)
+    want = _k1_for(n, _r1_steps(0, n), 1 + 2 * (n // chunk))
+    log(f"GFPGAN convergence ({n} iters, bs {CONV_GAN['bs']}) in "
+        f"{wall:.1f} s ({wall / n * 1e3:.1f} ms an iteration, validation "
+        f"included): val PSNR {c['val_psnr'][0]} dB at 0 -> "
+        f"{c['val_psnr'][-1]} (ema) / {c['val_psnr_live'][-1]} (live), "
+        f"+{gain:.2f} dB; l_g_pix {c['loss'][1]} -> {c['loss'][-1]}; "
+        f"K1 {counts[0]} (expected {want}), K2 {counts[1]}, K3 {counts[2]}")
+    require(all(np.isfinite(v) for v in c["loss"][1:]),
+            f"phase 68 losses {c['loss']}")
+    require(gain >= CONV_GAN_GAIN_DB, f"phase 68: +{gain:.2f} dB")
+    require(counts == [want, 0, 0], f"phase 68 launches {counts}, K1 "
+            f"expected {want}")
+    return dict(curve=c, gain_db=gain, wall_s=wall, launches=counts,
+                k1_expected=want)
+
+
+def phase_gan_ablation():
+    """Phase 69: `gan_ablation` at ABL: the arms start bit-equal and see
+    bit-equal first three LQ batches, both stay finite, each arm's better
+    head ends above its iteration 0; K1 exactly as counted."""
+    from image_restoration_tpu_torch.scripts import gan_ablation as ga
+    n, chunk = ABL["iters"], ABL["chunk"]
+    (rep, ev), counts, wall = _counted(lambda: ga.run(
+        n, 1e9, chunk, ABL["bs"], device="cuda"))
+    per_arm = _k1_for(n, _r1_steps(0, n), 1 + 2 * (n // chunk) + 2)
+    arms = {a: (ev["p0"][a], rep[f"arm_{a}"]) for a in ga.ARMS}
+    log(f"GAN ablation (2 × {n} iters, bs {ABL['bs']}) in {wall:.1f} s: "
+        + "; ".join(f"{a} {p0:.2f} -> {e['psnr']} dB ({e['head']}), SSIM "
+                    f"{e['ssim']}, GMS {e['gms_vs_gt']}, NIQE {e['niqe']}"
+                    for a, (p0, e) in arms.items())
+        + f"; init bit-equal {ev['init_bit_equal']}, first "
+        f"{ev['lq_batches_compared']} LQ batches bit-equal "
+        f"{ev['lq_bit_equal']}; K1 {counts[0]} (expected {2 * per_arm}), "
+        f"K2 {counts[1]}, K3 {counts[2]}")
+    require(ev["init_bit_equal"], "phase 69: arms start apart")
+    require(ev["lq_bit_equal"] and ev["lq_batches_compared"] == 3,
+            "phase 69: the arms' LQ batches differ")
+    for a, (p0, e) in arms.items():
+        curve = rep[f"{a}_curve"]
+        require(all(np.isfinite(v) for k in ("l_pix", "l_d")
+                    for v in curve[k]), f"phase 69 {a}: {curve}")
+        require(e["psnr"] > p0, f"phase 69 {a}: {e['psnr']} <= {p0:.3f}")
+    require(counts == [2 * per_arm, 0, 0], f"phase 69 launches {counts}")
+    return dict(report=rep, p0=ev["p0"], wall_s=wall, launches=counts)
+
+
+def phase_qat_vs_ptq():
+    """Phase 70: `qat_distill.bench_qat_vs_ptq` at JAX's 600 iterations an
+    arm (w8a8): |QAT int8 − PTQ int8| ≤ QAT_VS_PTQ_DB, each int8 arm within
+    INT8_VS_FLOAT_DB of the float arm, both scored through the served
+    engine on K2, 34 launches a call."""
+    from image_restoration_tpu_torch.scripts import qat_distill as qd
+    rep, counts, wall = _counted(lambda: qd.bench_qat_vs_ptq(
+        device="cuda", **QAT))
+    calls = rep["k2_launches_per_engine_call"]
+    log(f"QAT vs PTQ w8a8 (2 × {QAT['total_iters']} iters, bs {QAT['bs']}) "
+        f"in {wall:.1f} s: float {rep['float_psnr']} dB, PTQ int8 "
+        f"{rep['ptq_int8_psnr']}, QAT int8 {rep['qat_int8_psnr']} (QAT "
+        f"float {rep['qat_float_psnr']}): QAT - PTQ "
+        f"{rep['qat_minus_ptq_db']:+.3f} dB; K2 {calls} per engine call; "
+        f"K1/K2/K3 {counts}")
+    require(abs(rep["qat_minus_ptq_db"]) <= QAT_VS_PTQ_DB,
+            f"phase 70: QAT - PTQ {rep['qat_minus_ptq_db']} dB")
+    for k in ("ptq_int8_psnr", "qat_int8_psnr"):
+        require(abs(rep[k] - rep["float_psnr"]) <= INT8_VS_FLOAT_DB,
+                f"phase 70: {k} {rep[k]} vs float {rep['float_psnr']}")
+    require(calls == [K2_LAUNCHES_PER_CALL] * 2, f"phase 70: K2 {calls}")
+    require(counts == [0, 2 * K2_LAUNCHES_PER_CALL, 0],
+            f"phase 70 launches {counts}")
+    return dict(report=rep, wall_s=wall, launches=counts)
+
+
+def phase_distill_longrun(root):
+    """Phase 71: `distill_e2e` with a 2-block teacher and 100-iteration
+    students (the distilled arm does not diverge: finite, its last chunk's
+    loss at most its first's, its better head ≥ DISTILL_MIN_DB; the int8
+    gap through K2, 34 launches), then `gfpgan_longrun` at a recipe scale
+    whose 100 iterations cross both lr milestones and the pyramid removal:
+    the lr and the pyramid weight each step used equal the schedule at
+    each crossing, and the exported engine round-trips ≥ LONGRUN_ENGINE_DB."""
+    from image_restoration_tpu_torch.scripts import distill_e2e as de
+    from image_restoration_tpu_torch.scripts import gfpgan_longrun as gl
+    d_dir = os.path.join(root, "distill")
+    (drep, dev), d_counts, d_wall = _counted(lambda: de.run(
+        device="cuda", exp_dir=d_dir, out_path=os.path.join(
+            d_dir, "distill_e2e.json"), **DISTILL))
+    dc = dev["curves"]["distill"]
+    dist = drep["student_distill"]
+    log(f"distillation (RRDB-{DISTILL['teacher_blocks']} teacher "
+        f"{drep['teacher_iters']} iters, students 2 × "
+        f"{DISTILL['student_iters']}) in {d_wall:.1f} s: teacher "
+        f"{drep['teacher_psnr']} dB ({drep['teacher_head']}), L1 student "
+        f"{drep['student_l1']['psnr']}, distilled {dist['psnr']} "
+        f"({dist['head']}; distill - L1 {drep['distill_minus_l1_db']:+.3f} "
+        f"dB), int8 {drep['student_distill_int8']['psnr']} dB (gap to the "
+        f"teacher {drep['student_distill_int8']['gap_to_teacher_db']:+.3f}"
+        f"); distilled loss {dc['loss'][0]} -> {dc['loss'][-1]}; served "
+        f"{drep['served_tiles_per_sec']} tiles/s "
+        f"({drep['speedup_vs_rrdb_serving']}x the teacher's); K2 "
+        f"{dev['k2_launches_int8_call']} in the int8 call; K1/K2/K3 "
+        f"{d_counts}")
+    require(dc["loss"][-1] <= dc["loss"][0] and
+            all(np.isfinite(v) for v in dc["loss"]),
+            f"phase 71: the distilled arm diverged: {dc['loss']}")
+    require(dist["psnr"] >= DISTILL_MIN_DB,
+            f"phase 71: distilled student {dist['psnr']} dB")
+    require(dev["k2_launches_int8_call"] == K2_LAUNCHES_PER_CALL,
+            f"phase 71: K2 {dev['k2_launches_int8_call']} in the int8 call")
+    # the scoring call, then the serving rate's warm-up and timed calls
+    d_want = [0, (2 + de.SERVE_CALLS) * K2_LAUNCHES_PER_CALL, 0]
+    require(d_counts == d_want, f"phase 71 distillation launches "
+            f"{d_counts}, expected {d_want}")
+
+    l_dir = os.path.join(root, "longrun")
+    (lrep, lev), l_counts, l_wall = _counted(lambda: gl.run(
+        budget_s=1e9, device="cuda", exp_dir=l_dir, **LONGRUN))
+    milestones, remove = gl.recipe(LONGRUN["recipe_scale"])
+    used = dict(zip(lev["iters"], zip(lev["lr_g"], lev["pyr_w"])))
+    crossings = sorted({c + d for c in (*milestones, remove)
+                        for d in (-1, 0)})
+    for it in crossings:
+        want = gl.schedule_at(it, milestones, remove)
+        require(np.allclose(used[it], want, rtol=1e-9, atol=0),
+                f"phase 71: iteration {it} used lr/pyr_w {used[it]}, the "
+                f"schedule {want}")
+    c = lrep["curve"]
+    snap = lrep["snapshot_vs_final"]
+    log(f"long run (recipe / {LONGRUN['recipe_scale']}: {LONGRUN['iters']} "
+        f"iters, bs {LONGRUN['bs']}, bf16, milestones {milestones}, pyramid "
+        f"removed at {remove}) in {l_wall:.1f} s: lr/pyr_w at "
+        + ", ".join(f"{it}: {used[it][0]:g}/{used[it][1]:g}"
+                    for it in crossings)
+        + f"; val {c['val_psnr_ema']} (ema) / {c['val_psnr_live']} (live); "
+        f"NIQE {lrep['niqe_curve']['niqe_ema']}; snapshot@"
+        f"{snap['snapshot_iter']} {snap['snapshot_psnr']} -> final "
+        f"{snap['final_psnr']} dB; engine round trip "
+        f"{lev['engine_db']:.1f} dB; K1/K2/K3 {l_counts}")
+    require(lev["engine_db"] >= LONGRUN_ENGINE_DB,
+            f"phase 71: engine round trip {lev['engine_db']:.1f} dB")
+    require(all(np.isfinite(v) for k in ("l_pix", "l_d") for v in c[k]),
+            f"phase 71 long run losses {c}")
+    n, chunk = LONGRUN["iters"], LONGRUN["chunk"]
+    ends = range(chunk, n + 1, chunk)
+    # iteration 0's validation, both heads at each validation, the EMA at
+    # each NIQE, the snapshot and the final EMA, then the export
+    forwards = (1 + sum(2 for d in ends if d % LONGRUN["val_every"] < chunk)
+                + sum(1 for d in ends if d % LONGRUN["niqe_every"] < chunk)
+                + 2 + EXPORT_K1_FORWARDS)
+    l_want = [_k1_for(n, _r1_steps(0, n), forwards), 0, 0]
+    require(l_counts == l_want, f"phase 71 long run launches {l_counts}, "
+            f"expected {l_want}")
+    return dict(distill=drep, distill_wall_s=d_wall,
+                distill_launches=d_counts, longrun=lrep,
+                longrun_wall_s=l_wall, longrun_launches=l_counts,
+                crossings={it: used[it] for it in crossings},
+                engine_db=lev["engine_db"])
+
+
+def _start_child(name, root):
+    """Phase `name` of CHILD_PHASES in a process of its own (this script
+    with --phase), its output to root/name.log. Returns the process."""
+    logf = open(os.path.join(root, f"{name}.log"), "w")
+    try:
+        return subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--phase", name,
+             "--phase-dir", root], stdout=logf, stderr=subprocess.STDOUT,
+            cwd=HERE)
+    finally:
+        logf.close()
+
+
+def _join_child(name, proc, root):
+    """Wait for a child phase, print its output and return its result."""
+    try:
+        rc = proc.wait(timeout=CHILD_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+        rc = "killed at its time limit"
+    with open(os.path.join(root, f"{name}.log")) as f:
+        for ln in f.read().splitlines():
+            log(f"  [{name}] {ln}")
+    require(rc == 0, f"phase {name} (child process): exit {rc}")
+    with open(os.path.join(root, f"{name}.json")) as f:
+        return json.load(f)
+
+
+def run_child_phase(name, root):
+    """The body of `--phase NAME`: the phase on the card, its result written
+    to root/name.json."""
+    fn = {"sr": lambda: dict(conv_sr=phase_conv_sr(),
+                             qat_vs_ptq=phase_qat_vs_ptq()),
+          "distill_longrun": lambda: phase_distill_longrun(root)}[name]
+    res = fn()
+    with open(os.path.join(root, f"{name}.json"), "w") as f:
+        json.dump(res, f, default=lambda o: o.item() if hasattr(o, "item")
+                  else str(o))
+
+
+def phase_training_evidence(tmp):
+    """Path 16: phases 68 and 69 here while phases 67 and 70, and phase 71,
+    run in processes of their own (each phase sets its counts to 0 and
+    checks them as it would here); returns (K1, K2 launches, report)."""
+    procs = {name: _start_child(name, tmp) for name in CHILD_PHASES}
+    try:
+        gan = phase_conv_gfpgan()
+        abl = phase_gan_ablation()
+        srq, dl = (_join_child(name, procs[name], tmp)
+                   for name in CHILD_PHASES)
+        sr, qat = srq["conv_sr"], srq["qat_vs_ptq"]
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    torch.cuda.empty_cache()
+    k1 = (gan["launches"][0] + abl["launches"][0]
+          + dl["longrun_launches"][0])
+    k2 = qat["launches"][1] + dl["distill_launches"][1]
+    return k1, k2, dict(conv_sr=sr, conv_gfpgan=gan, gan_ablation=abl,
+                        qat_vs_ptq=qat, distill_longrun=dl)
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", default=None,
                     help="also write the full report to this JSON file")
+    ap.add_argument("--phase", choices=CHILD_PHASES, default=None,
+                    help="run phases of path 16 alone: sr (67 and 70) or "
+                         "distill_longrun (71); path 16 starts each in a "
+                         "process of its own")
+    ap.add_argument("--phase-dir", default=None,
+                    help="--phase's working directory and result file's")
     args = ap.parse_args(argv)
     out = os.path.abspath(args.out) if args.out else None
     # the configs' paths (configs/...) are relative to the repo root
     os.chdir(HERE)
 
     require(torch.cuda.is_available(), "no CUDA device")
+    if args.phase:
+        return run_child_phase(args.phase, os.path.abspath(args.phase_dir))
     from image_restoration_tpu_torch.infer import PRODUCTION_GFPGAN, Restorer
 
     t_start = time.perf_counter()
@@ -7579,6 +7932,10 @@ def main(argv=None):
         last_k1, last = phase_last_modules(tmp)
     lap("path 15")
 
+    with tempfile.TemporaryDirectory(prefix="irt_evidence_") as tmp:
+        ev_k1, ev_k2, evidence = phase_training_evidence(tmp)
+    lap("path 16")
+
     a = agg[("float32", 16)]
     kernels = [{
         "name": "fused_bias_lrelu",
@@ -7586,7 +7943,7 @@ def main(argv=None):
         "source": "image_restoration_tpu_torch/csrc/fused_bias_act.cu",
         "replaces": "image_restoration_tpu/ops/pallas/fused_act_kernel.py:43",
         "launches": (launches + pipe_launches + art_k1 + train_k1 + sg2_k1
-                     + comp_k1 + det_k1 + fid_k1 + last_k1),
+                     + comp_k1 + det_k1 + fid_k1 + last_k1 + ev_k1),
         "max_abs_err": worst,
         "ms": a["ms"],
         "plain_ms": a["plain_ms"],
@@ -7598,7 +7955,7 @@ def main(argv=None):
         "route": "cuda",
         "source": "image_restoration_tpu_torch/csrc/int8_conv3x3.cu",
         "replaces": "image_restoration_tpu/ops/pallas/int8_conv.py:65",
-        "launches": k2_launches + art_k2 + qat_k2,
+        "launches": k2_launches + art_k2 + qat_k2 + ev_k2,
         "max_abs_err": max(r["max_abs_err"] for r in k2_rows),
         "ms": k2_call["ms"],
         "plain_ms": k2_call["plain_ms"],
@@ -7644,7 +8001,9 @@ def main(argv=None):
         detector_train=detector_train, hifacegan=hifacegan, fid=fid,
         zoo=zoo, zoo_launches=zoo_counts, video=video,
         video_launches=video_counts, last_modules=last,
-        last_modules_k1=last_k1, cuts=CUTS, path_seconds=path_s,
+        last_modules_k1=last_k1, training_evidence=evidence,
+        training_evidence_launches=dict(k1=ev_k1, k2=ev_k2), cuts=CUTS,
+        path_seconds=path_s,
         seconds=time.perf_counter() - t_start,
         note="kernels[].ms/plain_ms/bound_ms: device time (calls back to "
              "back, CUDA events) and bound, summed over the 39 K1 launches "
@@ -7657,10 +8016,11 @@ def main(argv=None):
              "bf16 conv; "
              "K3's launches are those of probe_conv.main(); K1's launches "
              "are those of the main-path phases of paths 1, 4, 5, 6, 8, 9, "
-             "10, 12 and 15 (4, 17, 21, 26, 36, 39, 42, 50, 61, 64), "
-             "K2's those of paths 2, 5 and 7 (8, 21, 31: the "
-             "engine built from the QAT checkpoint); paths 11, 13 and 14 "
-             "launch none")
+             "10, 12, 15 and 16 (4, 17, 21, 26, 36, 39, 42, 50, 61, 64, "
+             "68, 69, 71), K2's those of paths 2, 5, 7 and 16 (8, 21, 31: "
+             "the engine built from the QAT checkpoint; 70, 71: the "
+             "trained students' int8 engines); paths 11, 13 and 14 launch "
+             "none")
     if out:
         os.makedirs(os.path.dirname(out), exist_ok=True)
         with open(out, "w") as f:

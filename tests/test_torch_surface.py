@@ -4,10 +4,10 @@ only: neither package is imported).
 * Every public top-level function and class of each module of
   `image_restoration_tpu/` (but `ops/pallas/`) is bound at the top level of
   the port module of the same relative path, or is named in SURFACE.
-* Every `add_argument` name of a JAX command line is one of its port
-  counterpart's (CLIS gives the counterparts that do not follow the
-  default path), or is named in FLAGS; a JAX command line with no
-  counterpart is named in CLIS with its reason.
+* Every `add_argument` name of a JAX command line (and every `"--flag" in
+  sys.argv` test of one) is one of its port counterpart's (CLIS gives the
+  counterparts that do not follow the default path), or is named in FLAGS;
+  a JAX command line with no counterpart is named in CLIS with its reason.
 * Every `pl.pallas_call` of the JAX package lies in a function named in
   KERNELS, whose `csrc/` source and `irt::` op exist in the port.
 * No entry names something the JAX package does not have (stale), none
@@ -87,16 +87,22 @@ _BENCH = (BENCHMARK, "the root `scripts/bench_*.py` and "
 _CONVERSION = (NOT_NEEDED, "`scripts/model_conversion/`")
 CLIS = {
     "api.py": f"{PORT_PKG}/serve/api.py",
+    "bench.py": (BENCHMARK, "`bench.py` with its halo-4 seam gate"),
     "scripts/bench_detector_convergence.py":
         f"{PORT_PKG}/scripts/detector_convergence.py",
     "scripts/bench_dcn.py": _BENCH,
-    "scripts/bench_distill_e2e.py": _BENCH,
+    "scripts/bench_distill_e2e.py": f"{PORT_PKG}/scripts/distill_e2e.py",
+    "scripts/bench_e2e.py": _BENCH,
     "scripts/bench_experiments.py": _BENCH,
-    "scripts/bench_gan_ablation.py": _BENCH,
-    "scripts/bench_gfpgan_longrun.py": _BENCH,
+    "scripts/bench_gan_ablation.py": f"{PORT_PKG}/scripts/gan_ablation.py",
+    "scripts/bench_gfpgan_longrun.py":
+        f"{PORT_PKG}/scripts/gfpgan_longrun.py",
     "scripts/bench_microbatch.py": _BENCH,
+    "scripts/bench_qat_distill.py": f"{PORT_PKG}/scripts/qat_distill.py",
     "scripts/bench_rrdb.py": _BENCH,
-    "scripts/bench_train.py": _BENCH,
+    # `--convergence`; the step-timing modes' flags are in FLAGS
+    "scripts/bench_train.py": f"{PORT_PKG}/scripts/train_convergence.py",
+    "scripts/bench_video.py": _BENCH,
     "scripts/profile_degrade.py": _BENCH,
     "scripts/profile_train.py": _BENCH,
     "scripts/model_conversion/convert_dfdnet.py": _CONVERSION,
@@ -118,8 +124,13 @@ CLIS = {
 }
 
 # JAX flags, "cli.py:flag", that the port's counterpart names otherwise
+_STEP_TIMING = (BENCHMARK, "`scripts/bench_train.py`'s step-timing modes")
 FLAGS = {
     "scripts/matlab_scripts.py:--cpu": (RENAMED, "--device"),
+    **{f"scripts/bench_train.py:{flag}": _STEP_TIMING
+       for flag in ("--mode", "--batch-sizes", "--dtype", "--iters",
+                    "--breakdown", "--breakdown-bs", "--remat",
+                    "--detector")},
 }
 
 # the function around each `pl.pallas_call` → the port's source and op
@@ -188,8 +199,19 @@ def _calls(path: Path, attr: str):
 
 
 def cli_flags(path: Path) -> set:
-    return {a.value for c in _calls(path, "add_argument") for a in c.args
-            if isinstance(a, ast.Constant) and isinstance(a.value, str)}
+    """The `add_argument` names, and the flags tested as `"--x" in
+    sys.argv` (or `not in`)."""
+    flags = {a.value for c in _calls(path, "add_argument") for a in c.args
+             if isinstance(a, ast.Constant) and isinstance(a.value, str)}
+    if "sys.argv" in _text(path):
+        for n in ast.walk(_parse(path)):
+            if isinstance(n, ast.Compare) and isinstance(n.left, ast.Constant) \
+                    and isinstance(n.left.value, str) \
+                    and n.left.value.startswith("--") \
+                    and isinstance(n.ops[0], (ast.In, ast.NotIn)) \
+                    and ast.unparse(n.comparators[0]) == "sys.argv":
+                flags.add(n.left.value)
+    return flags
 
 
 def custom_ops(path: Path) -> set:
@@ -366,13 +388,14 @@ def test_checker_catches_a_missing_name_a_missing_flag_and_a_stale_entry(
 
     write("jx/mod.py", "def kept():\n    pass\n\n\ndef dropped():\n    pass\n"
           "\n\nclass Moved:\n    pass\n\n\ndef _private():\n    pass\n")
-    write("jx/cli.py", "import argparse\np = argparse.ArgumentParser()\n"
-          "p.add_argument('--a')\np.add_argument('--b')\n")
+    write("jx/cli.py", "import argparse, sys\np = argparse.ArgumentParser()\n"
+          "p.add_argument('--a')\np.add_argument('--b')\n"
+          "tiny = '--c' in sys.argv\n")
     write("jx/ops/pallas/k.py", "def kern(x):\n    return pl.pallas_call(f)(x)\n")
     write("pt/mod.py", "from .other import kept\n")
     write("pt/other.py", "def kept():\n    pass\n\n\nclass Renamed:\n    pass\n")
     write("pt/cli.py", "import argparse\np = argparse.ArgumentParser()\n"
-          "p.add_argument('--a')\n")
+          "p.add_argument('--a')\np.add_argument('--c')\n")
     write("pt/csrc/k.cu", "")
     write("pt/ops/k.py", "@torch.library.custom_op('irt::k', mutates_args=())"
           "\ndef k(x):\n    return x\n")
