@@ -30,6 +30,7 @@ from .parallel.mesh import data_sharding, make_mesh
 from .parallel.tiling import tiled_apply
 from .utils.device import resolve_device
 from .utils.img_util import imread, imwrite, tensor2img
+from .utils.profiler import span
 
 PRODUCTION_GFPGAN = dict(
     type="GFPGANv1OCR", input_width=256, input_height=256,
@@ -80,6 +81,13 @@ class Restorer:
     StyleGAN2/GFPGAN family) with per-output-channel int8 weights and a
     per-tensor int8 activation scale taken on the fly (`int8_serving`),
     for this Restorer's forwards only; every entry point honours it.
+
+    Each entry point runs in a root span `restorer.<entry point>`
+    (`restorer.call` for `__call__`; `utils/profiler.py`) over the spans
+    `restorer.h2d` (the input to the device), `restorer.forward` (issuing
+    the forward; the tiled entries have the tiler's spans instead) and
+    `restorer.d2h` (the output to host memory, which first waits for the
+    device work queued before the copy).
     """
 
     def __init__(self, network_opt: dict, ckpt_path: Optional[str] = None,
@@ -200,16 +208,32 @@ class Restorer:
         return self.forward_u8(x_u8)
 
     def _to_device(self, arr: np.ndarray) -> torch.Tensor:
-        return torch.from_numpy(np.ascontiguousarray(arr)).to(self.device)
+        with span("restorer.h2d"):
+            return torch.from_numpy(np.ascontiguousarray(arr)).to(
+                self.device)
+
+    def _run(self, fn_name: str, x: torch.Tensor) -> torch.Tensor:
+        """`fn_name` (`_fwd`/`_fwd_u8`) on x, over the replicas with
+        data_parallel."""
+        with span("restorer.forward"):
+            return self._dp(fn_name, x) if self.mesh else \
+                getattr(self, fn_name)(x)
+
+    @staticmethod
+    def _to_host(out: torch.Tensor) -> np.ndarray:
+        with span("restorer.d2h"):
+            return out.cpu().numpy()
 
     def restore_batch(self, imgs: np.ndarray) -> np.ndarray:
         """(N,H,W,3) RGB float [0,1] → (N,H',W',3) BGR uint8, normalized on
         the host (the reference-exact path)."""
-        x = self._to_device(((imgs - self.mean) / self.std).astype(np.float32))
-        out = self._dp("_fwd", x) if self.mesh else self._fwd(x)
-        out_np = out.float().cpu().numpy()
-        return np.stack([tensor2img(out_np[i:i + 1], min_max=self.out_min_max)
-                         for i in range(out_np.shape[0])])
+        with span("restorer.restore_batch"):
+            x = self._to_device(((imgs - self.mean) / self.std)
+                                .astype(np.float32))
+            out_np = self._to_host(self._run("_fwd", x).float())
+            return np.stack([tensor2img(out_np[i:i + 1],
+                                        min_max=self.out_min_max)
+                             for i in range(out_np.shape[0])])
 
     def restore_batch_u8(self, imgs: np.ndarray) -> np.ndarray:
         """(N,H,W,3) RGB uint8 → (N,H',W',3) BGR uint8 with uint8 on the
@@ -218,15 +242,19 @@ class Restorer:
         if imgs.dtype != np.uint8:
             raise TypeError(f"restore_batch_u8 expects uint8, got "
                             f"{imgs.dtype}")
-        x = self._to_device(imgs)
-        out = self._dp("_fwd_u8", x) if self.mesh else self._fwd_u8(x)
-        return out.cpu().numpy()
+        with span("restorer.restore_batch_u8"):
+            x = self._to_device(imgs)
+            return self._to_host(self._run("_fwd_u8", x))
 
     def __call__(self, img: np.ndarray) -> np.ndarray:
         """HWC RGB float [0,1] → HWC BGR uint8 restored."""
-        x = self._to_device(((img - self.mean) / self.std)
-                            .astype(np.float32)[None])
-        return tensor2img(self._fwd(x), min_max=self.out_min_max)
+        with span("restorer.call"):
+            x = self._to_device(((img - self.mean) / self.std)
+                                .astype(np.float32)[None])
+            with span("restorer.forward"):
+                out = self._fwd(x)
+            return tensor2img(self._to_host(out.float()),
+                              min_max=self.out_min_max)
 
     def restore_tiled(self, img: np.ndarray, tile: int = 512, halo: int = 16,
                       scale: int = 4, tile_batch: int = 4) -> np.ndarray:
@@ -234,11 +262,14 @@ class Restorer:
         (H·scale, W·scale, 3) BGR uint8, the tiles run `tile_batch` at a
         time (`parallel/tiling.py`), over the replicas with data_parallel
         (tile_batch rounded up to a multiple of them)."""
-        x = self._to_device(((img - self.mean) / self.std)
-                            .astype(np.float32)[None])
-        out = tiled_apply(self._tile_fn("_fwd"), x, tile=tile, halo=halo,
-                          scale=scale, tile_batch=tile_batch, mesh=self.mesh)
-        return tensor2img(out, min_max=self.out_min_max)
+        with span("restorer.restore_tiled"):
+            x = self._to_device(((img - self.mean) / self.std)
+                                .astype(np.float32)[None])
+            out = tiled_apply(self._tile_fn("_fwd"), x, tile=tile,
+                              halo=halo, scale=scale, tile_batch=tile_batch,
+                              mesh=self.mesh)
+            return tensor2img(self._to_host(out.float()),
+                              min_max=self.out_min_max)
 
     def restore_tiled_u8(self, img: np.ndarray, tile: int = 512,
                          halo: int = 16, scale: int = 4,
@@ -249,10 +280,12 @@ class Restorer:
         if img.dtype != np.uint8:
             raise TypeError(f"restore_tiled_u8 expects uint8, got "
                             f"{img.dtype}")
-        out = tiled_apply(self._tile_fn("_fwd_u8"),
-                          self._to_device(img)[None], tile=tile, halo=halo,
-                          scale=scale, tile_batch=tile_batch, mesh=self.mesh)
-        return out[0].cpu().numpy()
+        with span("restorer.restore_tiled_u8"):
+            out = tiled_apply(self._tile_fn("_fwd_u8"),
+                              self._to_device(img)[None], tile=tile,
+                              halo=halo, scale=scale, tile_batch=tile_batch,
+                              mesh=self.mesh)
+            return self._to_host(out[0])
 
     def _tile_fn(self, fn_name: str):
         """The chunk function(s) of `tiled_apply`: one per replica."""

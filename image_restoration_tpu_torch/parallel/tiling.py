@@ -20,6 +20,7 @@ from typing import Callable, Optional, Tuple
 import numpy as np
 import torch
 
+from ..utils.profiler import count, span
 from .mesh import data_sharding
 
 
@@ -68,6 +69,10 @@ def tiled_apply(fn, img: torch.Tensor, tile: int, halo: int,
 
     tile_batch: run the tiles in chunks of this many (the last chunk is
     padded with zero tiles to the same size, and their outputs dropped).
+    Spans `tiler.split` (cutting the tiles, padding the last chunk),
+    `tiler.run` (each chunk's `fn`) and `tiler.stitch` (untiling) land in
+    the caller's span; the counters `tiler.tiles` (tiles handed to `fn`,
+    padding included) and `tiler.pad_tiles` add up the chunks' fill.
     out_halo: the halo left on fn's output; 0 when fn crops it itself
     (`quantized_srvgg_forward(crop_halo=...)`). Default: halo.
     mesh: a one-process `parallel.mesh.Mesh`; tile_batch is rounded up to
@@ -76,23 +81,29 @@ def tiled_apply(fn, img: torch.Tensor, tile: int, halo: int,
     such as the replicas of a net) runs on every part at once, each on
     its device's thread. `axis` names the mesh axis, as in JAX.
     """
-    tiles, grid = tile_image(img, tile, halo)
+    with span("tiler.split"):
+        tiles, grid = tile_image(img, tile, halo)
     num = tiles.shape[0]
     tile_batch = tile_batch or num
     if mesh is not None:
         fn = _over_mesh(fn, mesh, img.device)
         tile_batch += -tile_batch % mesh.size
+    pad = -num % tile_batch
+    count("tiler.tiles", num + pad)
+    count("tiler.pad_tiles", pad)
     outs = []
     for start in range(0, num, tile_batch):
         chunk = tiles[start:start + tile_batch]
-        pad = tile_batch - chunk.shape[0]
-        if pad:
-            chunk = torch.cat([chunk, chunk.new_zeros(
-                (pad,) + tuple(chunk.shape[1:]))], dim=0)
-        out = fn(chunk)
-        outs.append(out[:tile_batch - pad] if pad else out)
-    return untile_image(torch.cat(outs, dim=0), grid, tile,
-                        halo if out_halo is None else out_halo, scale)
+        if chunk.shape[0] < tile_batch:
+            with span("tiler.split"):
+                chunk = torch.cat([chunk, chunk.new_zeros(
+                    (pad,) + tuple(chunk.shape[1:]))], dim=0)
+        with span("tiler.run"):
+            out = fn(chunk)
+        outs.append(out[:num - start])
+    with span("tiler.stitch"):
+        return untile_image(torch.cat(outs, dim=0), grid, tile,
+                            halo if out_halo is None else out_halo, scale)
 
 
 def _over_mesh(fn, mesh, out_device) -> Callable:

@@ -99,8 +99,7 @@ class MicroBatcher:
         self.pipeline_depth = max(1, int(pipeline_depth))
         self.min_fill = max(1, self.max_batch // 4) if min_fill is None \
             else max(1, min(int(min_fill), self.max_batch))
-        self.stats = {"items": 0, "dispatches": 0, "padded_rows": 0,
-                      "batch_hist": {}}
+        self.stats = {"items": 0, "dispatches": 0, "padded_rows": 0}
         self._q: queue.Queue = queue.Queue()
         self._shape = None
         self._lock = threading.Lock()
@@ -219,8 +218,6 @@ class MicroBatcher:
             self.stats["items"] += n
             self.stats["dispatches"] += 1
             self.stats["padded_rows"] += bucket - n
-            hist = self.stats["batch_hist"]
-            hist[bucket] = hist.get(bucket, 0) + 1
         for f, o in zip(futs, out):
             try:
                 f.set_result(o)

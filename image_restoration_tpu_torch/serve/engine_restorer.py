@@ -37,6 +37,7 @@ from torch import nn
 
 from ..parallel.tiling import tiled_apply
 from ..utils.device import resolve_device
+from ..utils.profiler import span
 
 ENGINE_FILE = "engine.pt2"
 META_FILE = "engine.json"
@@ -223,23 +224,33 @@ class EngineRestorer:
         return cls(*build_engine(**kwargs))
 
     def __call__(self, img: np.ndarray) -> np.ndarray:
-        if self.u8_io:
-            if img.dtype != np.uint8:
-                img = np.clip(np.asarray(img, np.float32) * 255.0 + 0.5,
-                              0, 255).astype(np.uint8)
-            x = torch.from_numpy(np.ascontiguousarray(img)).to(self.device)
+        """One image through the tiler and the engine, in the span
+        `engine_restorer.call`: `engine_restorer.h2d` (the input to the
+        device), the tiler's spans, and `engine_restorer.d2h` (the output
+        to host memory, which first waits for the device work queued
+        before the copy)."""
+        with span("engine_restorer.call"):
+            if self.u8_io:
+                if img.dtype != np.uint8:
+                    img = np.clip(np.asarray(img, np.float32) * 255.0 + 0.5,
+                                  0, 255).astype(np.uint8)
+                fn = self.serve
+            else:
+                if img.dtype == np.uint8:
+                    img = np.asarray(img, np.float32) / 255.0
+                img = np.asarray(img, np.float32)
+
+                def fn(t):
+                    return self.serve(t.to(torch.bfloat16))
+            with span("engine_restorer.h2d"):
+                x = torch.from_numpy(np.ascontiguousarray(img)).to(
+                    self.device)
             with torch.inference_mode():
-                out = tiled_apply(self.serve, x[None], tile=self.tile,
+                out = tiled_apply(fn, x[None], tile=self.tile,
                                   halo=self.halo, scale=self.upscale,
-                                  tile_batch=self.batch)
-                return out[0].cpu().numpy()
-        if img.dtype == np.uint8:
-            img = np.asarray(img, np.float32) / 255.0
-        x = torch.from_numpy(np.ascontiguousarray(img, np.float32)).to(
-            self.device)
-        with torch.inference_mode():
-            out = tiled_apply(lambda t: self.serve(t.to(torch.bfloat16)),
-                              x[None], tile=self.tile, halo=self.halo,
-                              scale=self.upscale, tile_batch=self.batch)
-            out = out[0].float().cpu().numpy()
-        return np.clip(out * 255.0 + 0.5, 0, 255).astype(np.uint8)
+                                  tile_batch=self.batch)[0]
+                with span("engine_restorer.d2h"):
+                    out = (out if self.u8_io else out.float()).cpu().numpy()
+            if self.u8_io:
+                return out
+            return np.clip(out * 255.0 + 0.5, 0, 255).astype(np.uint8)
