@@ -37,7 +37,7 @@ from torch import nn
 
 from ..parallel.tiling import tiled_apply
 from ..utils.device import resolve_device
-from ..utils.profiler import span
+from ..utils.profiler import count, span
 
 ENGINE_FILE = "engine.pt2"
 META_FILE = "engine.json"
@@ -191,6 +191,26 @@ class EngineGeoPipeline:
         return mont, masked
 
 
+def _to_host(out: torch.Tensor) -> np.ndarray:
+    """`out` as a host numpy array. A CUDA tensor is copied into page-
+    locked memory from PyTorch's caching host allocator, then the stream
+    is waited on: no staging through CUDA's own bounce buffer, no first-
+    touch faults of a fresh pageable allocation. The array owns its block
+    until its last reference goes; the allocator then hands the block to a
+    later output of its size, so no later call writes into an array handed
+    out before. Counts `engine_restorer.pinned_out`. A tensor on any other
+    device takes `.cpu()` as it is and counts
+    `engine_restorer.pageable_out`."""
+    if not out.is_cuda:
+        count("engine_restorer.pageable_out")
+        return out.cpu().numpy()
+    host = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
+    host.copy_(out, non_blocking=True)
+    torch.cuda.current_stream(out.device).synchronize()
+    count("engine_restorer.pinned_out")
+    return host.numpy()
+
+
 class EngineRestorer:
     """The ×4 SR tile engine on images of any size. Callable: RGB (H, W,
     3), uint8 [0, 255] or float [0, 1] → uint8 RGB ×upscale.
@@ -227,8 +247,8 @@ class EngineRestorer:
         """One image through the tiler and the engine, in the span
         `engine_restorer.call`: `engine_restorer.h2d` (the input to the
         device), the tiler's spans, and `engine_restorer.d2h` (the output
-        to host memory, which first waits for the device work queued
-        before the copy)."""
+        to host memory, `_to_host`: the wait for the device work queued
+        before the copy, then the copy)."""
         with span("engine_restorer.call"):
             if self.u8_io:
                 if img.dtype != np.uint8:
@@ -250,7 +270,7 @@ class EngineRestorer:
                                   halo=self.halo, scale=self.upscale,
                                   tile_batch=self.batch)[0]
                 with span("engine_restorer.d2h"):
-                    out = (out if self.u8_io else out.float()).cpu().numpy()
+                    out = _to_host(out if self.u8_io else out.float())
             if self.u8_io:
                 return out
             return np.clip(out * 255.0 + 0.5, 0, 255).astype(np.uint8)
