@@ -14,10 +14,13 @@ Port of `image_restoration_tpu/ops/rrdb_quant.py:44-202`:
 
 Every stage conv of `quantized_rrdb_forward` is one launch of kernel K2
 (`ops/int8_conv.py`, "bf16_deq" epilogue): 15 per RRDB block, 345 for
-RRDBNet-23. The weights are (Cout, 3, 3, Cin) int8, K2's layout, stacked over
-the blocks on a leading axis; head and tail weights are OIHW bf16. The host
-arithmetic of `quantize_rrdb_params` is the JAX package's, in numpy, so the
-quantized tensors equal its pytree.
+RRDBNet-23. The forward records the spans `rrdb.head` (conv_first),
+`rrdb.body` (the blocks) and `rrdb.tail` (conv_body to conv_last), and adds
+its batch to the counter `rrdb.tiles` (`utils/profiler.py`). The weights are
+(Cout, 3, 3, Cin) int8, K2's layout, stacked over the blocks on a leading
+axis; head and tail weights are OIHW bf16. The host arithmetic of
+`quantize_rrdb_params` is the JAX package's, in numpy, so the quantized
+tensors equal its pytree.
 """
 
 from __future__ import annotations
@@ -28,6 +31,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..utils.profiler import count, span
 from .int8_conv import int8_conv3x3_requant
 from .packed_inference import RDBS, RRDB_HEAD_TAIL, conv_nhwc, rrdb_tail
 from .quantized_inference import bf16_vector, no_tf32
@@ -175,12 +179,16 @@ def quantized_rrdb_forward(q: Dict, x: torch.Tensor, num_block: int,
     """x (N, H, W, 3) in [0, 1] → bf16 (N, 4H, 4W, 3); the ×4 head only."""
     if scale != 4:
         raise ValueError("the int8 RRDB path implements the ×4 head")
-    x = x.to(torch.bfloat16)
-    feat = conv_nhwc(x, *q["conv_first"])
-    body = feat
-    for bi in range(num_block):
-        t = body
-        for rdb in RDBS:
-            t = _quant_rdb(t, {k: v[bi] for k, v in q["blocks"][rdb].items()})
-        body = mul(t, 0.2) + body
-    return rrdb_tail(feat, body, q)
+    count("rrdb.tiles", int(x.shape[0]))
+    with span("rrdb.head"):
+        feat = conv_nhwc(x.to(torch.bfloat16), *q["conv_first"])
+    with span("rrdb.body"):
+        body = feat
+        for bi in range(num_block):
+            t = body
+            for rdb in RDBS:
+                t = _quant_rdb(t, {k: v[bi]
+                                   for k, v in q["blocks"][rdb].items()})
+            body = mul(t, 0.2) + body
+    with span("rrdb.tail"):
+        return rrdb_tail(feat, body, q)

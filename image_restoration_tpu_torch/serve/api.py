@@ -15,7 +15,7 @@ request. A route whose part is not configured answers with the reference's
 
     python -m image_restoration_tpu_torch.serve.api [--port 8000] \
         [--device-geometry] [--microbatch N|auto] [--detector-ckpt D.pth] \
-        [--ckpt X.pth] [--sr [--sr-pth realesr.pth]]
+        [--ckpt X.pth] [--sr [--sr-model rrdbnet] [--sr-pth realesr.pth]]
     IRT_SR_ENGINE=engine_sr/ python -m image_restoration_tpu_torch.serve.api
 """
 
@@ -233,6 +233,12 @@ ROUTES = {
     "/RestoreConcat/": ("restore_concat", "image/jpeg"),
     "/SRx4/": ("sr_x4", "image/png"),
 }
+# `--sr-model` → the `EngineRestorer.build` options of its engine
+SR_MODELS = {
+    "srvgg": {},
+    "rrdbnet": dict(model="RRDBNet", num_feat=64, num_block=23,
+                    num_grow_ch=32, upscale=4, halo=16),
+}
 
 
 def make_stdlib_handler(core: ServiceCore):
@@ -319,10 +325,15 @@ def main(argv=None):
                          "both at start-up and pick the faster)")
     ap.add_argument("--microbatch-wait-ms", type=float, default=5.0)
     ap.add_argument("--sr", action="store_true",
-                    help="serve /SRx4/ with the int8 ×4 SRVGG tile engine "
-                         "(kernel K2), tile 512, halo 8, 8 tiles per call")
+                    help="serve /SRx4/ with an int8 ×4 tile engine (kernel "
+                         "K2), tile 512, 8 tiles per call")
+    ap.add_argument("--sr-model", choices=sorted(SR_MODELS),
+                    default="srvgg",
+                    help="the --sr engine's net: srvgg, realesr-general-"
+                         "x4v3 (SRVGGNetCompact, halo 8); rrdbnet, "
+                         "RealESRGAN_x4plus (RRDBNet-23, halo 16)")
     ap.add_argument("--sr-pth", default=None,
-                    help="Real-ESRGAN SRVGGNetCompact .pth for --sr "
+                    help="Real-ESRGAN .pth of the --sr-model net for --sr "
                          "(default: random weights from --seed)")
     a = ap.parse_args(argv)
     # the pipeline's plate and car restorers are two Restorer(PRODUCTION_
@@ -337,7 +348,8 @@ def main(argv=None):
     sr_engine = None
     if a.sr:
         from .engine_restorer import EngineRestorer
-        sr_engine = EngineRestorer.build(pth=a.sr_pth, seed=a.seed,
+        sr_engine = EngineRestorer.build(**SR_MODELS[a.sr_model],
+                                         pth=a.sr_pth, seed=a.seed,
                                          device=a.device)
     run_server(ServiceCore(car, sr_engine, device_io=not a.host_io,
                            pipeline=pipeline, microbatch=a.microbatch,

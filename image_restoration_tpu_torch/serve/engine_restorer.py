@@ -212,8 +212,9 @@ def _to_host(out: torch.Tensor) -> np.ndarray:
 
 
 class EngineRestorer:
-    """The ×4 SR tile engine on images of any size. Callable: RGB (H, W,
-    3), uint8 [0, 255] or float [0, 1] → uint8 RGB ×upscale.
+    """The ×4 SR tile engine (SRVGGNetCompact, or RRDBNet with
+    `build(model="RRDBNet", ...)`) on images of any size. Callable: RGB
+    (H, W, 3), uint8 [0, 255] or float [0, 1] → uint8 RGB ×upscale.
 
     `EngineRestorer(engine_dir)` loads an artifact of
     scripts/export_restorer.py; `EngineRestorer(serve, meta)` or

@@ -1,4 +1,5 @@
-"""The ×4 SR tile engine: SRVGGNetCompact, int8 PTQ or packed bf16, pack 2.
+"""The ×4 SR tile engine: SRVGGNetCompact, int8 PTQ or packed bf16, pack 2;
+or RRDBNet (RealESRGAN_x4plus) int8 PTQ.
 
 Port of `build_engine` in `scripts/export_restorer.py:29-153`, built in
 process: a random (seeded) or `.pth` SRVGGNetCompact is calibrated on a
@@ -17,6 +18,14 @@ of this very graph, at its learned activation scales, with no calibration.
 The checkpoint is the port's `ckpt_{iter}.pth` (the JAX package reads an
 orbax directory); its scales and shapes are checked against the engine's
 geometry before anything is built.
+
+`model="RRDBNet"` builds Real-ESRGAN's `RealESRGAN_x4plus` instead (ESRGAN's
+RRDBNet, num_feat 64, num_grow_ch 32, ×4): a random (seeded) or `.pth` net
+calibrated on the same batch (`calibrate_rrdb_act_scales`), quantized on the
+widened dense-block form (`quantize_rrdb_params`) and served by
+`quantized_rrdb_forward`, 15 K2 launches ("bf16_deq" epilogue) per block,
+345 a call at num_block 23, between the same uint8 `/255` and clip and
+round. It is int8 only, at those widths, with no QAT checkpoint.
 """
 
 from __future__ import annotations
@@ -32,7 +41,18 @@ from ..ops.packed_inference import pack_srvgg_params, packed_srvgg_forward
 from ..ops.quantized_inference import (calibrate_srvgg_act_scales,
                                        quantize_srvgg_params,
                                        quantized_srvgg_forward)
+from ..ops.rrdb_quant import (calibrate_rrdb_act_scales,
+                              quantize_rrdb_params, quantized_rrdb_forward)
 from ..utils.device import resolve_device
+
+
+def _float_net(opt: dict, pth: Optional[str], seed: int, device):
+    """`build_network(opt)` on `device`, eval, no grads: weights from a
+    `.pth`, or drawn from a generator seeded with `seed`."""
+    net = build_network(opt, torch.Generator().manual_seed(seed))
+    if pth:
+        net.load_state_dict(load_pth(pth), strict=True)
+    return net.to(resolve_device(device)).eval().requires_grad_(False)
 
 
 def build_srvgg(num_feat: int = 64, num_conv: int = 32, upscale: int = 4,
@@ -40,12 +60,16 @@ def build_srvgg(num_feat: int = 64, num_conv: int = 32, upscale: int = 4,
     """The engine's float SRVGGNetCompact (PReLU), on `device`: weights
     from a Real-ESRGAN `.pth`, or drawn from a generator seeded with
     `seed`."""
-    net = build_network(dict(type="SRVGGNetCompact", num_feat=num_feat,
-                             num_conv=num_conv, upscale=upscale),
-                        torch.Generator().manual_seed(seed))
-    if pth:
-        net.load_state_dict(load_pth(pth), strict=True)
-    return net.to(resolve_device(device)).eval().requires_grad_(False)
+    return _float_net(dict(type="SRVGGNetCompact", num_feat=num_feat,
+                           num_conv=num_conv, upscale=upscale),
+                      pth, seed, device)
+
+
+def default_calibration(seed: int) -> np.ndarray:
+    """The JAX package exporter's seeded uniform batch, (2, 128, 128, 3)."""
+    rng = np.random.default_rng(seed)
+    rng.random((1, 64, 64, 3), np.float32)  # the exporter's init
+    return rng.random((2, 128, 128, 3), np.float32)
 
 
 def load_qat_checkpoint(path: str, num_feat: int, num_conv: int,
@@ -85,9 +109,14 @@ def build_graph(num_feat: int = 64, num_conv: int = 32, upscale: int = 4,
                 pth: Optional[str] = None, int8: bool = True,
                 calib: Optional[np.ndarray] = None, seed: int = 0,
                 io: str = "u8", qat_ckpt: Optional[str] = None,
-                device=None) -> Tuple[Callable, dict]:
+                device=None, model: str = "SRVGGNetCompact",
+                num_block: Optional[int] = None,
+                num_grow_ch: Optional[int] = None) -> Tuple[Callable, dict]:
     """Returns (graph, meta): the serving function with no grad mode of its
     own (what torch.export traces) and the engine's metadata.
+
+    model: "SRVGGNetCompact" (num_feat, num_conv) or "RRDBNet" (num_feat,
+    num_block, num_grow_ch; default 23 blocks of growth 32).
 
     calib: (N, H, W, 3) float [0, 1] calibration images; by default the
     same seeded uniform batch as the JAX package's exporter (2 × 128²).
@@ -100,6 +129,75 @@ def build_graph(num_feat: int = 64, num_conv: int = 32, upscale: int = 4,
     if io not in ("u8", "bf16"):
         raise ValueError(f"unknown io {io!r}")
     device = resolve_device(device)
+    if model == "RRDBNet":
+        inner, meta = _rrdb_inner(
+            num_feat, 23 if num_block is None else num_block,
+            32 if num_grow_ch is None else num_grow_ch, upscale, pth, int8,
+            calib, seed, qat_ckpt, device)
+    elif model == "SRVGGNetCompact":
+        if num_block is not None or num_grow_ch is not None:
+            raise ValueError("num_block and num_grow_ch are RRDBNet's; "
+                             "SRVGGNetCompact takes num_conv")
+        inner, meta = _srvgg_inner(num_feat, num_conv, upscale, pth, int8,
+                                   calib, seed, qat_ckpt, device)
+    else:
+        raise ValueError(f"unknown model {model!r}: the SR engine builds "
+                         "SRVGGNetCompact or RRDBNet")
+
+    if io == "u8":
+        def graph(x_u8):
+            y = inner(x_u8.to(torch.bfloat16) / 255.0)
+            y = torch.clamp(y.float(), 0.0, 1.0)
+            return torch.round(y * 255.0).to(torch.uint8)
+    else:
+        graph = inner
+
+    size = tile + 2 * halo
+    meta.update({"upscale": upscale, "tile": tile, "halo": halo,
+                 "batch": batch, "mode": "int8" if int8 else "bf16",
+                 "io": io, "input_shape": [batch, size, size, 3],
+                 "input_dtype": "uint8" if io == "u8" else "bfloat16",
+                 "qat": bool(qat_ckpt),
+                 "platforms": [torch.device(device).type],
+                 "device": str(device)})
+    return graph, meta
+
+
+def _rrdb_inner(num_feat, num_block, num_grow_ch, upscale, pth, int8, calib,
+                seed, qat_ckpt, device):
+    """(inner, meta) of the int8 RRDBNet engine: bf16 [0, 1] tiles in, bf16
+    ×4 out."""
+    if not int8:
+        raise ValueError("the RRDBNet engine is int8 only (int8=False has "
+                         "no packed bf16 RRDBNet engine)")
+    if qat_ckpt:
+        raise ValueError("qat_ckpt holds an SRVGGNetCompact; the RRDBNet "
+                         "engine is built by calibration from pth= or a seed")
+    if (num_feat, num_grow_ch) != (64, 32) or upscale != 4:
+        raise ValueError(
+            "the int8 RRDBNet engine takes num_feat 64, num_grow_ch 32 and "
+            f"upscale 4, got {num_feat}, {num_grow_ch} and {upscale}")
+    # weights from a RealESRGAN_x4plus or ESRGAN `.pth`, or the seed's
+    net = _float_net(dict(type="RRDBNet", num_feat=num_feat,
+                          num_block=num_block, num_grow_ch=num_grow_ch,
+                          scale=upscale), pth, seed, device)
+    if calib is None:
+        calib = default_calibration(seed)
+    scales = calibrate_rrdb_act_scales(
+        net, torch.from_numpy(np.asarray(calib, np.float32)).to(device))
+    q = quantize_rrdb_params(net, scales)
+
+    def inner(x):
+        return quantized_rrdb_forward(q, x, num_block, upscale)
+
+    return inner, {"model": "RRDBNet", "num_feat": num_feat,
+                   "num_block": num_block, "num_grow_ch": num_grow_ch}
+
+
+def _srvgg_inner(num_feat, num_conv, upscale, pth, int8, calib, seed,
+                 qat_ckpt, device):
+    """(inner, meta) of the SRVGGNetCompact engine, int8 or packed bf16:
+    bf16 [0, 1] tiles in, bf16 ×upscale out."""
     if qat_ckpt:
         if pth:
             raise ValueError("--pth and --qat-ckpt are mutually exclusive "
@@ -119,9 +217,7 @@ def build_graph(num_feat: int = 64, num_conv: int = 32, upscale: int = 4,
         net = build_srvgg(num_feat, num_conv, upscale, pth, seed, device)
         if int8:
             if calib is None:
-                rng = np.random.default_rng(seed)
-                rng.random((1, 64, 64, 3), np.float32)  # the exporter's init
-                calib = rng.random((2, 128, 128, 3), np.float32)
+                calib = default_calibration(seed)
             scales = calibrate_srvgg_act_scales(
                 net, torch.from_numpy(np.asarray(calib, np.float32))
                 .to(device)).tolist()
@@ -135,24 +231,8 @@ def build_graph(num_feat: int = 64, num_conv: int = 32, upscale: int = 4,
 
         def inner(x):
             return packed_srvgg_forward(packed, x, num_conv, upscale)
-
-    if io == "u8":
-        def graph(x_u8):
-            y = inner(x_u8.to(torch.bfloat16) / 255.0)
-            y = torch.clamp(y.float(), 0.0, 1.0)
-            return torch.round(y * 255.0).to(torch.uint8)
-    else:
-        graph = inner
-
-    size = tile + 2 * halo
-    meta = {"model": "SRVGGNetCompact", "num_feat": num_feat,
-            "num_conv": num_conv, "upscale": upscale, "tile": tile,
-            "halo": halo, "batch": batch, "mode": "int8" if int8 else "bf16",
-            "io": io, "input_shape": [batch, size, size, 3],
-            "input_dtype": "uint8" if io == "u8" else "bfloat16",
-            "qat": bool(qat_ckpt), "platforms": [torch.device(device).type],
-            "device": str(device)}
-    return graph, meta
+    return inner, {"model": "SRVGGNetCompact", "num_feat": num_feat,
+                   "num_conv": num_conv}
 
 
 def build_engine(**kwargs) -> Tuple[Callable, dict]:
