@@ -1842,14 +1842,14 @@ def phase_rrdb_int8_check(net23, q23):
         x = torch.from_numpy(scene_image(s, s, seed=34)).cuda().float() / 255
         x = x[None]
         seen = []
-        real = int8_conv.int8_conv3x3_requant
+        real = int8_conv.int8_conv3x3_rrdb_stage
 
         def record(t, *a, **k):
             out = real(t, *a, **k)
             seen.append((t, out))
             return out
 
-        with _mock.patch.object(rq, "int8_conv3x3_requant", record):
+        with _mock.patch.object(rq, "int8_conv3x3_rrdb_stage", record):
             got = rq.quantized_rrdb_forward(q, x, 2)
         torch.cuda.synchronize()
         require(len(seen) == 2 * K2_STAGE_LAUNCHES, f"{len(seen)} K2 calls")
@@ -1858,13 +1858,14 @@ def phase_rrdb_int8_check(net23, q23):
         def compare(t, *a, **k):
             i = next(stage)
             require(torch.equal(t, seen[i][0]), f"stage input {i} differs")
-            out = int8_conv.int8_conv3x3_requant_plain(t, *a, **k)
-            require(torch.equal(out, seen[i][1]),
+            out = int8_conv.int8_conv3x3_rrdb_stage_plain(t, *a, **k)
+            require(all((o is None and s is None) or torch.equal(o, s)
+                        for o, s in zip(out, seen[i][1])),
                     f"stage {i}: K2 vs plain output differs")
             seen[i] = None
             return out
 
-        with _mock.patch.object(rq, "int8_conv3x3_requant", compare):
+        with _mock.patch.object(rq, "int8_conv3x3_rrdb_stage", compare):
             want = rq.quantized_rrdb_forward(q, x, 2)
         torch.cuda.synchronize()
         require(torch.equal(got, want), "int8 RRDB output: K2 vs plain")

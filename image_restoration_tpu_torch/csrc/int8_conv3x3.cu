@@ -11,9 +11,23 @@
 //     deq/b/alpha are bf16 (127 / s_out folded in, s_out unused) and every
 //     operation rounds to bf16 as PyTorch and XLA do: acc -> f32 -> bf16,
 //     x deq, + b, x alpha; then round half to even and clip, int8;
-//   mode 2 (bf16_deq), the int8 RRDB chain's stage conv (ops/rrdb_quant.py):
-//     acc -> f32 -> bf16, x deq, + b when bias is not NULL, each rounded to
-//     bf16; no activation, round or clip; bf16 out.
+//   mode 2 (bf16_deq): acc -> f32 -> bf16, x deq, + b when bias is not NULL,
+//     each rounded to bf16; no activation, round or clip; bf16 out;
+//   mode 3 (rrdb_dense), one stage s of the int8 RRDB chain's widened dense
+//     block (ops/rrdb_quant.py), mode 2's h = bf16(bf16(acc) x deq (+ b))
+//     carried on through the block's glue. P is the block's running bf16
+//     buffer of slice sums (N, H, W, 160), channels [c2 | c3 | c4 | x5]:
+//       s = 0 (64 -> 192): q = int8(clip(rint(lrelu(h[c1])))), P = h[c2..x5];
+//       s = 1..3 (32 -> 160/128/96): v = bf16(P[c_s+1] + h[c_s+1]),
+//         q = int8(clip(rint(lrelu(v)))); P[k] = bf16(P[k] + h[k]) for every
+//         later slice k, in place;
+//       s = 4 (32 -> 64): t' = bf16(bf16(P[x5] + h) + t); in a block's third
+//         dense block the carry y = bf16(bf16(t' x 0.2) + body), else y = t';
+//         y out in bf16 and, but for the network's last dense block, the
+//         next one's input q = int8(clip(rint(bf16(y x rin)))).
+//     lrelu(v) = v >= 0 ? v : bf16(v x bf16(0.2)); q is the next stage's
+//     input. Every step rounds where the chain's PyTorch ops round, and bf16
+//     addition commutes, so P + h equals the chain's left-to-right slice sum.
 // alpha == NULL means no PReLU (alpha = 1). The int32 sums are exact in any
 // order (|acc| <= 9 * 192 * 127^2 < 2^31), so the kernel is bit-equal to its
 // plain version (ops/int8_conv.py).
@@ -24,9 +38,16 @@
 //     128/128 x 32, 128/96). A body layer is 1.6e11 multiply-adds against
 //     1.4e8 bytes: bound by operations, 0.166 ms; 5.49 ms per engine call.
 //   the int8 RRDB chain, 345 launches per RRDBNet-23 forward of a 528^2 tile
-//     (Cin 64 -> Cout 192, Cin 32 -> Cout 160/128/96/64, mode 2). Its bf16
-//     output is 2 * Cout bytes per pixel: every stage is bound by bytes
-//     (0.013-0.037 ms each at 528^2).
+//     (Cin 64 -> Cout 192, Cin 32 -> Cout 160/128/96/64, mode 3), with no
+//     other kernel between them. Bytes per pixel of the five stages, input
+//     and P/t/body read, q, P and y written: 64 + 32 + 320; 32 + 320 + 32 +
+//     256; 32 + 256 + 32 + 192; 32 + 192 + 32 + 128; 32 + 128 + 128 (+ 128
+//     body) + 128 + 64 = 2,432 a dense block (2,560 with the carry), against
+//     4.2e5 int8 operations: every stage is bound by bytes, 0.73 ns a pixel
+//     and dense block at 3.35 TB/s, 120.7 ms for the 69 dense blocks of a
+//     call of 8 tiles of 544^2. P stays in device memory: at 544^2 it is
+//     95 MB an image, above the 50 MB L2, and a stage needs all of it
+//     before the next begins.
 //
 // Layout: x (N, Hin, Win, Cin) int8 NHWC with Cin a multiple of 32 and at
 // most 192 (the wrapper pads with zero channels); w (Cout, 3, 3, Cin) int8;
@@ -61,13 +82,22 @@
 //   dequant_bf16 for a thread with a sum of 2^22 or more) into a staging
 //   tile in shared memory (rows padded by 16 bytes against bank conflicts),
 //   written out as 16-byte rows of contiguous channels, masked at H, W, Cout.
+// - Mode 3 also loads the tile's P channels (and t and body at stage 4) with
+//   cp.async into planes shaped like the staging tile, issued before the
+//   warpgroup waits for its turn, so they land behind its wgmma and its
+//   register epilogue. The store then reads 16 channels of h and of each
+//   plane, finishes them in bf16x2 and writes 16-byte rows of q, P and y.
+//   One warpgroup owns all of a pixel's channels of its slice, so the
+//   in-place update of P has no race.
 // Shared memory at the served shapes: 215,808 bytes (SR body, 128 -> 128),
-// 210,048 (RRDB stage 0, 64 -> 192); 80-168 registers, no spills.
+// 210,048 (RRDB stage 0, 64 -> 192), 221,952 (stage 1, NT 192 with its P
+// plane); 80-168 registers, no spills.
 //
-// C interface (loaded with ctypes): int8_conv3x3_requant returns
-// cudaGetLastError() after the launch, 0 on success, or cudaErrorInvalidValue
-// for arguments it does not take. It launches on the given stream, does not
-// synchronise and allocates nothing.
+// C interface (loaded with ctypes): int8_conv3x3_requant (modes 0-2) and
+// int8_conv3x3_rrdb_stage (mode 3) return cudaGetLastError() after the
+// launch, 0 on success, or cudaErrorInvalidValue for arguments they do not
+// take. They launch on the given stream, do not synchronise and allocate
+// nothing.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -287,6 +317,21 @@ struct Args {
   bool vec_store;     // 16-byte stores of the staged tile
 };
 
+// Mode 3's own arguments, a second kernel parameter, so that modes 0-2 keep
+// their Args (a larger Args alone makes ptxas spill in them).
+struct DenseArgs {
+  __nv_bfloat16* p;   // (N, H, W, p_ch) slice sums
+  int p_ch, p_off;    // P's channels; P's channel of output channel 0
+  int nq;             // output channels 0 .. nq-1 -> q through LeakyReLU
+  bool p_read;        // P + h (stages 1-4), else h (stage 0)
+  int8_t* q;          // (N, H, W, nq), or at stage 4 (N, H, W, Cout) / NULL
+  const __nv_bfloat16* t;     // stage 4: the residual (N, H, W, Cout)
+  const __nv_bfloat16* body;  // stage 4 with the block carry, else NULL
+  const __nv_bfloat16* rin;   // stage 4: the next input's scale, or NULL
+  __nv_bfloat16* y;           // stage 4: (N, H, W, Cout)
+  int planes;         // p_read + (t != NULL) + (body != NULL)
+};
+
 __device__ __forceinline__ float load_param(const void* p, int i, int mode) {
   return mode == 0 ? __ldg(static_cast<const float*>(p) + i)
                    : __bfloat162float(static_cast<const __nv_bfloat16*>(p)[i]);
@@ -299,6 +344,90 @@ __device__ __forceinline__ uint32_t bits(__nv_bfloat162 v) {
 // Two int8 results in the low 16 bits.
 __device__ __forceinline__ uint32_t pack_int8(int8_t q0, int8_t q1) {
   return (uint32_t)(uint8_t)q0 | ((uint32_t)(uint8_t)q1 << 8);
+}
+
+// Every copy but the newest `n` committed groups of this thread has landed.
+template <int n>
+__device__ __forceinline__ void cp_async_wait_group() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(n) : "memory");
+}
+
+// clip(rint(v), +-127) of a bf16 pair as two int8 in the low 16 bits.
+__device__ __forceinline__ uint32_t int8x2(__nv_bfloat162 v) {
+  v = __hmax2(__hmin2(v, __float2bfloat162_rn(127.f)), __float2bfloat162_rn(-127.f));
+  return __byte_perm(rint_bits(__low2float(v)), rint_bits(__high2float(v)), 0x0040);
+}
+
+// 16 int8 from 8 bf16 pairs, packed into a 16-byte row.
+__device__ __forceinline__ uint4 int8x16(const __nv_bfloat162 (&v)[8]) {
+  uint32_t w[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) w[j] = __byte_perm(int8x2(v[2 * j]), int8x2(v[2 * j + 1]), 0x5410);
+  return make_uint4(w[0], w[1], w[2], w[3]);
+}
+
+// Mode 3's store: the staged h of one warpgroup's part, 16 channels (two
+// 16-byte rows) a step, finished with the planes (P; t; body) in bf16x2 and
+// written as 16-byte rows of q, P or y. Masked at H, W and Cout (Cout and nq
+// are multiples of 16).
+template <int NT>
+__device__ __forceinline__ void store_rrdb(const Args& a, const DenseArgs& d,
+                                           const unsigned char* s_out,
+                                           const unsigned char* s_pl, int n, int y0, int x0,
+                                           int co0, int wtid) {
+  constexpr int pitch = NT * 2 + 16;
+  constexpr int plane = kWgPix * pitch;
+  constexpr int upp = NT / 16;                 // 16-channel steps per staged pixel
+  constexpr int per = kWgPix * upp / 128;
+  const __nv_bfloat162 zero2 = __float2bfloat162_rn(0.f);
+  const __nv_bfloat162 fifth2 = __float2bfloat162_rn(0.2f);  // bf16(0.2)
+  const __nv_bfloat162 rin2 =
+      d.rin != nullptr ? __bfloat162bfloat162(d.rin[0]) : __float2bfloat162_rn(1.f);
+#pragma unroll
+  for (int k = 0; k < per; ++k) {
+    const int i = wtid + 128 * k, p = i / upp, u = i % upp;
+    const int y = y0 + p / kPartW, xo = x0 + p % kPartW, o = co0 + 16 * u;
+    if (y >= a.hout || xo >= a.wout || o >= a.cout) continue;
+    const int64_t pix = ((int64_t)n * a.hout + y) * a.wout + xo;
+    const int off = p * pitch + u * 32;
+    __nv_bfloat162 v[8];
+    *reinterpret_cast<uint4*>(v) = *reinterpret_cast<const uint4*>(s_out + off);
+    *reinterpret_cast<uint4*>(v + 4) = *reinterpret_cast<const uint4*>(s_out + off + 16);
+    if (d.p_read) {
+      const __nv_bfloat162* pv = reinterpret_cast<const __nv_bfloat162*>(s_pl + off);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) v[j] = add_rn(pv[j], v[j]);
+    }
+    if (d.t != nullptr) {  // stage 4: x5 + t, the carry, y and the next q
+      const __nv_bfloat162* tv = reinterpret_cast<const __nv_bfloat162*>(s_pl + plane + off);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) v[j] = add_rn(v[j], tv[j]);
+      if (d.body != nullptr) {
+        const __nv_bfloat162* bv =
+            reinterpret_cast<const __nv_bfloat162*>(s_pl + 2 * plane + off);
+#pragma unroll
+        for (int j = 0; j < 8; ++j) v[j] = add_rn(mul_rn(v[j], fifth2), bv[j]);
+      }
+      uint4* dst = reinterpret_cast<uint4*>(d.y + pix * a.cout + o);
+      dst[0] = *reinterpret_cast<const uint4*>(v);
+      dst[1] = *reinterpret_cast<const uint4*>(v + 4);
+      if (d.q != nullptr) {
+        __nv_bfloat162 s[8];
+#pragma unroll
+        for (int j = 0; j < 8; ++j) s[j] = mul_rn(v[j], rin2);
+        *reinterpret_cast<uint4*>(d.q + pix * a.cout + o) = int8x16(s);
+      }
+    } else if (o < d.nq) {  // the next stage's input: LeakyReLU, int8
+#pragma unroll
+      for (int j = 0; j < 8; ++j)  // min(v, 0) * 0.2 + max(v, 0): one rounding
+        v[j] = __hfma2(__hmin2(v[j], zero2), fifth2, __hmax2(v[j], zero2));
+      *reinterpret_cast<uint4*>(d.q + pix * d.nq + o) = int8x16(v);
+    } else {  // a later slice's partial sum, in place
+      uint4* dst = reinterpret_cast<uint4*>(d.p + pix * d.p_ch + d.p_off + o);
+      dst[0] = *reinterpret_cast<const uint4*>(v);
+      dst[1] = *reinterpret_cast<const uint4*>(v + 4);
+    }
+  }
 }
 
 // A warpgroup's epilogue into its staging tile. Fragment j holds channels
@@ -318,7 +447,7 @@ __device__ __forceinline__ void epilogue(const int (&acc)[NT / 2], unsigned char
                                          const float* s_par, const __nv_bfloat162* s_par2,
                                          bool prelu, bool has_bias, float ratio, int wq,
                                          int g, int q) {
-  constexpr int esize = kMode == 2 ? 2 : 1;
+  constexpr int esize = kMode >= 2 ? 2 : 1;
   constexpr int pitch = NT * esize + 16;
   constexpr int kGroup = 8;  // fragments computed before their stores
   static_assert(NT / 8 % kGroup == 0, "NT is a multiple of 64");
@@ -339,7 +468,7 @@ __device__ __forceinline__ void epilogue(const int (&acc)[NT / 2], unsigned char
           __nv_bfloat162 hb =
               __floats2bfloat162_rn(small_int_to_float(v0), small_int_to_float(v1));
           hb = add_rn(mul_rn(hb, s_par2[ch / 2]), s_par2[NT / 2 + ch / 2]);
-          if constexpr (kMode == 2) {
+          if constexpr (kMode >= 2) {
             r = bits(hb);
           } else {
             // PReLU as min(h, 0) * a + max(h, 0): h >= 0 ? h : bf16(h * a)
@@ -357,7 +486,7 @@ __device__ __forceinline__ void epilogue(const int (&acc)[NT / 2], unsigned char
           h0 = fminf(fmaxf(__fmul_rn(h0, ratio), -127.f), 127.f);
           h1 = fminf(fmaxf(__fmul_rn(h1, ratio), -127.f), 127.f);
           r = __byte_perm(rint_bits(h0), rint_bits(h1), 0x0040);
-        } else if constexpr (kMode == 2) {
+        } else if constexpr (kMode >= 2) {
           __nv_bfloat162 pr;
           pr.x = dequant_bf16(v0, s_par[ch], s_par[NT + ch], has_bias);
           pr.y = dequant_bf16(v1, s_par[ch + 1], s_par[NT + ch + 1], has_bias);
@@ -381,7 +510,7 @@ __device__ __forceinline__ void epilogue(const int (&acc)[NT / 2], unsigned char
       for (int h = 0; h < 2; ++h) {
         unsigned char* dst =
             s_out + ((2 * wq + h) * kPartW + g) * pitch + (8 * j + 2 * q) * esize;
-        if constexpr (kMode == 2)
+        if constexpr (kMode >= 2)
           *reinterpret_cast<uint32_t*>(dst) = res[2 * (j - j0) + h];
         else
           *reinterpret_cast<uint16_t*>(dst) = static_cast<uint16_t>(res[2 * (j - j0) + h]);
@@ -395,11 +524,11 @@ __device__ __forceinline__ void epilogue(const int (&acc)[NT / 2], unsigned char
 constexpr int kBarWg = 1;
 constexpr int kBarTurn = 1 + kWgs;
 
+// The kernel's body; d is read in mode 3 only.
 template <int NT, int kMode>
-__global__ void __launch_bounds__(kThreads, 1)
-int8_conv3x3_wgmma(const Args a) {
+__device__ __forceinline__ void conv_body(const Args& a, const DenseArgs& d) {
   extern __shared__ __align__(128) unsigned char smem[];
-  constexpr int esize = kMode == 2 ? 2 : 1;
+  constexpr int esize = kMode >= 2 ? 2 : 1;
   constexpr int pitch = NT * esize + 16;       // staged output row, bytes
   const int chunks = a.cin / 16;               // 16-byte channel chunks per pixel
   const int slab_bytes = chunks * kSlabPix * 16;
@@ -418,6 +547,9 @@ int8_conv3x3_wgmma(const Args a) {
   float* s_par = reinterpret_cast<float*>(smem + w_bytes + kWgs * slab_bytes +
                                           kWgs * kWgPix * pitch);  // deq, b, alpha
   __nv_bfloat162* s_par2 = reinterpret_cast<__nv_bfloat162*>(s_par + 3 * NT);
+  // mode 3, per warpgroup: its planes (P; t; body), each [64 pixels][pitch]
+  unsigned char* s_pl = reinterpret_cast<unsigned char*>(s_par2 + 3 * NT / 2) +
+                        wg * d.planes * kWgPix * pitch;
 
   // This warpgroup's input slab of tile t: rows y0-pad .. y0-pad+9,
   // columns x0-pad .. x0-pad+9, zero outside the image.
@@ -463,6 +595,30 @@ int8_conv3x3_wgmma(const Args a) {
     }
   };
 
+  // Mode 3: this warpgroup's planes of tile t, the tile's pixels and output
+  // channels of P (at P's channel p_off + o), t and body. Out-of-range
+  // pixels and channels are left as they are: the store skips them.
+  auto load_planes = [&](int t) {
+    const int r = t % a.tiles_co;
+    const int n = r / a.tiles_img;
+    const int y0 = (r % a.tiles_img) / a.tiles_x * kTH;
+    const int x0 = r % a.tiles_x * kTW + wg * kPartW;
+    const int co0 = t / a.tiles_co * NT;
+    constexpr int cpp = NT / 8;  // 16-byte chunks per plane pixel
+    constexpr int plane = kWgPix * pitch;
+    const uint32_t base = smem_u32(s_pl);
+    for (int i = wtid; i < kWgPix * cpp; i += 128) {
+      const int p = i / cpp, c = i % cpp;
+      const int y = y0 + p / kPartW, xo = x0 + p % kPartW, o = co0 + 8 * c;
+      if (y >= a.hout || xo >= a.wout || o >= a.cout) continue;
+      const int64_t pix = ((int64_t)n * a.hout + y) * a.wout + xo;
+      const uint32_t dst = base + p * pitch + c * 16;
+      if (d.p_read) cp_async16(dst, d.p + pix * d.p_ch + d.p_off + o, true);
+      if (d.t != nullptr) cp_async16(dst + plane, d.t + pix * a.cout + o, true);
+      if (d.body != nullptr) cp_async16(dst + 2 * plane, d.body + pix * a.cout + o, true);
+    }
+  };
+
   const bool prelu = a.alpha != nullptr, has_bias = a.bias != nullptr;
   const float ratio = __fdiv_rn(127.f, a.s_out);
   const int g = lane >> 2, q = lane & 3;  // accumulator row and column pair
@@ -488,6 +644,11 @@ int8_conv3x3_wgmma(const Args a) {
     fence_proxy_async();
     if (new_co) __syncthreads();
     else bar_sync(kBarWg + wg, 128);
+    if constexpr (kMode == 3) {
+      // every thread of the warpgroup is done with the last tile's planes
+      if (d.planes > 0) load_planes(t);
+      cp_async_commit();
+    }
     if (wg != 0 || it > 0) bar_sync(kBarTurn + wg, 256);
 
     int acc[NT / 2];
@@ -531,6 +692,7 @@ int8_conv3x3_wgmma(const Args a) {
     else
       epilogue<NT, kMode, false>(acc, s_out, s_par, s_par2, prelu, has_bias, ratio, wq, g,
                                  q);
+    if constexpr (kMode == 3) cp_async_wait_group<1>();  // the planes, not the next slab
     bar_sync(kBarWg + wg, 128);
 
     // The staged part to the output, masked at H, W and Cout.
@@ -540,7 +702,9 @@ int8_conv3x3_wgmma(const Args a) {
     const int x0 = r % a.tiles_x * kTW + wg * kPartW;
     const int co0 = co * NT;
     unsigned char* outb = static_cast<unsigned char*>(a.out);
-    if (a.vec_store) {
+    if constexpr (kMode == 3) {
+      store_rrdb<NT>(a, d, s_out, s_pl, n, y0, x0, co0, wtid);
+    } else if (a.vec_store) {
       // 16-byte rows of contiguous channels; all loads first, then stores
       constexpr int cpp = NT * esize / 16;  // 16-byte chunks per staged pixel
       constexpr int per = kWgPix * cpp / 128;
@@ -572,16 +736,32 @@ int8_conv3x3_wgmma(const Args a) {
   }
 }
 
-size_t smem_bytes(int nt, int cin, int mode) {
-  const int esize = mode == 2 ? 2 : 1;
-  return (size_t)9 * cin * nt + kWgs * (size_t)cin * kSlabPix +
-         kWgs * (size_t)kWgPix * (nt * esize + 16) + 3 * nt * sizeof(float) +
-         3 * nt / 2 * sizeof(__nv_bfloat162);
+template <int NT, int kMode>
+__global__ void __launch_bounds__(kThreads, 1)
+int8_conv3x3_wgmma(const Args a) {
+  conv_body<NT, kMode>(a, DenseArgs{});
 }
 
+// mode 3
 template <int NT, int kMode>
-cudaError_t launch(const Args& a, size_t smem, cudaStream_t stream) {
-  auto kernel = int8_conv3x3_wgmma<NT, kMode>;
+__global__ void __launch_bounds__(kThreads, 1)
+int8_conv3x3_wgmma(const Args a, const DenseArgs d) {
+  conv_body<NT, kMode>(a, d);
+}
+
+// planes: mode 3's bf16 planes a warpgroup (P; t; body), each one staging
+// tile's size.
+size_t smem_bytes(int nt, int cin, int mode, int planes = 0) {
+  const int esize = mode >= 2 ? 2 : 1;
+  return (size_t)9 * cin * nt + kWgs * (size_t)cin * kSlabPix +
+         kWgs * (size_t)kWgPix * (nt * esize + 16) * (1 + planes) +
+         3 * nt * sizeof(float) + 3 * nt / 2 * sizeof(__nv_bfloat162);
+}
+
+// d: mode 3's DenseArgs, none in modes 0-2.
+template <int NT, int kMode, typename... D>
+cudaError_t launch(const Args& a, size_t smem, cudaStream_t stream, const D&... d) {
+  void (*kernel)(const Args, const D...) = int8_conv3x3_wgmma<NT, kMode>;
   static size_t smem_allowed = 48 * 1024;  // dynamic shared memory without opt-in
   if (smem > smem_allowed) {
     const cudaError_t e =
@@ -598,16 +778,54 @@ cudaError_t launch(const Args& a, size_t smem, cudaStream_t stream) {
   if (per_sm < 1) return cudaErrorInvalidConfiguration;
   // the persistent grid: at most as many blocks as fit on the card at once
   const int grid = (int)(a.num_tiles < (long long)sms * per_sm ? a.num_tiles : sms * per_sm);
-  kernel<<<grid, kThreads, smem, stream>>>(a);
+  kernel<<<grid, kThreads, smem, stream>>>(a, d...);
   return cudaGetLastError();
 }
 
-template <int kMode>
-cudaError_t launch_mode(const Args& a, int nt, size_t smem, cudaStream_t stream) {
-  if (nt == 192) return launch<192, kMode>(a, smem, stream);
-  if (nt == 128) return launch<128, kMode>(a, smem, stream);
-  return launch<64, kMode>(a, smem, stream);
+template <int kMode, typename... D>
+cudaError_t launch_mode(const Args& a, int nt, size_t smem, cudaStream_t stream,
+                        const D&... d) {
+  if (nt == 192) return launch<192, kMode>(a, smem, stream, d...);
+  if (nt == 128) return launch<128, kMode>(a, smem, stream, d...);
+  return launch<64, kMode>(a, smem, stream, d...);
 }
+
+// The geometry shared by every mode: the widest slice of output channels
+// (64, 128 or 192) whose weights fit in shared memory beside the slabs, the
+// staging tiles and mode 3's planes, and the persistent walk's tiles.
+// Returns false for a shape the kernel does not take.
+bool plan(Args& a, int n, int hin, int win, int cin, int cout, int pad, int mode,
+          int planes, int* nt_out, size_t* smem_out) {
+  const int hout = hin + 2 * pad - 2, wout = win + 2 * pad - 2;
+  if (n <= 0 || cin <= 0 || cin % 32 != 0 || cin > kMaxCin || cout <= 0 ||
+      (pad != 0 && pad != 1) || hout <= 0 || wout <= 0)
+    return false;
+  int nt = (cout + 63) / 64 * 64;
+  if (nt > kMaxNT) nt = kMaxNT;
+  while (nt > 64 && smem_bytes(nt, cin, mode, planes) > kMaxSmem) nt -= 64;
+  const size_t smem = smem_bytes(nt, cin, mode, planes);
+  const long long tiles_x = (wout + kTW - 1) / kTW, tiles_y = (hout + kTH - 1) / kTH;
+  const long long tiles_co = (long long)n * tiles_y * tiles_x;
+  const long long num_tiles = tiles_co * ((cout + nt - 1) / nt);
+  if (smem > kMaxSmem || num_tiles > 0x7fffffff) return false;
+  a.n = n;
+  a.hin = hin;
+  a.win = win;
+  a.cin = cin;
+  a.cout = cout;
+  a.hout = hout;
+  a.wout = wout;
+  a.pad = pad;
+  a.tiles_x = (int)tiles_x;
+  a.tiles_img = (int)(tiles_y * tiles_x);
+  a.tiles_co = (int)tiles_co;
+  a.num_tiles = (int)num_tiles;
+  *nt_out = nt;
+  *smem_out = smem;
+  return true;
+}
+
+bool misaligned(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 != 0; }
 
 }  // namespace
 
@@ -621,23 +839,13 @@ extern "C" int int8_conv3x3_requant(const void* x, const void* w, const void* de
                                     const void* bias, const void* alpha, float s_out,
                                     void* out, int n, int hin, int win, int cin,
                                     int cout, int pad, int mode, void* stream) {
-  const int hout = hin + 2 * pad - 2, wout = win + 2 * pad - 2;
-  if (n <= 0 || cin <= 0 || cin % 32 != 0 || cin > kMaxCin || cout <= 0 ||
-      (pad != 0 && pad != 1) || hout <= 0 || wout <= 0 || mode < 0 || mode > 2 ||
-      (mode != 2 && bias == nullptr) || (mode == 2 && alpha != nullptr) ||
-      (reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(w)) % 16 != 0)
+  Args a = {};
+  int nt = 0;
+  size_t smem = 0;
+  if (mode < 0 || mode > 2 || (mode != 2 && bias == nullptr) ||
+      (mode == 2 && alpha != nullptr) || misaligned(x) || misaligned(w) ||
+      !plan(a, n, hin, win, cin, cout, pad, mode, 0, &nt, &smem))
     return (int)cudaErrorInvalidValue;
-  // The widest slice of output channels (64, 128 or 192) whose weights fit
-  // in shared memory beside the slabs and the staging tiles.
-  int nt = (cout + 63) / 64 * 64;
-  if (nt > kMaxNT) nt = kMaxNT;
-  while (nt > 64 && smem_bytes(nt, cin, mode) > kMaxSmem) nt -= 64;
-  const size_t smem = smem_bytes(nt, cin, mode);
-  const long long tiles_x = (wout + kTW - 1) / kTW, tiles_y = (hout + kTH - 1) / kTH;
-  const long long tiles_co = (long long)n * tiles_y * tiles_x;
-  const long long num_tiles = tiles_co * ((cout + nt - 1) / nt);
-  if (smem > kMaxSmem || num_tiles > 0x7fffffff) return (int)cudaErrorInvalidValue;
-  Args a;
   a.x = static_cast<const int8_t*>(x);
   a.w = static_cast<const int8_t*>(w);
   a.deq = deq;
@@ -645,18 +853,6 @@ extern "C" int int8_conv3x3_requant(const void* x, const void* w, const void* de
   a.alpha = alpha;
   a.s_out = s_out;
   a.out = out;
-  a.n = n;
-  a.hin = hin;
-  a.win = win;
-  a.cin = cin;
-  a.cout = cout;
-  a.hout = hout;
-  a.wout = wout;
-  a.pad = pad;
-  a.tiles_x = (int)tiles_x;
-  a.tiles_img = (int)(tiles_y * tiles_x);
-  a.tiles_co = (int)tiles_co;
-  a.num_tiles = (int)num_tiles;
   const int esize = mode == 2 ? 2 : 1;
   a.vec_store = (cout * esize) % 16 == 0 && reinterpret_cast<uintptr_t>(out) % 16 == 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -664,6 +860,60 @@ extern "C" int int8_conv3x3_requant(const void* x, const void* w, const void* de
                         : mode == 1 ? launch_mode<1>(a, nt, smem, s)
                                     : launch_mode<2>(a, nt, smem, s);
   return (int)e;
+}
+
+// Mode 3, one stage of the int8 RRDB dense block, a SAME conv (pad 1): x
+// (N, H, W, cin) int8, w (cout, 3, 3, cin) int8, deq and bias (may be NULL)
+// bf16 vectors of cout, p (N, H, W, p_ch) bf16 updated in place.
+//   stages 0-3: t, body, rin and y NULL; output channels below nq go to q
+//     (N, H, W, nq) int8 through LeakyReLU (from P + h where p_read, else
+//     h), the others to P's channel p_off + o (P + h where p_read, else h);
+//   stage 4: p_read, nq 0, t (N, H, W, cout) bf16 and y (N, H, W, cout)
+//     bf16 out; body (the carry) may be NULL; q (N, H, W, cout) int8 and rin
+//     (a bf16 scalar on the device) both or neither.
+// cout, nq and p_ch are multiples of 16, 16 and 8, p_off a multiple of 8,
+// P's channels in range; every pointer but rin 16-byte aligned.
+extern "C" int int8_conv3x3_rrdb_stage(const void* x, const void* w, const void* deq,
+                                       const void* bias, void* p, int p_ch, int p_off,
+                                       int p_read, int nq, void* q, const void* t,
+                                       const void* body, const void* rin, void* y, int n,
+                                       int h, int wd, int cin, int cout, void* stream) {
+  const bool stage4 = t != nullptr;
+  const int planes = (p_read ? 1 : 0) + (stage4 ? 1 : 0) + (body != nullptr ? 1 : 0);
+  const int lo = p_read ? p_off : p_off + nq;  // the lowest P channel touched
+  Args a = {};
+  int nt = 0;
+  size_t smem = 0;
+  if (p == nullptr || cout % 16 != 0 || nq < 0 || nq % 16 != 0 || nq > cout ||
+      p_ch % 8 != 0 || p_off % 8 != 0 || lo < 0 || p_off + cout > p_ch ||
+      (stage4 ? (!p_read || nq != 0 || y == nullptr || (q == nullptr) != (rin == nullptr))
+              : (q == nullptr || nq == 0 || body != nullptr || rin != nullptr ||
+                 y != nullptr)) ||
+      misaligned(x) || misaligned(w) || misaligned(p) || misaligned(q) || misaligned(t) ||
+      misaligned(body) || misaligned(y) ||
+      !plan(a, n, h, wd, cin, cout, 1, 3, planes, &nt, &smem))
+    return (int)cudaErrorInvalidValue;
+  a.x = static_cast<const int8_t*>(x);
+  a.w = static_cast<const int8_t*>(w);
+  a.deq = deq;
+  a.bias = bias;
+  a.alpha = nullptr;
+  a.s_out = 1.f;
+  a.out = nullptr;
+  a.vec_store = true;
+  DenseArgs d;
+  d.p = static_cast<__nv_bfloat16*>(p);
+  d.p_ch = p_ch;
+  d.p_off = p_off;
+  d.nq = nq;
+  d.p_read = p_read != 0;
+  d.q = static_cast<int8_t*>(q);
+  d.t = static_cast<const __nv_bfloat16*>(t);
+  d.body = static_cast<const __nv_bfloat16*>(body);
+  d.rin = static_cast<const __nv_bfloat16*>(rin);
+  d.y = static_cast<__nv_bfloat16*>(y);
+  d.planes = planes;
+  return (int)launch_mode<3>(a, nt, smem, static_cast<cudaStream_t>(stream), d);
 }
 
 extern "C" const char* int8_conv3x3_error_string(int code) {

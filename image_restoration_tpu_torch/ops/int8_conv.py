@@ -21,7 +21,21 @@ epilogues:
   activation, round or clip. The bias is optional (None).
 
 `alpha=None` means no PReLU (conv_last's int8 sink). Rounding is half to even
-in all three. K2 is the custom op ``irt::int8_conv3x3_requant``
+in all three.
+
+A fourth epilogue, the kernel's mode 3, is its own op,
+``irt::int8_conv3x3_rrdb_stage`` (`int8_conv3x3_rrdb_stage`): one stage conv
+of the int8 RRDB chain's widened dense block (`ops/rrdb_quant.py`) with the
+block's glue folded in. It starts from "bf16_deq"'s value h and keeps the
+block's bf16 slice sums in a running buffer P (N, H, W, 160), channels
+[c2 | c3 | c4 | x5], updated in place: stage 0 writes P and the int8 c1;
+stages 1–3 add h into P and requantize the next slice through LeakyReLU;
+stage 4 adds the x5 slice and the residual t, the block carry where `body`
+is given, and requantizes for the next dense block where `rin` is given. A
+dense block is five launches and no other kernel; its plain version is
+"bf16_deq" followed by the chain's glue op by op, and the two are bit-equal.
+
+K2 is the custom op ``irt::int8_conv3x3_requant``
 (`torch.library`), so `torch.export` records it as one node: its CPU impl is
 the plain version, its CUDA impl launches the hand-written kernel
 (`csrc/int8_conv3x3.cu`); it never falls back from one to the other. The
@@ -35,11 +49,13 @@ from __future__ import annotations
 
 import ctypes
 import threading
-from typing import Optional
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from .rrdb_common import lrelu, mul, to_int8
 
 # epilogue → (kernel mode, type of deq/bias/alpha, output type)
 EPILOGUES = {"f32": (0, torch.float32, torch.int8),
@@ -134,6 +150,11 @@ def _kernel_lib() -> ctypes.CDLL:
                 ctypes.c_void_p, ctypes.c_void_p, ctypes.c_float,
                 ctypes.c_void_p] + [ctypes.c_int] * 7 + [ctypes.c_void_p]
             lib.int8_conv3x3_requant.restype = ctypes.c_int
+            lib.int8_conv3x3_rrdb_stage.argtypes = (
+                [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4
+                + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
+                + [ctypes.c_void_p])
+            lib.int8_conv3x3_rrdb_stage.restype = ctypes.c_int
             lib.int8_conv3x3_error_string.argtypes = [ctypes.c_int]
             lib.int8_conv3x3_error_string.restype = ctypes.c_char_p
             _lib = lib
@@ -249,3 +270,199 @@ def _launch(x, weight, deq, bias, alpha, s_out, pad, epilogue):
 
 
 int8_conv3x3_requant.launches = 0
+
+
+def _check_rrdb_stage(x, weight, deq, bias, p, t, body, rin, stage):
+    """What the RRDB stage op takes, read from metadata alone. Returns (nq,
+    p_off): the output channels that become the int8 q through LeakyReLU
+    (stage 0: Cout − P's channels; stages 1–3: the growth width, Cin; stage
+    4: none) and P's channel of output channel 0."""
+    _check(x, weight, deq, bias, None, None, 1, "bf16_deq")
+    if stage not in range(5):
+        raise ValueError(f"stage must be 0…4, got {stage}")
+    n, h, w, cin = x.shape
+    cout = weight.shape[0]
+    if p.dtype != torch.bfloat16 or p.dim() != 4 or p.shape[:3] != (n, h, w):
+        raise ValueError(f"p must be bfloat16 (N, H, W, C) at x's pixels "
+                         f"{(n, h, w)}, got {p.dtype} {tuple(p.shape)}")
+    pc = p.shape[3]
+    p_off = pc - cout
+    nq = cout - pc if stage == 0 else (cin if stage < 4 else 0)
+    # the lowest channel of P the stage touches: stage 0 writes from its
+    # output channel nq on, the later stages read from channel 0 on
+    lo = p_off + nq if stage == 0 else p_off
+    if nq < (1 if stage < 4 else 0) or lo < 0 or \
+            (0 < stage < 4 and nq >= cout):
+        raise ValueError(f"stage {stage}: Cout {cout} does not fit P's {pc} "
+                         f"channels and Cin {cin}")
+    if stage < 4:
+        if t is not None or body is not None or rin is not None:
+            raise ValueError("t, body and rin are stage 4's")
+        return nq, p_off
+    if t is None:
+        raise ValueError("stage 4 needs the residual t")
+    for name, r in (("t", t), ("body", body)):
+        if r is not None and (r.dtype != torch.bfloat16
+                              or r.shape != (n, h, w, cout)):
+            raise ValueError(f"{name} must be bfloat16 {(n, h, w, cout)}, "
+                             f"got {r.dtype} {tuple(r.shape)}")
+    if rin is not None and rin.numel() != 1:
+        raise ValueError(f"rin must be one value, got {tuple(rin.shape)}")
+    return nq, p_off
+
+
+def int8_conv3x3_rrdb_stage_plain(x: torch.Tensor, weight: torch.Tensor,
+                                  deq: torch.Tensor,
+                                  bias: torch.Tensor | None,
+                                  p: torch.Tensor,
+                                  t: torch.Tensor | None = None,
+                                  body: torch.Tensor | None = None,
+                                  rin: torch.Tensor | None = None,
+                                  stage: int = 0):
+    """The RRDB stage op in plain PyTorch, on any device: the "bf16_deq"
+    stage conv, then the dense block's glue op by op, P updated in place.
+    Returns (q, y) as `int8_conv3x3_rrdb_stage` does."""
+    nq, p_off = _check_rrdb_stage(x, weight, deq, bias, p, t, body, rin,
+                                  stage)
+    h = int8_conv3x3_requant_plain(x, weight, deq, bias,
+                                   epilogue="bf16_deq")
+    if stage == 0:
+        p.copy_(h[..., nq:])
+        return to_int8(lrelu(h[..., :nq])), None
+    mine = p[..., p_off:p_off + h.shape[-1]]
+    if stage < 4:
+        v = mine[..., :nq] + h[..., :nq]
+        mine[..., nq:] += h[..., nq:]
+        return to_int8(lrelu(v)), None
+    y = (mine + h) + t
+    if body is not None:
+        y = mul(y, 0.2) + body
+    return (None if rin is None else to_int8(y, rin)), y
+
+
+def _op_outputs(x, q, y):
+    """(q, y) as the op returns them: an absent one as an empty tensor of
+    its type (a custom op that updates P in place returns a fixed tuple)."""
+    return (x.new_empty((0,), dtype=torch.int8) if q is None else q,
+            x.new_empty((0,), dtype=torch.bfloat16) if y is None else y)
+
+
+@torch.library.custom_op("irt::int8_conv3x3_rrdb_stage", mutates_args=("p",),
+                         device_types="cpu")
+def int8_conv3x3_rrdb_stage_op(x: torch.Tensor, weight: torch.Tensor,
+                               deq: torch.Tensor, bias: Optional[torch.Tensor],
+                               p: torch.Tensor, t: Optional[torch.Tensor],
+                               body: Optional[torch.Tensor],
+                               rin: Optional[torch.Tensor],
+                               stage: int) -> Tuple[torch.Tensor,
+                                                    torch.Tensor]:
+    """K2's mode 3 as a custom op; this CPU impl is the plain version."""
+    return _op_outputs(x, *int8_conv3x3_rrdb_stage_plain(
+        x, weight, deq, bias, p, t, body, rin, stage))
+
+
+@int8_conv3x3_rrdb_stage_op.register_kernel("cuda")
+def _int8_conv3x3_rrdb_stage_cuda(x, weight, deq, bias, p, t, body, rin,
+                                  stage):
+    return _op_outputs(x, *_launch_rrdb_stage(x, weight, deq, bias, p, t,
+                                              body, rin, stage))
+
+
+@int8_conv3x3_rrdb_stage_op.register_fake
+def _int8_conv3x3_rrdb_stage_fake(x, weight, deq, bias, p, t, body, rin,
+                                  stage):
+    nq, _ = _check_rrdb_stage(x, weight, deq, bias, p, t, body, rin, stage)
+    n, h, w, _ = x.shape
+    if stage < 4:
+        return _op_outputs(x, x.new_empty((n, h, w, nq), dtype=torch.int8),
+                           None)
+    shape = (n, h, w, weight.shape[0])
+    return _op_outputs(
+        x, None if rin is None else x.new_empty(shape, dtype=torch.int8),
+        x.new_empty(shape, dtype=torch.bfloat16))
+
+
+def int8_conv3x3_rrdb_stage(x: torch.Tensor, weight: torch.Tensor,
+                            deq: torch.Tensor, bias: torch.Tensor | None,
+                            p: torch.Tensor, t: torch.Tensor | None = None,
+                            body: torch.Tensor | None = None,
+                            rin: torch.Tensor | None = None, *,
+                            stage: int):
+    """Stage `stage` (0–4) of the int8 RRDB dense block, a SAME conv of x
+    (N, H, W, Cin) int8 with weight (Cout, 3, 3, Cin) int8, h = "bf16_deq"'s
+    bf16(acc·deq (+ bias)), and the block's glue, through the op
+    ``irt::int8_conv3x3_rrdb_stage``. p (N, H, W, 160) bf16 holds the slice
+    sums [c2 | c3 | c4 | x5] and is updated in place.
+
+    Returns (q, y). Stages 0–3: q is the next stage's int8 input
+    `int8(clip(round(lrelu(v))))` of the slice c_{s+1} (v = h at stage 0,
+    P + h after), y None. Stage 4: y = (P[x5] + h) + t, then the block
+    carry `y·0.2 + body` where `body` is given; q = int8 of `y·rin` where
+    `rin` (a bf16 scalar tensor, the next dense block's 127/s_t) is given,
+    else None. Every step rounds to bf16 where the chain's ops do. The op
+    itself returns an absent output as an empty tensor.
+
+    CPU tensors → `int8_conv3x3_rrdb_stage_plain`. CUDA tensors → kernel K2
+    in mode 3, which needs contiguous tensors on one device, Cin a multiple
+    of 32 and Cout of 16; anything else raises. Its launches count in
+    `int8_conv3x3_requant.launches`, with K2's others.
+    """
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"int8_conv3x3_rrdb_stage: unsupported device "
+                         f"{x.device}")
+    q, y = torch.ops.irt.int8_conv3x3_rrdb_stage(x, weight, deq, bias, p, t,
+                                                 body, rin, int(stage))
+    return (None if stage == 4 and rin is None else q,
+            None if stage < 4 else y)
+
+
+def _launch_rrdb_stage(x, weight, deq, bias, p, t, body, rin, stage):
+    """Check the arguments, then launch K2's mode 3 on x's stream."""
+    nq, p_off = _check_rrdb_stage(x, weight, deq, bias, p, t, body, rin,
+                                  stage)
+    _check_kernel_args(x, weight, deq, bias, None, 1, "bf16_deq")
+    n, h, w, cin = x.shape
+    cout, pc = weight.shape[0], p.shape[3]
+    if any(a.device != x.device for a in (p, t, body, rin) if a is not None):
+        raise ValueError(f"p, t, body and rin must be on x's device "
+                         f"{x.device}")
+    if cin % CIN_MULTIPLE or cout % 16 or nq % 16 or pc % 8 or p_off % 8:
+        raise ValueError(f"the RRDB stage kernel takes Cin a multiple of "
+                         f"{CIN_MULTIPLE}, Cout and the int8 slice of 16, "
+                         f"and P's channels of 8; got Cin {cin}, Cout "
+                         f"{cout}, slice {nq}, P {pc} at {p_off}")
+    held = [a for a in (x, weight, p, t, body) if a is not None]
+    if not all(a.is_contiguous() for a in held):
+        raise ValueError("the RRDB stage kernel needs contiguous x, weight, "
+                         "p, t and body")
+    if any(a.data_ptr() % 16 for a in held):
+        raise ValueError("the RRDB stage kernel needs 16-byte aligned x, "
+                         "weight, p, t and body")
+    deq, bias, rin = (None if a is None else a.to(torch.bfloat16).contiguous()
+                      for a in (deq, bias, rin))
+    if stage < 4:
+        q = torch.empty((n, h, w, nq), dtype=torch.int8, device=x.device)
+        y = None
+    else:
+        y = torch.empty((n, h, w, cout), dtype=torch.bfloat16,
+                        device=x.device)
+        q = None if rin is None else torch.empty(
+            (n, h, w, cout), dtype=torch.int8, device=x.device)
+
+    def ptr(a):
+        return None if a is None else a.data_ptr()
+
+    lib = _kernel_lib()
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = lib.int8_conv3x3_rrdb_stage(
+            x.data_ptr(), weight.data_ptr(), deq.data_ptr(), ptr(bias),
+            p.data_ptr(), pc, p_off, int(stage > 0), nq, ptr(q), ptr(t),
+            ptr(body), ptr(rin), ptr(y), n, h, w, cin, cout, stream)
+    if err != 0:
+        msg = lib.int8_conv3x3_error_string(err).decode()
+        raise RuntimeError(f"int8_conv3x3_rrdb_stage launch failed: {msg} "
+                           f"({err})")
+    with _count_lock:
+        int8_conv3x3_requant.launches += 1
+    return q, y

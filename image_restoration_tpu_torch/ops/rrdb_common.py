@@ -21,6 +21,15 @@ def lrelu(x: torch.Tensor) -> torch.Tensor:
     return torch.where(x >= 0, x, mul(x, 0.2))
 
 
+def to_int8(t: torch.Tensor, r: torch.Tensor | None = None) -> torch.Tensor:
+    """clip(round(t · r), ±127) as int8, t·r rounded to bf16 first; r None
+    is the chain's factor 1."""
+    t = t.to(torch.bfloat16)
+    if r is not None:
+        t = t * r
+    return torch.clamp(torch.round(t), -127, 127).to(torch.int8)
+
+
 def nearest2x(x: torch.Tensor) -> torch.Tensor:
     """(N, H, W, C) → (N, 2H, 2W, C), each pixel repeated 2×2."""
     y = F.interpolate(x.permute(0, 3, 1, 2), scale_factor=2, mode="nearest")

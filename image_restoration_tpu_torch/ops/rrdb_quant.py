@@ -12,11 +12,19 @@ Port of `image_restoration_tpu/ops/rrdb_quant.py:44-202`:
   * int32 sums; int8 activations between stages; the dense block's residual
     and the block carry stay bf16. The six head and tail convs stay bf16.
 
-Every stage conv of `quantized_rrdb_forward` is one launch of kernel K2
-(`ops/int8_conv.py`, "bf16_deq" epilogue): 15 per RRDB block, 345 for
-RRDBNet-23. The forward records the spans `rrdb.head` (conv_first),
-`rrdb.body` (the blocks) and `rrdb.tail` (conv_body to conv_last), and adds
-its batch to the counter `rrdb.tiles` (`utils/profiler.py`). The weights are
+Every stage conv of `quantized_rrdb_forward` is one launch of kernel K2 in
+its RRDB stage mode (`ops/int8_conv.py` `int8_conv3x3_rrdb_stage`): the
+slice sums, LeakyReLU, requantization, residuals and block carry run in its
+epilogue on one running bf16 buffer P of slice sums, allocated once per
+forward. So a block is 15 launches and no other kernel, 345 launches for
+RRDBNet-23, and the body's only glue is the one quantization of `feat`
+before block 0. The arithmetic is the chain's op by op (the op's plain
+version is K2's "bf16_deq" epilogue followed by that glue), so the forward
+is bit-equal to it. The forward records the spans `rrdb.head`
+(conv_first), `rrdb.body` (the blocks) and `rrdb.tail` (conv_body to
+conv_last), adds its batch to the counter `rrdb.tiles`, its stage convs to
+`rrdb.stages` and those run with the fused epilogue to `rrdb.fused_stages`
+(`utils/profiler.py`). The weights are
 (Cout, 3, 3, Cin) int8, K2's layout, stacked over the blocks on a leading
 axis; head and tail weights are OIHW bf16. The host arithmetic of
 `quantize_rrdb_params` is the JAX package's, in numpy, so the quantized
@@ -32,10 +40,10 @@ import torch
 import torch.nn.functional as F
 
 from ..utils.profiler import count, span
-from .int8_conv import int8_conv3x3_requant
+from .int8_conv import int8_conv3x3_rrdb_stage
 from .packed_inference import RDBS, RRDB_HEAD_TAIL, conv_nhwc, rrdb_tail
 from .quantized_inference import bf16_vector, no_tf32
-from .rrdb_common import lrelu, mul
+from .rrdb_common import lrelu, mul, to_int8
 from .rrdb_widened import rdb_convs, stage_widths, widen_rdb
 
 _GC, _NF = 32, 64
@@ -136,41 +144,19 @@ def quantize_rrdb_params(net, act_scales) -> Dict:
     return q
 
 
-def _to_int8(t: torch.Tensor, r: torch.Tensor | None = None) -> torch.Tensor:
-    """clip(round(t · r), ±127) as int8, t·r rounded to bf16 first; r None
-    is the chain's factor 1."""
-    t = t.to(torch.bfloat16)
-    if r is not None:
-        t = t * r
-    return torch.clamp(torch.round(t), -127, 127).to(torch.int8)
-
-
-def _sl(t: torch.Tensor, widths, idx: int) -> torch.Tensor:
-    lo = sum(widths[:idx])
-    return t[..., lo:lo + widths[idx]]
-
-
-def _stage(t_q: torch.Tensor, sd: Dict, s: int) -> torch.Tensor:
-    """Stage s's int8 conv on K2: int8 in, bf16 acc·deq (+ b at stage 0)
-    out."""
-    return int8_conv3x3_requant(t_q, sd[f"w{s}"], sd[f"deq{s}"],
-                                sd["b"] if s == 0 else None,
-                                epilogue="bf16_deq")
-
-
-def _quant_rdb(t: torch.Tensor, sd: Dict) -> torch.Tensor:
-    """t bf16 (N, H, W, 64) → the same; the int8 widened dense block, with
-    the JAX chain's order of the bf16 slice sums."""
-    outs = [_stage(_to_int8(t, sd["rin_t"]), sd, 0)]
-    for k in range(1, 5):
-        acc = _sl(outs[0], _WIDTHS[0], k - 1)
-        for s in range(1, k):
-            acc = acc + _sl(outs[s], _WIDTHS[s], k - 1 - s)
-        outs.append(_stage(_to_int8(lrelu(acc)), sd, k))
-    x5 = _sl(outs[0], _WIDTHS[0], 4)
-    for s in range(1, 5):
-        x5 = x5 + _sl(outs[s], _WIDTHS[s], 4 - s)
-    return x5 + t  # the x5 slices carry the 0.2 fold
+def _quant_rdb(x_q: torch.Tensor, t: torch.Tensor, sd: Dict,
+               p: torch.Tensor, body: torch.Tensor | None,
+               rin_next: torch.Tensor | None):
+    """One int8 widened dense block on K2's RRDB stage mode: x_q int8 (N, H,
+    W, 64) = t·rin_t, t bf16 (N, H, W, 64), P the running slice sums.
+    Returns (the next dense block's int8 input, or None where `rin_next` is
+    None; t', or the block carry where `body` is given)."""
+    for s in range(4):
+        x_q, _ = int8_conv3x3_rrdb_stage(x_q, sd[f"w{s}"], sd[f"deq{s}"],
+                                         sd["b"] if s == 0 else None, p,
+                                         stage=s)
+    return int8_conv3x3_rrdb_stage(x_q, sd["w4"], sd["deq4"], None, p, t,
+                                   body, rin_next, stage=4)
 
 
 @torch.no_grad()
@@ -183,12 +169,20 @@ def quantized_rrdb_forward(q: Dict, x: torch.Tensor, num_block: int,
     with span("rrdb.head"):
         feat = conv_nhwc(x.to(torch.bfloat16), *q["conv_first"])
     with span("rrdb.body"):
-        body = feat
-        for bi in range(num_block):
-            t = body
-            for rdb in RDBS:
-                t = _quant_rdb(t, {k: v[bi]
-                                   for k, v in q["blocks"][rdb].items()})
-            body = mul(t, 0.2) + body
+        dense = [{k: v[bi] for k, v in q["blocks"][rdb].items()}
+                 for bi in range(num_block) for rdb in RDBS]
+        body = feat.contiguous()
+        if dense:
+            p = body.new_empty((*body.shape[:3], sum(_WIDTHS[1])))
+            x_q, t = to_int8(body, dense[0]["rin_t"]), body
+            for i, sd in enumerate(dense):
+                carry = i % len(RDBS) == len(RDBS) - 1
+                x_q, t = _quant_rdb(
+                    x_q, t, sd, p, body if carry else None,
+                    dense[i + 1]["rin_t"] if i + 1 < len(dense) else None)
+                if carry:
+                    body = t
+        count("rrdb.stages", 5 * len(dense))
+        count("rrdb.fused_stages", 5 * len(dense))
     with span("rrdb.tail"):
         return rrdb_tail(feat, body, q)

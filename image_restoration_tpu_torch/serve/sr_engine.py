@@ -23,9 +23,12 @@ geometry before anything is built.
 RRDBNet, num_feat 64, num_grow_ch 32, ×4): a random (seeded) or `.pth` net
 calibrated on the same batch (`calibrate_rrdb_act_scales`), quantized on the
 widened dense-block form (`quantize_rrdb_params`) and served by
-`quantized_rrdb_forward`, 15 K2 launches ("bf16_deq" epilogue) per block,
-345 a call at num_block 23, between the same uint8 `/255` and clip and
-round. It is int8 only, at those widths, with no QAT checkpoint.
+`quantized_rrdb_forward`, 15 K2 launches per block in K2's RRDB stage mode
+(the dense block's slice sums, LeakyReLU, requantization and residuals in
+its epilogue, no other kernel between them), 345 a call at num_block 23,
+between the same uint8 `/255` and clip and round; the body's one other
+kernel is the quantization of `feat` before block 0. It is int8 only, at
+those widths, with no QAT checkpoint.
 """
 
 from __future__ import annotations

@@ -264,15 +264,72 @@ def test_int8_conv3x3_bf16_deq_matches_plain(cuda_device, n, h, w, cin, cout):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("n,h,w", [(2, 544, 544), (1, 37, 61)],
+                         ids=["544", "odd"])
+@pytest.mark.parametrize("variant", ["stage0", "stage1", "stage2", "stage3",
+                                     "stage4", "carry", "last"])
+def test_int8_conv3x3_rrdb_stage_matches_plain(cuda_device, variant, n, h,
+                                               w):
+    """K2's RRDB stage mode against its plain version on the card, over
+    stages 0 … s of one dense block (`rrdb_glue.run_stages`): the last
+    stage's outputs and the slice sums P bit for bit, signed zeros
+    included, and both equal to the "bf16_deq" stage convs followed by the
+    chain's glue. At the cell's 544² and at 37 × 61, whose tiles cross H
+    and W; Cout 160 and 96 leave part of a 192- or 128-channel slice
+    masked. Some sums pass 2^22 (the kernel's scalar epilogue)."""
+    from image_restoration_tpu_torch.ops.int8_conv import (
+        int8_conv3x3_requant, int8_conv3x3_rrdb_stage,
+        int8_conv3x3_rrdb_stage_plain)
+    from rrdb_glue import VARIANTS, dense_case, glue_stages, run_stages
+    case = dense_case(n, h, w, h + len(variant), cuda_device)
+    before = int8_conv3x3_requant.launches
+    got, p = run_stages(int8_conv3x3_rrdb_stage, case, variant)
+    torch.cuda.synchronize()
+    assert int8_conv3x3_requant.launches == before + VARIANTS[variant][0] + 1
+    want, want_p = run_stages(int8_conv3x3_rrdb_stage_plain, case, variant)
+    glue, glue_p = glue_stages(case, variant)
+    assert [g.dtype for g in got] == [g.dtype for g in want] \
+        == [g.dtype for g in glue]
+    for a, b, c in zip(got + [p], want + [want_p], glue + [glue_p]):
+        assert a.shape == b.shape == c.shape
+        if a.dtype == torch.bfloat16:
+            a, b, c = (v.view(torch.int16) for v in (a, b, c))
+        assert torch.equal(a, b) and torch.equal(b, c)
+
+
+@pytest.mark.cuda
+def test_int8_conv3x3_rrdb_stage_rejects_bad_inputs(cuda_device):
+    from image_restoration_tpu_torch.ops.int8_conv import \
+        int8_conv3x3_rrdb_stage
+    from rrdb_glue import dense_case
+    case = dense_case(1, 9, 10, 0, cuda_device)
+    x, wt, d, p = case["x"][4], case["w"][4], case["deq"][4], case["p"]
+    with pytest.raises(ValueError, match="contiguous"):
+        int8_conv3x3_rrdb_stage(x, wt, d, None, p,
+                                case["t"].transpose(1, 2).contiguous()
+                                .transpose(1, 2), stage=4)
+    with pytest.raises(ValueError, match="device"):
+        int8_conv3x3_rrdb_stage(x, wt, d, None, p, case["t"].cpu(), stage=4)
+    with pytest.raises(ValueError, match="multiple"):
+        int8_conv3x3_rrdb_stage(x[..., :16].contiguous(),
+                                wt[..., :16].contiguous(), d, None, p,
+                                case["t"], stage=4)
+
+
+@pytest.mark.cuda
 def test_int8_rrdb_forward_on_card(cuda_device):
-    """One int8 RRDB forward at num_block 1 on the card: 15 K2 launches (3
-    dense blocks × 5 stages), and equal bit for bit to the same chain on
-    K2's plain version on the card."""
+    """The int8 RRDB forward at num_block 2 on the card: 30 K2 launches (2
+    blocks × 3 dense blocks × 5 stages, the glue in their epilogues), and
+    bit-equal to the same chain with the glue as separate ops
+    (`rrdb_glue.glue_forward`: the stage convs on K2's "bf16_deq" epilogue,
+    then PyTorch's element-wise ops) on the card, and to the forward on
+    the RRDB stage op's plain version."""
     from unittest import mock
     from image_restoration_tpu_torch.archs import build_network
     from image_restoration_tpu_torch.ops import int8_conv
     from image_restoration_tpu_torch.ops import rrdb_quant as rq
-    net = build_network(dict(type="RRDBNet", num_feat=64, num_block=1,
+    from rrdb_glue import glue_forward
+    net = build_network(dict(type="RRDBNet", num_feat=64, num_block=2,
                              num_grow_ch=32, scale=4),
                         torch.Generator().manual_seed(2)).to(cuda_device)
     rng = np.random.default_rng(6)
@@ -280,15 +337,16 @@ def test_int8_rrdb_forward_on_card(cuda_device):
         cuda_device)
     q = rq.quantize_rrdb_params(net, rq.calibrate_rrdb_act_scales(net, x))
     before = int8_conv.int8_conv3x3_requant.launches
-    got = rq.quantized_rrdb_forward(q, x, 1)
+    got = rq.quantized_rrdb_forward(q, x, 2)
     torch.cuda.synchronize()
-    assert int8_conv.int8_conv3x3_requant.launches == before + 15
-    with mock.patch.object(rq, "int8_conv3x3_requant",
-                           int8_conv.int8_conv3x3_requant_plain):
-        want = rq.quantized_rrdb_forward(q, x, 1)
+    assert int8_conv.int8_conv3x3_requant.launches == before + 30
+    want, _ = glue_forward(q, x, 2)
+    with mock.patch.object(rq, "int8_conv3x3_rrdb_stage",
+                           int8_conv.int8_conv3x3_rrdb_stage_plain):
+        plain = rq.quantized_rrdb_forward(q, x, 2)
     assert got.shape == (2, 96, 80, 3) and got.dtype == torch.bfloat16
     assert bool(torch.isfinite(got.float()).all())
-    assert torch.equal(got, want)
+    assert torch.equal(got, want) and torch.equal(got, plain)
 
 
 @pytest.fixture

@@ -7,9 +7,9 @@ detector (`scripts/export_detector.py`), mirroring the JAX package's
 tests/test_engine_gfpgan.py, tests/test_serve_engine.py and
 tests/test_export_restorer.py; the port's GFPGAN engine against the JAX
 package's at the same weights; an artifact in a fresh interpreter without
-jax; the device-type check; and `torch.library.opcheck` of the three
-kernel ops (K1, K2, K3). Every network's weights come from flax through
-`convert/from_jax.py`."""
+jax; the device-type check; and `torch.library.opcheck` of the kernel
+ops (K1, K2 and its RRDB stage op, K3). Every network's weights come from
+flax through `convert/from_jax.py`."""
 
 import json
 import math
@@ -35,7 +35,8 @@ from image_restoration_tpu_torch.convert import (
 from image_restoration_tpu_torch.detect.engine import PlateDetector
 from image_restoration_tpu_torch.ops.fused_act import fused_bias_lrelu_op
 from image_restoration_tpu_torch.ops.im2col_conv import conv3x3_im2col_op
-from image_restoration_tpu_torch.ops.int8_conv import int8_conv3x3_requant_op
+from image_restoration_tpu_torch.ops.int8_conv import (
+    int8_conv3x3_requant_op, int8_conv3x3_rrdb_stage_op)
 from image_restoration_tpu_torch.scripts import export_detector
 from image_restoration_tpu_torch.scripts import export_gfpgan as tgf
 from image_restoration_tpu_torch.scripts import export_restorer as tsr
@@ -401,6 +402,27 @@ def _k2_args(epilogue):
         epilogue]
 
 
+def _rrdb_stage_args(variant):
+    """K2's RRDB stage op on one dense block's shapes (P of 160 channels):
+    stage 0 (writes P), stage 2 (reads and updates it), stage 4 with the
+    block carry and the next input's scale."""
+    g = torch.Generator().manual_seed(3)
+    stage, cout = {"rrdb-0": (0, 192), "rrdb-2": (2, 128),
+                   "rrdb-carry": (4, 64)}[variant]
+    cin = 64 if stage == 0 else 32
+    x = torch.randint(-127, 128, (1, 5, 6, cin), dtype=torch.int8,
+                      generator=g)
+    w = torch.randint(-127, 128, (cout, 3, 3, cin), dtype=torch.int8,
+                      generator=g)
+    deq = (torch.rand(cout, generator=g) * 1e-4).bfloat16()
+    b = torch.randn(cout, generator=g).bfloat16() if stage == 0 else None
+    p = torch.randn(1, 5, 6, 160, generator=g).bfloat16()
+    t, body = (torch.randn(1, 5, 6, 64, generator=g).bfloat16()
+               if stage == 4 else None for _ in range(2))
+    rin = torch.tensor(2.0, dtype=torch.bfloat16) if stage == 4 else None
+    return (x, w, deq, b, p, t, body, rin, stage)
+
+
 def _k1_args(dtype, with_bias=True):
     g = torch.Generator().manual_seed(1)
     x = torch.randn(3, 5, 8, generator=g).to(dtype)
@@ -423,15 +445,20 @@ def _k3_args(dtype):
     (fused_bias_lrelu_op, "k1-f64-grad"),
     (int8_conv3x3_requant_op, "f32"), (int8_conv3x3_requant_op, "bf16"),
     (int8_conv3x3_requant_op, "bf16_deq"),
-    (conv3x3_im2col_op, "k3-f32"), (conv3x3_im2col_op, "k3-bf16")])
+    (conv3x3_im2col_op, "k3-f32"), (conv3x3_im2col_op, "k3-bf16"),
+    (int8_conv3x3_rrdb_stage_op, "rrdb-0"),
+    (int8_conv3x3_rrdb_stage_op, "rrdb-2"),
+    (int8_conv3x3_rrdb_stage_op, "rrdb-carry")])
 def test_opcheck(op, args):
-    """Schema, fake impl, autograd registration and AOT dispatch of each
-    kernel op on the CPU (K1 with grad: its registered backward)."""
+    """Schema (the RRDB stage op mutates P and nothing else), fake impl,
+    autograd registration and AOT dispatch of each kernel op on the CPU
+    (K1 with grad: its registered backward)."""
     built_args = {
         "k1-f32": lambda: _k1_args(torch.float32),
         "k1-bf16-nobias": lambda: _k1_args(torch.bfloat16, False),
         "k1-f64-grad": lambda: _k1_args(torch.float64),
         "k3-f32": lambda: _k3_args(torch.float32),
         "k3-bf16": lambda: _k3_args(torch.bfloat16),
-    }.get(args, lambda: _k2_args(args))()
+    }.get(args, lambda: (_rrdb_stage_args(args) if args.startswith("rrdb")
+                         else _k2_args(args)))()
     torch.library.opcheck(op, built_args)

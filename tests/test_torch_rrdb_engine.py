@@ -50,23 +50,23 @@ def _spec():
 
 @pytest.fixture(scope="module")
 def served():
-    """One photo through the engine, its K2 launches (the op calls of the
-    chain, counted on the CPU where the op runs its plain version), the
-    recorder's spans and counters, and the reference's answers at int8
-    and at the int4 control."""
+    """One photo through the engine, its K2 launches (the RRDB stage op's
+    calls, counted on the CPU where the op runs its plain version, by
+    stage), the recorder's spans and counters, and the reference's answers
+    at int8 and at the int4 control."""
     spec = _spec()
     dev = torch.device("cpu")
     params, engine = cell.build(spec, SEED, dev)
     img = smooth_images(1, H, W, SEED, "pool", dev, cell=16)[0].numpy()
     calls = []
-    inner = tq.int8_conv3x3_requant
+    inner = tq.int8_conv3x3_rrdb_stage
 
     def counted(*a, **k):
-        calls.append(k.get("epilogue"))
+        calls.append(k["stage"])
         return inner(*a, **k)
 
     profiler.reset()
-    with mock.patch.object(tq, "int8_conv3x3_requant", counted):
+    with mock.patch.object(tq, "int8_conv3x3_rrdb_stage", counted):
         out = engine(img)
     snap = profiler.snapshot()
     refs = {bits: cell.reference(spec, params, SEED, dev,
@@ -92,11 +92,15 @@ def test_engine_against_the_reference(served, bits):
 
 
 def test_launches_spans_and_tile_counter(served):
-    """Two engine calls of 2 tiles: 15 K2 launches ("bf16_deq") per block
-    and call; `rrdb.tiles` counts every tile handed to the forward, the
-    zero one too; the spans sit inside the tiler's `tiler.run`."""
-    assert served["launches"] == ["bf16_deq"] * (2 * 15 * NB)
+    """Two engine calls of 2 tiles: 15 K2 launches per block and call, each
+    an RRDB stage op call (stages 0–4 of each dense block), and every stage
+    conv counted as run with the fused epilogue; `rrdb.tiles` counts every
+    tile handed to the forward, the zero one too; the spans sit inside the
+    tiler's `tiler.run`."""
+    assert served["launches"] == [0, 1, 2, 3, 4] * (2 * 3 * NB)
     counters = served["snap"]["counters"]
+    assert counters["rrdb.fused_stages"] == counters["rrdb.stages"] \
+        == 2 * 15 * NB
     assert counters["rrdb.tiles"] == counters["tiler.tiles"] == 4
     assert counters["tiler.pad_tiles"] == 1
     names = {r[3]: r for r in served["snap"]["spans"]}

@@ -1,6 +1,7 @@
 """The port's int8 RRDB chain against the JAX package
 (`image_restoration_tpu/ops/rrdb_quant.py`): calibration, the quantized
-weights, kernel K2's "bf16_deq" epilogue (plain version) and
+weights, kernel K2's "bf16_deq" epilogue (plain version), its RRDB stage op
+against that epilogue and the chain's glue (`rrdb_glue.py`) and
 `quantized_rrdb_forward`, at num_feat 64 / grow 32 (the widths the chain
 takes), 2 blocks. Integer and bf16 results agree exactly unless a test says
 which op differs and bounds it."""
@@ -21,7 +22,9 @@ from image_restoration_tpu_torch.convert import state_dict_from_jax
 from image_restoration_tpu_torch.ops import packed_inference as tpacked
 from image_restoration_tpu_torch.ops import rrdb_quant as tq
 from image_restoration_tpu_torch.ops.int8_conv import (
-    int8_conv3x3_requant, int8_conv3x3_requant_plain)
+    int8_conv3x3_requant, int8_conv3x3_requant_plain,
+    int8_conv3x3_rrdb_stage, int8_conv3x3_rrdb_stage_plain)
+from rrdb_glue import VARIANTS, dense_case, glue_stages, run_stages
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -140,6 +143,53 @@ def test_bf16_deq_checks():
         == torch.bfloat16
 
 
+@pytest.mark.parametrize("variant", list(VARIANTS))
+def test_rrdb_stage_plain_matches_glue(variant):
+    """The RRDB stage op's plain version (called directly and through
+    ``irt::int8_conv3x3_rrdb_stage``), run over stages 0 … s of one dense
+    block on random int8 inputs, against K2's "bf16_deq" epilogue followed
+    by the chain's glue op by op: stage s's outputs and the slice sums P
+    bit for bit, signed zeros included. Variants: each stage, stage 4 with
+    the block carry, and the network's last dense block (carry, no next
+    input). Some sums pass 2^22 (`dense_case`)."""
+    case = dense_case(2, 9, 11, 11 + len(variant), "cpu")
+    want, want_p = glue_stages(case, variant)
+    for op in (int8_conv3x3_rrdb_stage_plain, int8_conv3x3_rrdb_stage):
+        got, p = run_stages(op, case, variant)
+        assert [g.dtype for g in got] == [w.dtype for w in want]
+        for g, w in zip(got + [p], want + [want_p]):
+            assert g.shape == w.shape
+            if g.dtype == torch.bfloat16:
+                g, w = g.view(torch.int16), w.view(torch.int16)
+            assert torch.equal(g, w)
+    # the case reaches LeakyReLU's negative side and the int8 clip
+    if VARIANTS[variant][0] < 4:
+        assert got[0].min().item() < 0 and got[0].max().item() == 127
+
+
+def test_rrdb_stage_checks():
+    x = torch.zeros((1, 5, 5, 32), dtype=torch.int8)
+    w = torch.zeros((64, 3, 3, 32), dtype=torch.int8)
+    d = torch.ones(64, dtype=torch.bfloat16)
+    p = torch.zeros((1, 5, 5, 160), dtype=torch.bfloat16)
+    t = torch.zeros((1, 5, 5, 64), dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="needs the residual"):
+        int8_conv3x3_rrdb_stage(x, w, d, None, p, stage=4)
+    with pytest.raises(ValueError, match="stage 4's"):
+        int8_conv3x3_rrdb_stage(x, w, d, None, p, t, stage=3)
+    with pytest.raises(ValueError, match="stage must be"):
+        int8_conv3x3_rrdb_stage(x, w, d, None, p, stage=5)
+    with pytest.raises(ValueError, match="does not fit"):
+        int8_conv3x3_rrdb_stage(x, w, d, None, p[..., :32], stage=1)
+    with pytest.raises(ValueError, match="p must be"):
+        int8_conv3x3_rrdb_stage(x, w, d, None, p.float(), stage=1)
+    q, y = int8_conv3x3_rrdb_stage(x, w, d, None, p, t, stage=4)
+    assert q is None  # no rin: the network's last dense block
+    assert y.dtype == torch.bfloat16 and y.shape == (1, 5, 5, 64)
+    q, y = int8_conv3x3_rrdb_stage(x, w, d, None, p, stage=1)
+    assert y is None and q.dtype == torch.int8 and q.shape == (1, 5, 5, 32)
+
+
 def _xla_conv(t, w, b=None):
     """The chain's bf16 head/tail conv computed by XLA (`rrdb_widened.py`
     `_conv`), on the port's tensors."""
@@ -168,7 +218,8 @@ def _jax_stage_inputs(q, x):
 def test_quantized_forward_matches_jax(nets):
     """The int8 chain at num_feat 64, 2 blocks, 24²: every int8 stage input
     equal and the bf16 output bit-equal to `jax.jit(quantized_rrdb_forward)`
-    on the same weights. One op is taken from XLA: the six bf16 head/tail
+    on the same weights, the stage inputs recorded at the RRDB stage op's
+    calls. One op is taken from XLA: the six bf16 head/tail
     convs, whose float32 sums PyTorch's CPU conv orders differently (see the
     next test for the port's own convs)."""
     _, params, net, x, scales = nets
@@ -183,11 +234,11 @@ def test_quantized_forward_matches_jax(nets):
 
     def record(t, *a, **k):
         seen.append(t.numpy())
-        return int8_conv3x3_requant(t, *a, **k)
+        return int8_conv3x3_rrdb_stage(t, *a, **k)
 
     with mock.patch.object(tq, "conv_nhwc", _xla_conv), \
             mock.patch.object(tpacked, "conv_nhwc", _xla_conv), \
-            mock.patch.object(tq, "int8_conv3x3_requant", record):
+            mock.patch.object(tq, "int8_conv3x3_rrdb_stage", record):
         got = tq.quantized_rrdb_forward(q, _t(x), NB)
     assert got.dtype == torch.bfloat16 and got.shape == (2, 96, 96, 3)
     assert len(seen) == len(want_inputs)
